@@ -7,17 +7,35 @@ Run from the repository root, on a machine with one Hopper card:
 
 Phases (each prints one line; any failure raises and the exit code is non-zero):
   0  require an sm_90 card; print the environment record and nvidia-smi's name/power line
-  1  build csrc/*.cu for sm_90a (nvcc, at first use) and print the build time
+  1  build csrc/*.cu for sm_90a (nvcc, one process per source, at first use), print the
+     build time and ptxas report; the shared-memory models of config.py must equal the
+     kernels' own counts for every tile (and depth) that KernelConfig.validate accepts
   2  kernel vs plain torch version on the card over the grid
      {f32, bf16 acc} x {kn, nk} x {gk == 1, gk > 1} x {aligned, unaligned}
-     x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), and at the main-path
-     shapes: 0/1 inputs must agree exactly (the epilogue cases then use bias + relu, since
+     x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), at the main-path
+     shapes, and with long K intervals (bk = K = 8192, bk = 4096): 0/1 inputs must agree
+     exactly (the epilogue cases then use bias + relu, since
      no library's tanh is correctly rounded), normal inputs within
      ops.matmul.allowed_error
+  2b the staged kernel vs its plain version over {f32, bf16 acc} x {kn, nk} x depth
+     {2, 3, 4, 6, 8} x tiles x {bf16, f32 out}, the depth clamp (gk < depth), gk == 1
+     (which must not launch it), and the tuning shape's staged candidates: 0/1 inputs
+     exact, normal inputs within allowed_error(..., bk=K, acc_dtype='float32')
   3  the slice: scripts/eval_one_shape_torch.py's main() for the bring-up shapes
      (gate with guard bands -> offline bench -> summary); every gate must pass
-  4  the launch counters, zeroed just before phase 3, must show every kernel body ran
-  5  per-kernel times on the card against the plain version and torch.matmul
+  4  the launch counters, zeroed just before phase 3, must show every kernel body of the
+     heuristic path ran
+  tune  `python -m tpul2_torch.autotune` (its main()) for 64x8192x8192 f32 into
+     runs/chip_smoke/tunedb_h100.json, with few candidates and rounds: every candidate
+     must launch, at least two staged candidates must be timed, the staged kernel must
+     have launched, and the entry must be on disk
+  tuned dispatch  a DB holding the tune's fastest staged candidate for both families at
+     64x8192x8192 (runs/chip_smoke/tunedb_staged.json, via TPUL2_TORCH_TUNEDB), then
+     eval_one_shape_torch's main() for both: every gate must pass with 0 guard hits, and
+     the staged kernel must launch on this path
+  5  per-kernel times on the card against the plain version and torch.matmul, with the
+     bound of each (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s), and
+     the staged kernel's time at every depth on the dispatched tile
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -25,8 +43,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib.util
+import io
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -41,6 +62,11 @@ SLICE_SHAPES = [
 ]
 GATE_BATCH = 2   # the gate's batched variant (harness.correctness.gate_kernel_variants)
 GRID_BATCH = 3
+#: The tuning path's shape: the skinny serving shape, where the kStage axis competes.
+TUNE_SHAPE = (64, 8192, 8192)
+#: Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM rate.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 @contextlib.contextmanager
@@ -138,6 +164,70 @@ def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one):
     return diff.max().item()
 
 
+def _staged_cases(candidate_configs):
+    """(name, m, n, k, cfg kwargs, out dtype name, launches) of phase 2b; ``launches`` is
+    whether the staged kernel must launch (False where gk == 1 takes the single-K one)."""
+    tiles = [(bm, bn) for bm in (32, 64, 128) for bn in (32, 64, 128)]
+    cases = []
+    i = 0
+    for acc in ("float32", "bfloat16"):
+        for layout in ("kn", "nk"):
+            for depth in (2, 3, 4, 6, 8):
+                bm, bn = tiles[i % len(tiles)]
+                kw = dict(bm=bm, bn=bn, bk=256, acc_dtype=acc, rhs_layout=layout,
+                          pipeline_depth=depth, grid_order="nm" if i % 2 else "mn")
+                out = "float32" if i % 3 else "bfloat16"
+                cases.append((f"staged/{acc}/{layout}/d{depth}", 256, 384, 2048, kw, out, True))
+                i += 1
+            # gk = 3 < depth 8: the ring is clamped to 3 slots
+            kw = dict(bm=64, bn=128, bk=256, acc_dtype=acc, rhs_layout=layout, pipeline_depth=8)
+            cases.append((f"staged-clamp/{acc}/{layout}", 128, 256, 768, kw, "float32", True))
+            # gk == 1: the single-K kernel, not the ring
+            kw = dict(bm=128, bn=64, bk=512, acc_dtype=acc, rhs_layout=layout, pipeline_depth=4)
+            cases.append((f"staged-gk1/{acc}/{layout}", 128, 256, 512, kw, "bfloat16", False))
+    m, n, k = TUNE_SHAPE  # the tuning path's staged candidates, at its shape
+    for c in candidate_configs(m, n, k, "float32"):
+        if c.pipeline_depth >= 2:
+            kw = {f: getattr(c, f) for f in ("bm", "bn", "bk", "acc_dtype", "rhs_layout",
+                                             "pipeline_depth", "grid_order")}
+            cases.append((f"staged-tune/{c.bm}x{c.bn}/{c.rhs_layout}/d{c.pipeline_depth}",
+                          m, n, k, kw, "bfloat16", True))
+    return cases
+
+
+def _check_staged(torch, mm, pl, gen, m, n, k, cfg, out_name, zero_one):
+    """Run the staged wrapper and its plain version on the same inputs; return max |diff|
+    (raises if out of tolerance)."""
+    out_dtype = getattr(torch, out_name)
+    a = _inputs(torch, gen, (m, k), zero_one)
+    rhs = _inputs(torch, gen, (n, k) if cfg.rhs_layout == "nk" else (k, n), zero_one)
+    got = pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=out_dtype)
+    want = pl.pipelined_reference(a, rhs, cfg.rhs_layout, out_dtype)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("non-finite kernel output")
+    diff = (got.float() - want.float()).abs()
+    if zero_one:
+        if diff.max().item() != 0.0:
+            raise AssertionError(f"0/1 inputs: max |diff| {diff.max().item()} != 0")
+    else:
+        tol = mm.allowed_error(a, rhs, k, "float32", cfg.rhs_layout, out_dtype)
+        bad = (diff > tol).sum().item()
+        if bad:
+            raise AssertionError(f"normal inputs: {bad} elements beyond tolerance, "
+                                 f"max |diff| {diff.max().item()}")
+    return diff.max().item()
+
+
+def _bound(batch: int, m: int, n: int, k: int, out_bytes: int = 2) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time the card could take for the product:
+    each bf16 input read once and the output written once at PEAK_BYTES, or the FLOPs at
+    PEAK_FLOPS, whichever is larger."""
+    t_ops = 2.0 * batch * m * n * k / PEAK_FLOPS * 1e3
+    t_bytes = batch * ((m * k + k * n) * 2 + m * n * out_bytes) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _time_ms(torch, fn, reps: int = 20) -> float:
     """Mean device milliseconds per call over ``reps`` back-to-back calls (CUDA events)."""
     for _ in range(3):
@@ -164,13 +254,26 @@ def main(argv=None) -> int:
         return 1
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
-    from tpul2_torch.config import KernelConfig
+    from tpul2_torch.autotune import __main__ as tune_cli
+    from tpul2_torch.autotune import db as db_mod
+    from tpul2_torch.config import PIPELINE_DEPTHS, KernelConfig, candidate_configs
     from tpul2_torch.dispatch import candidate_fn, resolve_config
     from tpul2_torch.ops import baselines
     from tpul2_torch.ops import batched as bmm
     from tpul2_torch.ops import matmul as mm
+    from tpul2_torch.ops import pipelined as pl
     from tpul2_torch.ops._build import load_library
     from tpul2_torch.utils.platform import device_info, require_hopper
+
+    def zero_counters():
+        mm.LAUNCHES_MULTI_K = mm.LAUNCHES_SINGLE_K = 0
+        bmm.LAUNCHES_MULTI_K = bmm.LAUNCHES_SINGLE_K = 0
+        pl.LAUNCHES_STAGED = 0
+
+    def counters() -> dict:
+        return {"multi_k": mm.LAUNCHES_MULTI_K, "single_k": mm.LAUNCHES_SINGLE_K,
+                "batched_multi_k": bmm.LAUNCHES_MULTI_K,
+                "batched_single_k": bmm.LAUNCHES_SINGLE_K, "staged": pl.LAUNCHES_STAGED}
 
     record = {}
     with phase("0 device"):
@@ -185,7 +288,8 @@ def main(argv=None) -> int:
 
     with phase("1 build"):
         lib = load_library()
-        regs = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in lib.build_log.splitlines()
+                if "registers" in ln or "entry function" in ln or "spill" in ln]
         for ln in regs:
             print(f"  ptxas: {ln}")
         if lib.tl2_kstep() != 32:
@@ -194,11 +298,18 @@ def main(argv=None) -> int:
             for bn in (32, 64, 128):
                 if lib.tl2_smem_bytes(bm, bn) != KernelConfig(bm=bm, bn=bn).smem_bytes():
                     raise AssertionError(f"smem model differs from the kernel at {bm}x{bn}")
+                for depth in PIPELINE_DEPTHS[1:]:
+                    cfg = KernelConfig(bm=bm, bn=bn, pipeline_depth=depth)
+                    if (cfg.validate() is None and lib.tl2_staged_smem_bytes(bm, bn, depth)
+                            != cfg.smem_bytes()):
+                        raise AssertionError(f"staged smem model differs from the kernel at "
+                                             f"{bm}x{bn} depth {depth}")
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds
+        record["ptxas"] = regs
 
     max_err = {"multi_k": 0.0, "single_k": 0.0, "batched_multi_k": 0.0,
-               "batched_single_k": 0.0}
+               "batched_single_k": 0.0, "staged": 0.0}
 
     def body(batch, k, bk):
         kind = "multi_k" if -(-k // bk) > 1 else "single_k"
@@ -216,6 +327,16 @@ def main(argv=None) -> int:
             cases.append((f"slice/{m}x{n}x{k}/{acc}", 1, m, n, k, kw, None, "bfloat16"))
             cases.append((f"slice-batched/{m}x{n}x{k}/{acc}", GATE_BATCH, m, n, k, kw, None,
                           "bfloat16"))
+        # long K intervals, up to bk = K: the tuner's candidate space offers them, and the
+        # f32 sum over one interval must stay inside allowed_error on normal inputs
+        m, n, k = TUNE_SHAPE
+        for bk, layout, acc in ((k, "kn", "float32"), (k // 2, "nk", "float32"),
+                                (k // 2, "kn", "bfloat16")):
+            kw = dict(bm=32, bn=64, bk=bk, acc_dtype=acc, rhs_layout=layout)
+            cases.append((f"long-interval/{m}x{n}x{k}/{acc}/{layout}", 1, m, n, k, kw, None,
+                          "float32"))
+        cases.append(("long-interval/4096x4096x4096/float32", 1, 4096, 4096, 4096,
+                      dict(bm=128, bn=128, bk=4096), None, "float32"))
         for name, batch, m, n, k, kw, act, out in cases:
             cfg = KernelConfig(**kw)
             errs = []
@@ -228,40 +349,148 @@ def main(argv=None) -> int:
                   f"normal max|diff| {errs[1]:.3g}")
         record["phase2_cases"] = len(cases)
 
+    with phase("2b staged kernel vs plain"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        cases = _staged_cases(candidate_configs)
+        for name, m, n, k, kw, out, launches in cases:
+            cfg = KernelConfig(**kw)
+            before = pl.LAUNCHES_STAGED
+            errs = [_check_staged(torch, mm, pl, gen, m, n, k, cfg, out, zero_one)
+                    for zero_one in (True, False)]
+            if (pl.LAUNCHES_STAGED - before == 2) != launches:
+                raise AssertionError(f"{name}: staged launches {pl.LAUNCHES_STAGED - before}, "
+                                     f"expected {2 if launches else 0}")
+            if launches:
+                max_err["staged"] = max(max_err["staged"], errs[1])
+            print(f"  {name} {m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: 0/1 exact, "
+                  f"normal max|diff| {errs[1]:.3g}")
+        record["phase2b_cases"] = len(cases)
+        # precision of the f32 sums at the tuning shape, against an f64 product: the staged
+        # kernel, the plain version (cuBLAS f32) and tl2_matmul over one K interval (bk = K)
+        m, n, k = TUNE_SHAPE
+        cfg = next(KernelConfig(**kw) for _, cm, _, _, kw, _, _ in cases if cm == m)
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        ref = a.double() @ b.double()
+        outs = {"staged": pl.cuda_matmul_pipelined(a, b.t().contiguous() if cfg.rhs_layout
+                                                   == "nk" else b, cfg, out_dtype=torch.float32),
+                "plain": pl.pipelined_reference(a, b, "kn", torch.float32),
+                "tl2_matmul_one_interval": mm.cuda_matmul(
+                    a, b, KernelConfig(bm=cfg.bm, bn=cfg.bn, bk=k), out_dtype=torch.float32)}
+        record["precision_vs_f64"] = {name: (x.double() - ref).abs().max().item()
+                                      for name, x in outs.items()}
+        print(f"  max |err| vs an f64 product at {m}x{n}x{k}: "
+              + json.dumps(record["precision_vs_f64"]))
+
     eval_spec = importlib.util.spec_from_file_location(
         "eval_one_shape_torch", repo / "scripts" / "eval_one_shape_torch.py")
     eval_mod = importlib.util.module_from_spec(eval_spec)
     eval_spec.loader.exec_module(eval_mod)
 
-    mm.LAUNCHES_MULTI_K = mm.LAUNCHES_SINGLE_K = 0
-    bmm.LAUNCHES_MULTI_K = bmm.LAUNCHES_SINGLE_K = 0
+    def run_slice(m, n, k, acc, base) -> dict:
+        """eval_one_shape_torch's main(): gate -> bench -> summary; the gate must pass
+        with no guard-band hit.  Returns the speedup row."""
+        rc = eval_mod.main(["--mnk", str(m), str(n), str(k), "--acc", acc,
+                            "--warmup_seconds", "1", "--benchmark_seconds", "2",
+                            "--correctness_seconds", "20", "--correctness_iters", "3",
+                            "--base_dir", str(base)])
+        if rc != 0:
+            raise AssertionError(f"eval_one_shape_torch failed for {m}x{n}x{k} {acc}")
+        gate = json.loads((base / "zero_one_correctness_check_result.json").read_text())
+        row = json.loads((base / "speedup_row.json").read_text())
+        if not gate["pass"] or gate["stats"]["guard_hits"] or gate["variants"]["guard_hits"]:
+            raise AssertionError(f"gate did not pass cleanly: {gate.get('failure')}")
+        print(f"  {m}x{n}x{k} {acc}: gate pass, guard hits 0, speedups " + json.dumps(row))
+        return {"mnk": [m, n, k], "acc": acc, "speedups": row,
+                "gate_iterations": gate["stats"]["iterations"]}
+
+    zero_counters()
     record["slice"] = []
     with phase("3 slice"):
         for (m, n, k), acc in SLICE_SHAPES:
             base = repo / "runs" / "chip_smoke" / f"{m}x{n}x{k}_{acc}"
-            rc = eval_mod.main(["--mnk", str(m), str(n), str(k), "--acc", acc,
-                                "--warmup_seconds", "1", "--benchmark_seconds", "2",
-                                "--correctness_seconds", "20", "--correctness_iters", "3",
-                                "--base_dir", str(base)])
-            if rc != 0:
-                raise AssertionError(f"eval_one_shape_torch failed for {m}x{n}x{k} {acc}")
-            gate = json.loads((base / "zero_one_correctness_check_result.json").read_text())
-            row = json.loads((base / "speedup_row.json").read_text())
-            if not gate["pass"] or gate["stats"]["guard_hits"] or gate["variants"]["guard_hits"]:
-                raise AssertionError(f"gate did not pass cleanly: {gate.get('failure')}")
-            print(f"  {m}x{n}x{k} {acc}: gate pass, guard hits 0, speedups "
-                  + json.dumps(row))
-            record["slice"].append({"mnk": [m, n, k], "acc": acc, "speedups": row,
-                                    "gate_iterations": gate["stats"]["iterations"]})
-    launches = {"multi_k": mm.LAUNCHES_MULTI_K, "single_k": mm.LAUNCHES_SINGLE_K,
-                "batched_multi_k": bmm.LAUNCHES_MULTI_K,
-                "batched_single_k": bmm.LAUNCHES_SINGLE_K}
+            record["slice"].append(run_slice(m, n, k, acc, base))
+    launches = counters()
 
     with phase("4 launch counts"):
         print("  " + json.dumps(launches))
-        missing = [key for key, v in launches.items() if v <= 0]
+        missing = [key for key, v in launches.items() if v <= 0 and key != "staged"]
         if missing:
             raise AssertionError(f"main path never launched: {missing}")
+
+    tm, tn, tk = TUNE_SHAPE
+    with phase("tune"):
+        db_path = repo / "runs" / "chip_smoke" / "tunedb_h100.json"
+        db_path.unlink(missing_ok=True)
+        os.environ[db_mod.ENV_VAR] = str(db_path)
+        db_mod.reset_default_db()
+        zero_counters()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = tune_cli.main(["--mnk", str(tm), str(tn), str(tk), "--acc", "float32",
+                                "--max_candidates", "8", "--stage1_rounds", "3",
+                                "--stage2_rounds", "5", "--finalists", "4"])
+        tune_launches = counters()
+        if rc != 0:
+            raise AssertionError(f"the tuner exited {rc}")
+        tuned = json.loads(printed.getvalue())
+        for d in tuned["medians_ms"]:
+            c = d["config"]
+            name = (f"vendor {c['vendor_variant']}" if c["use_vendor"] else
+                    f"{c['bm']}x{c['bn']} bk={c['bk']} {c['grid_order']} {c['rhs_layout']} "
+                    f"depth={c['pipeline_depth']}")
+            print(f"  {name}: stage1 {d['stage1_ms']:.5f} ms, stage2 "
+                  + ("-" if d["stage2_ms"] is None else f"{d['stage2_ms']:.5f} ms"))
+        best = tuned["best"]
+        print(f"  winner: {json.dumps(best)}, {tuned['best_tflops']:.2f} TFLOP/s, "
+              f"{tuned['speedup']:.4f}x vs torch_matmul "
+              f"({tuned['torch_matmul_tflops']:.2f} TFLOP/s); launches "
+              + json.dumps(tune_launches))
+        staged = [d for d in tuned["medians_ms"] if d["config"]["pipeline_depth"] >= 2]
+        if tuned["n_launched"] != tuned["n_candidates"]:
+            raise AssertionError(f"only {tuned['n_launched']} of {tuned['n_candidates']} "
+                                 "candidates launched")
+        if len(staged) < 2:
+            raise AssertionError(f"{len(staged)} staged candidates timed (need 2)")
+        if tune_launches["staged"] <= 0:
+            raise AssertionError("the tuning path never launched the staged kernel")
+        stored = db_mod.TuneDB(path=db_path).load().get(tm, tn, tk, "float32")
+        if stored != KernelConfig(**best):
+            raise AssertionError(f"the winner is not on disk: {stored}")
+        record["tune"] = {**tuned, "launches": tune_launches}
+
+    with phase("tuned dispatch"):
+        fastest = min(staged, key=lambda d: d["stage1_ms"])
+        staged_cfg = KernelConfig(**fastest["config"])
+        reference_ms = next(d["stage1_ms"] for d in tuned["medians_ms"]
+                            if d["config"]["use_vendor"]
+                            and d["config"]["vendor_variant"] == "torch_matmul")
+        db_path = repo / "runs" / "chip_smoke" / "tunedb_staged.json"
+        db_path.unlink(missing_ok=True)
+        db = db_mod.TuneDB(path=db_path)
+        for acc in ("float32", "bfloat16"):
+            db.put(tm, tn, tk, dataclasses.replace(staged_cfg, acc_dtype=acc),
+                   2.0 * tm * tn * tk / fastest["stage1_ms"] * 1e-9, acc=acc,
+                   extra={"speedup_vs_torch_matmul": reference_ms / fastest["stage1_ms"]})
+        db.save()
+        os.environ[db_mod.ENV_VAR] = str(db_path)
+        db_mod.reset_default_db()
+        for acc in ("float32", "bfloat16"):
+            got = resolve_config(tm, tn, tk, acc)
+            if got != dataclasses.replace(staged_cfg, acc_dtype=acc):
+                raise AssertionError(f"dispatch resolved {got}, not the stored staged config")
+        print(f"  stored {staged_cfg} (stage1 {fastest['stage1_ms']:.5f} ms)")
+        zero_counters()
+        record["tuned_dispatch"] = [
+            run_slice(tm, tn, tk, acc, repo / "runs" / "chip_smoke" / f"staged_{acc}")
+            for acc in ("float32", "bfloat16")]
+        staged_launches = counters()
+        print("  launches " + json.dumps(staged_launches))
+        if staged_launches["staged"] <= 0:
+            raise AssertionError("the tuned dispatch path never launched the staged kernel")
+        os.environ.pop(db_mod.ENV_VAR)
+        db_mod.reset_default_db()  # phase 5 and later resolve without a DB again
+        record["tuned_dispatch_launches"] = staged_launches
 
     # Representative main-path call of each kernel body, timed against its plain version.
     timed = {
@@ -289,15 +518,44 @@ def main(argv=None) -> int:
             if batch > 1:
                 run = lambda: bmm.cuda_batched_matmul(a, b, cfg)  # noqa: E731
                 plain = lambda: bmm.batched_matmul_reference(a, b, cfg.bk, acc)  # noqa: E731
+                library = lambda: torch.bmm(a, b)  # noqa: E731
             else:
                 run = lambda: mm.cuda_matmul(a, b, cfg)  # noqa: E731
                 plain = lambda: mm.matmul_reference(a, b, cfg.bk, acc)  # noqa: E731
+                library = lambda: torch.matmul(a, b)  # noqa: E731
             ms, plain_ms = _time_ms(torch, run), _time_ms(torch, plain)
+            library_ms = _time_ms(torch, library)
+            bound_ms, bound_by = _bound(batch, m, n, k)
             name, replaces = sources[key]
             kernels.append({"name": name, "route": "cuda",
                             "source": "tpul2_torch/csrc/tl2_matmul.cu",
                             "replaces": replaces, "launches": launches[key],
-                            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms})
+                            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms})
+        # the staged kernel at the tuning shape, with the config the tuned path dispatched
+        a, b = _inputs(torch, gen, (tm, tk), False), _inputs(torch, gen, (tk, tn), False)
+        rhs = b.t().contiguous() if staged_cfg.rhs_layout == "nk" else b
+        ms = _time_ms(torch, lambda: pl.cuda_matmul_pipelined(a, rhs, staged_cfg))
+        plain_ms = _time_ms(torch, lambda: pl.pipelined_reference(a, rhs, staged_cfg.rhs_layout))
+        library_ms = _time_ms(torch, lambda: torch.matmul(a, b))
+        bound_ms, bound_by = _bound(1, tm, tn, tk)
+        kernels.append({"name": f"tl2_staged ({staged_cfg.bm}x{staged_cfg.bn} "
+                                f"{staged_cfg.rhs_layout} depth {staged_cfg.pipeline_depth})",
+                        "route": "cuda", "source": "tpul2_torch/csrc/tl2_staged.cu",
+                        "replaces": "tpul2/ops/pipelined.py:39",
+                        "launches": staged_launches["staged"],
+                        "max_abs_err": max_err["staged"], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+        # the same tile at every depth (same inputs): what the ring depth buys at this shape
+        record["staged_depth_sweep_ms"] = {
+            depth: _time_ms(torch, lambda d=depth: pl.cuda_matmul_pipelined(
+                a, rhs, dataclasses.replace(staged_cfg, pipeline_depth=d)))
+            for depth in PIPELINE_DEPTHS[1:]}
+        print("  staged depth sweep (ms): " + json.dumps(record["staged_depth_sweep_ms"]))
+        for row in kernels:
+            print("  " + json.dumps(row))
         for (m, n, k), acc in SLICE_SHAPES:
             cfg = resolve_config(m, n, k, acc)
             a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)

@@ -3,12 +3,15 @@
 import dataclasses
 
 import pytest
+import torch
 
 import tpul2.config as jcfg
 from tpul2_torch.config import (KSTEP, NUM_SMS, SMEM_LIMIT, TILE_CHOICES, KernelConfig,
                                 heuristic_config)
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 from tpul2_torch.utils.padding import cdiv
+
+torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
 BRING_UP_SHAPES = [(4096, 4096, 4096), (64, 8192, 8192), (8192, 128, 64),
                    (1000, 1000, 1000)]
@@ -41,10 +44,14 @@ def test_from_jax_maps_the_xla_sentinel(variant):
 
 
 def test_from_jax_keeps_a_staged_pipeline_invalid():
+    """A staged config carries over with its depth; one the JAX package rejects (a depth
+    outside its set, or 'mask' edges with a depth) stays rejected here."""
     d = dataclasses.asdict(jcfg.KernelConfig(bm=64, bn=128, bk=128, pipeline_depth=2))
     cfg = KernelConfig.from_jax(d)
-    assert cfg.pipeline_depth == 2
-    assert "pipeline_depth" in cfg.validate()
+    assert cfg.pipeline_depth == 2 and cfg.validate() is None
+    for bad in (dict(d, pipeline_depth=5), dict(d, edge="mask")):
+        assert jcfg.KernelConfig(**bad).validate() is not None
+        assert "pipeline_depth" in KernelConfig.from_jax(bad).validate()
 
 
 @pytest.mark.parametrize("kw,needle", [
@@ -56,7 +63,7 @@ def test_from_jax_keeps_a_staged_pipeline_invalid():
     (dict(grid_order="km"), "grid_order"),
     (dict(rhs_layout="mk"), "rhs_layout"),
     (dict(edge="wrap"), "edge"),
-    (dict(pipeline_depth=3), "pipeline_depth"),
+    (dict(pipeline_depth=5), "pipeline_depth"),
 ])
 def test_validate_rejects(kw, needle):
     err = KernelConfig(**kw).validate()

@@ -22,6 +22,8 @@ from tpul2_torch import dispatch
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops.baselines import BASELINES, VENDOR_VARIANTS
 
+torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -84,6 +86,26 @@ def test_vendor_sentinel(variant):
     assert torch.equal(out, torch.relu(torch.from_numpy(a_np @ b_np) + bias))
 
 
+@pytest.mark.parametrize("variant", VENDOR_VARIANTS)
+def test_vendor_sentinel_delivers_the_f32_sum(variant):
+    """Sums above 256 are not exact in bf16: an f32 output through the sentinel must be
+    the f32 sum, as the JAX package's sentinel (its XLA_VARIANT_FNS) delivers it."""
+    a_np, b_np = _01(16, 32, 48, 2048)
+    a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()
+    truth = torch.from_numpy(a_np @ b_np)
+    assert truth.max() > 256
+    cfg = KernelConfig.vendor(variant)
+    assert torch.equal(dispatch.matmul(a, b, config=cfg, out_dtype=torch.float32), truth)
+    theirs = _jax_out(a_np, b_np, out_dtype=jnp.float32, config=jcfg.KernelConfig.xla(
+        "dot_tn" if variant.endswith("_tn") else "dot_nn"))
+    assert torch.equal(theirs, truth)
+    bias = torch.full((48,), 0.5)
+    assert torch.equal(dispatch.matmul(a, b, config=cfg, bias=bias, out_dtype=torch.float32),
+                       truth + 0.5)
+    batched = dispatch.batched_matmul(a[None], b[None], config=cfg, out_dtype=torch.float32)
+    assert torch.equal(batched[0], truth)
+
+
 def test_baselines_return_the_input_dtype():
     a_np, b_np = _01(15, 32, 48, 64)
     a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()
@@ -112,8 +134,11 @@ def test_shape_mismatch_raises():
 def test_port_imports_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import tpul2_torch, "
             "tpul2_torch.dispatch, tpul2_torch.ops.matmul, tpul2_torch.ops.batched, "
-            "tpul2_torch.ops._build, tpul2_torch.harness.correctness, "
+            "tpul2_torch.ops.pipelined, tpul2_torch.ops._build, "
+            "tpul2_torch.harness.correctness, "
             "tpul2_torch.harness.bench_offline, tpul2_torch.harness.summarize, "
+            "tpul2_torch.autotune, tpul2_torch.autotune.db, tpul2_torch.autotune.search, "
+            "tpul2_torch.autotune.transfer, tpul2_torch.autotune.__main__, "
             "tpul2_torch.utils.platform; print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
                          text=True, timeout=120, check=True)

@@ -16,6 +16,10 @@ from tpul2_torch.config import KernelConfig
 from tpul2_torch.harness import correctness as corr
 from tpul2_torch.ops import batched as bmm
 from tpul2_torch.ops import matmul as mm
+from tpul2_torch.ops import pipelined as pl
+from tpul2_torch.ops._build import LaunchRefused, load_library
+
+torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
 pytestmark = pytest.mark.gpu
 
@@ -50,6 +54,24 @@ def test_kernel_matches_plain(cuda, acc, layout, bk):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_long_interval_stays_in_f32_tolerance(cuda, layout):
+    """One K interval of 8192 (bk = K): the f32 sum must stay inside allowed_error on
+    normal inputs, as the tuner's space offers such intervals."""
+    m, n, k = 64, 512, 8192
+    cfg = KernelConfig(bm=32, bn=64, bk=k, rhs_layout=layout)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    rhs = torch.randn((n, k) if layout == "nk" else (k, n), generator=gen,
+                      device=cuda).bfloat16()
+    fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
+    got = fn(a, rhs, cfg, out_dtype=torch.float32)
+    want = mm.matmul_reference(a, rhs, k, "float32", layout, out_dtype=torch.float32)
+    tol = mm.allowed_error(a, rhs, k, "float32", layout, torch.float32)
+    assert bool(((got - want).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("bk", [128, 320])
 def test_batched_kernel_matches_plain(cuda, bk):
     cfg = KernelConfig(bm=64, bn=64, bk=bk, acc_dtype="bfloat16")
@@ -74,6 +96,71 @@ def test_refused_launch_raises(cuda):
     out = torch.empty((64, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         mm.launch_kernel(a, b, KernelConfig(bm=48), out, None, None, 1, 64, 64, 64)
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("depth", [2, 3, 4, 6, 8])
+@pytest.mark.parametrize("tile", [(32, 64), (64, 128), (128, 128)])
+def test_staged_kernel_matches_plain(cuda, layout, depth, tile):
+    m, n, k = 256, 512, 2048
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=256, acc_dtype="bfloat16",
+                       rhs_layout=layout, pipeline_depth=depth,
+                       grid_order="nm" if depth % 2 else "mn")
+    a = _01((m, k), 9).to(cuda)
+    rhs = _01((n, k) if layout == "nk" else (k, n), 10).to(cuda)
+    before = pl.LAUNCHES_STAGED
+    got = pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert pl.LAUNCHES_STAGED == before + 1
+    assert torch.equal(got, pl.pipelined_reference(a, rhs, layout, torch.float32))
+
+
+def test_staged_smem_model_matches_the_kernel(cuda):
+    lib = load_library()
+    for bm in (32, 64, 128):
+        for bn in (32, 64, 128):
+            for depth in (2, 3, 4, 6, 8):
+                cfg = KernelConfig(bm=bm, bn=bn, pipeline_depth=depth)
+                assert lib.tl2_staged_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
+
+
+def test_staged_single_k_takes_the_single_k_kernel(cuda):
+    cfg = KernelConfig(bm=64, bn=64, bk=512, pipeline_depth=4)
+    a, b = _01((128, 512), 11).to(cuda), _01((512, 128), 12).to(cuda)
+    staged, single = pl.LAUNCHES_STAGED, mm.LAUNCHES_SINGLE_K
+    got = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert pl.LAUNCHES_STAGED == staged and mm.LAUNCHES_SINGLE_K == single + 1
+    assert torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32))
+
+
+def test_staged_refused_launch_raises(cuda):
+    """A tile the staged kernel has no instance for: the launcher refuses before any work
+    and the wrapper raises; a misaligned operand raises before the launch."""
+    a, b = _01((96, 256), 13).to(cuda), _01((256, 96), 14).to(cuda)
+    out = torch.empty((96, 96), dtype=torch.float32, device=cuda)
+    with pytest.raises(LaunchRefused, match="launch failed"):
+        pl.launch_staged(a, b, KernelConfig(bm=48, bn=48, pipeline_depth=2), out, 2,
+                         96, 96, 256)
+    buf = _01((64 * 256 + 8,), 15).to(cuda)
+    a_off = buf[8:].view(64, 256)  # 16-byte rows, but a base 16 bytes past the allocation
+    a_odd = buf[1:1 + 64 * 256].view(64, 256)  # base 2 bytes off: no 16-byte copies
+    cfg = KernelConfig(bm=64, bn=64, bk=64, pipeline_depth=2)
+    got = pl.cuda_matmul_pipelined(a_off, _01((256, 64), 16).to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        pl.cuda_matmul_pipelined(a_odd, _01((256, 64), 16).to(cuda), cfg)
+
+
+def test_tuner_on_card(cuda, tmp_path):
+    from tpul2_torch.autotune import TuneDB, tune_shape
+    db = TuneDB(path=tmp_path / "db.json")
+    res = tune_shape(64, 1024, 4096, db=db, max_candidates=4, stage1_rounds=2,
+                     stage2_rounds=2, finalists=2, save=True)
+    assert res.n_launched == res.n_candidates
+    assert any(d["config"]["pipeline_depth"] >= 2 for d in res.medians_ms)
+    assert db.get(64, 1024, 4096) == res.best and res.device != "cpu"
 
 
 def test_cpu_and_cuda_tensors_do_not_mix(cuda):

@@ -17,6 +17,8 @@ from tpul2_torch.harness.bench_offline import benchmark_offline_all
 from tpul2_torch.harness.summarize import speedup_row, summarize_results
 from tpul2_torch.utils import padding, platform
 
+torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -21,6 +21,8 @@ from tpul2.ops.matmul import pallas_matmul, pallas_matmul_fused, pallas_matmul_t
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops import matmul as mm
 
+torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
+
 M, N, K = 100, 200, 300   # unaligned in every dim
 
 

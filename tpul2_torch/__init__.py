@@ -5,8 +5,13 @@ stays the reference.  Module names mirror ``tpul2``'s:
 
   scripts/eval_one_shape_torch.py   driver: gate -> offline bench -> summary
   tpul2_torch.harness               correctness gate, offline bench, summary
-  tpul2_torch.dispatch              config resolution and the candidate entries
+  python -m tpul2_torch.autotune    tuner: candidates -> launch screen -> timing ->
+                                    exactness screen -> TuneDB (tunedb_h100.json)
+  tpul2_torch.dispatch              config resolution (DB -> neighbour -> heuristic)
+                                    and the candidate entries
   tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_matmul.cu + plain versions
+  tpul2_torch.ops.pipelined         wrapper of csrc/tl2_staged.cu (the staged K ring)
+                                    + plain version
   tpul2_torch.ops.baselines         library GEMMs (torch.matmul, cuBLAS, cuBLASLt)
 
 This package imports torch and never jax.

@@ -10,12 +10,17 @@
 //
 // What it computes, per output tile, for C = act(A @ B [+ bias]) cast to the output type:
 //   for each K interval of length bk (the config's rounding interval):
-//     part = sum over the interval of A*B, in f32 on the tensor cores (mma.sync m16n8k16);
+//     part = sum over the interval of A*B in f32: each 32-deep slice on the tensor cores
+//            (mma.sync m16n8k16, two k16 MMAs into fresh registers), then added to part;
 //     gk > 1:  acc = round_to_acc_dtype(acc + part)   -- after EVERY interval, first and last
 //     gk == 1: acc = part                             -- no rounding at all
 //   then + bias (f32), then the activation (gelu is the tanh approximation), then the cast.
 // This is the JAX kernels' carry exactly (matmul.py:110-116 and :146): in the bf16
 // accumulator family the rounding points are part of the result.
+// Precision: chaining a whole long interval's MMAs through the tensor cores' accumulator
+// gives some 25x cuBLAS's f32 error at K = 8192 (max |err| against an f64 product), enough
+// to break the f32 tolerance 1e-5 |C| + 1e-5 sqrt(K) on results near zero; the per-slice
+// rounded add keeps every bk inside it (chip_smoke.py phase 2 holds bk = K = 8192 to it).
 //
 // Edges: every global load is predicated and zero-filled past M, N and K, for both operands
 // (0 * garbage can be NaN), and every store is predicated to (M, N). So edge='pad' and
@@ -199,6 +204,13 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS) tl2_matmul_kernel(Param
       else
         load_kn<BN, T::THREADS>(B, p.k, p.n, k0, n0, p.vec_b, Bs);
       __syncthreads();
+      float sl[MI][NI][4];  // this slice's sum (see the note on precision)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sl[i][j][r] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < KSTEP; kk += 16) {
         uint32_t af[MI][4], bfr[NI][2];
@@ -219,8 +231,14 @@ __global__ void __launch_bounds__(Tile<BM, BN>::THREADS) tl2_matmul_kernel(Param
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int j = 0; j < NI; ++j) mma_bf16(part[i][j], af[i], bfr[j]);
+          for (int j = 0; j < NI; ++j) mma_bf16(sl[i][j], af[i], bfr[j]);
       }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) part[i][j][r] += sl[i][j][r];
       __syncthreads();
     }
 

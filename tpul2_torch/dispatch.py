@@ -6,11 +6,13 @@ entries ``cuda_l2_h100_f32`` / ``cuda_l2_h100_bf16`` keep the harness ABI
 correctness gate can hand the kernel caller memory framed by guard bands.
 
 Eager torch has no trace cache, so the JAX side's jit/epoch machinery has no counterpart:
-each call resolves its config.
+each call resolves its config against the DB as it stands.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -18,30 +20,67 @@ import torch
 from tpul2_torch.config import KernelConfig, heuristic_config
 from tpul2_torch.ops import baselines
 from tpul2_torch.ops.matmul import ACTIVATIONS, cuda_matmul, cuda_matmul_fused, cuda_matmul_tn
+from tpul2_torch.ops.pipelined import cuda_matmul_pipelined
 
 
-def resolve_config(m: int, n: int, k: int, acc: str = "float32") -> KernelConfig:
-    """Config for (m, n, k, acc): the Hopper heuristic.
+def resolve_config(m: int, n: int, k: int, acc: str = "float32",
+                   in_dtype="bfloat16") -> KernelConfig:
+    """Tuning DB -> nearest tuned neighbour -> heuristic (never fails).
 
-    There is no H100 tuning DB yet, and the JAX package's ``tunedb_v5e.json`` is TPU data
-    that must not be carried over, so no DB is read.  An explicit ``config=`` on the
-    entry points overrides this.  The heuristic never returns the vendor sentinel, so
-    every dispatch on the card goes through the kernel."""
-    return heuristic_config(m, n, k, acc)
+    The DB is the H100's (``autotune.db.default_db``: ``TPUL2_TORCH_TUNEDB`` or
+    ``tpul2_torch/data/tunedb_h100.json``); the JAX package's ``tunedb_v5e.json`` is TPU
+    data and is never read.  With no DB file, every shape takes the heuristic, which
+    never returns the vendor sentinel.  An explicit ``config=`` on the entry points
+    overrides all of this."""
+    from tpul2_torch.autotune.db import default_db
+    db = default_db()
+    cfg = db.get(m, n, k, acc, in_dtype)
+    if cfg is None:
+        cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
+    return cfg if cfg is not None else heuristic_config(m, n, k, acc)
+
+
+def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2.0,
+                     min_speedup: float = 1.05) -> Optional[KernelConfig]:
+    """The nearest tuned neighbour's config adapted to (m, n, k), or None.
+
+    Neighbours lie within ``max_ratio`` on every dimension; the nearest in log space
+    wins.  A sentinel winner carries over as it is; a kernel winner whose stored speedup
+    over torch_matmul is below ``min_speedup`` (within noise) gives way to its family's
+    sentinel; a kernel winner that does not re-fit onto the new shape
+    (``transfer._adapt`` returns None when ``validate`` fails) gives way to the sentinel
+    too."""
+    best = None
+    for (em, en, ek), entry in db.entries_near(m, n, k, acc, in_dtype, max_ratio=max_ratio):
+        dist = sum(abs(math.log(max(e, q) / min(e, q)))
+                   for e, q in ((em, m), (en, n), (ek, k)))
+        if best is None or dist < best[0]:
+            best = (dist, (em, en, ek), entry)
+    if best is None:
+        return None
+    _, src, entry = best
+    cfg = KernelConfig(**entry["config"])
+    if cfg.use_vendor:
+        return cfg
+    sentinel = KernelConfig.vendor(cfg.vendor_variant)
+    if entry.get("speedup_vs_torch_matmul", 1.0) < min_speedup:
+        return sentinel
+    from tpul2_torch.autotune.transfer import _adapt
+    adapted = _adapt(cfg, src, (m, n, k))
+    return adapted if adapted is not None else sentinel
 
 
 def _vendor(a, b, b_t, cfg: KernelConfig, bias, activation, out_dtype, out):
-    """The sentinel: a library GEMM, then the epilogue in f32 like the kernel's."""
-    fn = baselines.BASELINES[cfg.vendor_variant]
+    """The sentinel: a library GEMM, then the epilogue on the f32 sum like the kernel's."""
     if cfg.vendor_variant.endswith("_tn") and b_t is None:
         b_t = b.t()
-    res = fn(a, b, b_t)
-    if bias is not None or activation is not None:
-        res = res.float()
+    if bias is None and activation is None:
+        res = baselines.vendor_product(cfg.vendor_variant, a, b, b_t, out_dtype)
+    else:
+        res = baselines.vendor_product(cfg.vendor_variant, a, b, b_t, torch.float32)
         if bias is not None:
             res = res + bias.float()
-        res = ACTIVATIONS[activation](res)
-    res = res.to(out_dtype)
+        res = ACTIVATIONS[activation](res).to(out_dtype)
     return res if out is None else out.copy_(res)
 
 
@@ -72,6 +111,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
             config = KernelConfig.vendor()
     if config.use_vendor:
         return _vendor(a, b, b_t, config, bias, activation, out_dtype, out)
+    if config.pipeline_depth >= 2:
+        if (bias is None and activation is None and m % config.bm == 0
+                and n % config.bn == 0 and k % config.bk == 0):
+            # the staged K ring (the kStage axis, ops/pipelined.py)
+            rhs = ((b_t if b_t is not None else b.t().contiguous())
+                   if config.rhs_layout == "nk" else b)
+            return cuda_matmul_pipelined(a, rhs, config, out_dtype=out_dtype, out=out)
+        # the other kernels have no stages (as in the JAX package)
+        config = dataclasses.replace(config, pipeline_depth=0)
     if bias is not None or activation is not None:
         return cuda_matmul_fused(a, b, bias=bias, activation=activation, config=config,
                                  out_dtype=out_dtype, out=out, b_t=b_t)
@@ -100,9 +148,11 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
         if config.validate() is not None:
             config = KernelConfig.vendor()
     if config.use_vendor:
-        baselines.pin_precision()
-        res = torch.matmul(a, b).to(out_dtype)
+        baselines.pin_precision()  # the f32 sum, cast once (as vendor_product)
+        res = torch.matmul(a, b) if out_dtype == a.dtype else \
+            torch.matmul(a.float(), b.float()).to(out_dtype)
         return res if out is None else out.copy_(res)
+    config = dataclasses.replace(config, pipeline_depth=0)  # the batched kernel has no stages
     return cuda_batched_matmul(a, b, config=config, out_dtype=out_dtype, out=out)
 
 

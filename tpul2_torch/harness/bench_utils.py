@@ -17,6 +17,9 @@ import numpy as np
 import torch
 
 VERSION_STAMP = "tpul2_torch-0.1"
+#: Timing-methodology revision, stamped into TuneDB entries.  1 = the tuner's medians of
+#: per-call CUDA-event times over a fixed count of back-to-back calls (time_median_ms).
+TIMING_REV = 1
 
 
 def fresh_inputs(rng: np.random.Generator, m: int, n: int, k: int,
@@ -45,6 +48,29 @@ def time_call_ms(fn: Callable, data: tuple) -> float:
     t0 = time.perf_counter()
     fn(*data)
     return (time.perf_counter() - t0) * 1e3
+
+
+def time_median_ms(fn: Callable, data: tuple, calls: int = 5) -> float:
+    """Median of the per-call times of ``calls`` back-to-back calls ``fn(*data)``.
+
+    On the card one CUDA event is recorded between consecutive calls, so each call is
+    timed on the device with no host wait in between; on the CPU the host clock is used.
+    The count is fixed: there is no calibration and no floor to subtract."""
+    if data[0].is_cuda:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+        events[0].record()
+        for ev in events[1:]:
+            fn(*data)
+            ev.record()
+        events[-1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    else:
+        ms = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn(*data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
 
 
 def tflops(m: int, n: int, k: int, ms: float, batch: int = 1) -> float:

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C interface.
 
 The role of ``tpul2/native/build.py``.  Every ``csrc/*.cu`` of the package is compiled
-for ``sm_90a`` into ``tpul2_torch/_build/libtl2_kernels.so`` at first use and loaded with
-ctypes.  The build is redone whenever a source or the flags change (a sha256 stamp beside
-the library).  Only sources in the repository are compiled; nothing is fetched.
+for ``sm_90a`` into an object of its own, all nvcc processes started together, then linked
+into ``tpul2_torch/_build/libtl2_kernels.so`` at first use and loaded with ctypes.  The
+build is redone whenever a source or the flags change (a sha256 stamp beside the
+library).  Only sources in the repository are compiled; nothing is fetched.
 """
 
 from __future__ import annotations
@@ -22,14 +23,34 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libtl2_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: C signature of each launcher: a, b, bias, c, batch, m, n, k, sa, sb, sc, bm, bn, bk,
-#: rhs_nk, acc_bf16, act, raster_nm, vec_a, vec_b, stream.
+#: C signature of each tl2_matmul launcher: a, b, bias, c, batch, m, n, k, sa, sb, sc, bm,
+#: bn, bk, rhs_nk, acc_bf16, act, raster_nm, vec_a, vec_b, stream.
 _LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P]
+#: C signature of tl2_staged: a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm, out_f32,
+#: stream.
+_STAGED_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+
+#: cudaError_t codes of a launch refused before any work runs: invalid value (a shape,
+#: tile or alignment the launcher does not take, or more dynamic shared memory than the
+#: attribute allows), too many resources requested, invalid configuration.
+REFUSED_CODES = (1, 7, 9)
+
+
+class LaunchRefused(RuntimeError):
+    """The launcher refused the launch before any work ran (see REFUSED_CODES)."""
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a launcher returned a cudaError_t other than 0."""
+    if err == 0:
+        return
+    cls = LaunchRefused if err in REFUSED_CODES else RuntimeError
+    raise cls(f"{what} launch failed: cudaError {err}")
 
 
 def _sources() -> list:
@@ -44,6 +65,21 @@ def _digest(sources: list) -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands side by side; return their joined output, raise if one failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
 def _compile(sources: list, digest: str) -> tuple:
     """Run nvcc; return (seconds, nvcc's output with the ptxas register report)."""
     nvcc = nvcc_path()
@@ -51,14 +87,16 @@ def _compile(sources: list, digest: str) -> tuple:
         raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build "
                            "the tpul2_torch kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = LIB_PATH.with_suffix(f".so.tmp{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, LIB_PATH)
     LIB_PATH.with_suffix(".sha256").write_text(digest)
     return seconds, log
@@ -84,8 +122,12 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.tl2_staged.argtypes = _STAGED_ARGTYPES
+    lib.tl2_staged.restype = ctypes.c_int
     lib.tl2_smem_bytes.argtypes = [_I, _I]
     lib.tl2_smem_bytes.restype = ctypes.c_int
+    lib.tl2_staged_smem_bytes.argtypes = [_I, _I, _I]
+    lib.tl2_staged_smem_bytes.restype = ctypes.c_int
     lib.tl2_kstep.argtypes = []
     lib.tl2_kstep.restype = ctypes.c_int
     return lib

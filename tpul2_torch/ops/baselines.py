@@ -81,3 +81,17 @@ BASELINES = {
 #: Variants the dispatch sentinel (``KernelConfig.use_vendor``) may name.  All reduce in
 #: f32, so both accumulator families admit all of them.
 VENDOR_VARIANTS = tuple(BASELINES)
+
+
+def vendor_product(variant: str, a, b, b_t, out_dtype: torch.dtype):
+    """The dispatch sentinel's C = A @ B in ``out_dtype``: the f32 sum, cast once.
+
+    The role of the JAX package's ``XLA_VARIANT_FNS``, which return the f32 product for
+    the caller to cast.  With an output in the operands' dtype the library call itself
+    does that (f32 sum, one rounding).  For any other output the same call runs on f32
+    copies of the operands, TF32 off: bf16 products are exact in f32, so the result is the
+    f32 sum rather than one rounded to bf16 on the way."""
+    fn = BASELINES[variant]
+    if out_dtype == a.dtype:
+        return fn(a, b, b_t)
+    return fn(a.float(), b.float(), b_t.float() if b_t is not None else None).to(out_dtype)

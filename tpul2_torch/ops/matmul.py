@@ -164,8 +164,9 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
                   batch: int, m: int, n: int, k: int) -> int:
     """Launch tl2_matmul.cu on the current stream, writing ``out``; return gk.
 
-    Raises if the build fails or the launch reports an error.  Does not synchronise."""
-    from tpul2_torch.ops._build import load_library
+    Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
+    launch refused before any work ran).  Does not synchronise."""
+    from tpul2_torch.ops._build import check_launch, load_library
     lib = load_library()
     fn = lib.tl2_matmul_f32out if out.dtype == torch.float32 else lib.tl2_matmul_bf16out
     rhs_row = k if cfg.rhs_layout == "nk" else n
@@ -178,9 +179,7 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
                  int(cfg.rhs_layout == "nk"), int(cfg.acc_dtype == "bfloat16"),
                  _ACT_CODES[activation], int(cfg.grid_order == "nm"),
                  int(_vector_ok(a, k)), int(_vector_ok(rhs, rhs_row)), stream)
-    if err != 0:
-        raise RuntimeError(f"tl2_matmul launch failed: cudaError {err} for {cfg} at "
-                           f"batch={batch} m={m} n={n} k={k}")
+    check_launch(err, f"tl2_matmul ({cfg} at batch={batch} m={m} n={n} k={k})")
     return cdiv(k, cfg.bk)
 
 
