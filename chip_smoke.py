@@ -8,15 +8,21 @@ Run from the repository root, on a machine with one Hopper card:
 Phases (each prints one line; any failure raises and the exit code is non-zero):
   0  require an sm_90 card; print the environment record and nvidia-smi's name/power line
   1  build csrc/*.cu for sm_90a (nvcc, one process per source, at first use), print the
-     build time and ptxas report; the shared-memory models of config.py must equal the
-     kernels' own counts for every tile (and depth) that KernelConfig.validate accepts
+     build time and ptxas report; the shared-memory models of config.py and ops/matmul.py
+     must equal the kernels' own counts for every tile (and depth) they take, and
+     tl2_wgmma_route must agree with ops.matmul.multi_k_route over a grid of shapes,
+     tiles, bk, layouts and operand alignments
   2  kernel vs plain torch version on the card over the grid
      {f32, bf16 acc} x {kn, nk} x {gk == 1, gk > 1} x {aligned, unaligned}
      x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), at the main-path
-     shapes, and with long K intervals (bk = K = 8192, bk = 4096): 0/1 inputs must agree
-     exactly (the epilogue cases then use bias + relu, since
-     no library's tanh is correctly rounded), normal inputs within
-     ops.matmul.allowed_error
+     shapes, and with long K intervals (bk = K = 8192, bk = 4096); then the wgmma route
+     over {f32, bf16 acc} x {kn, nk} x {64, 128}^2 tiles x {aligned, M/N/K edges with
+     K % 64 != 0} x {plain, bias + act}, batched (B = 3) with M % BM != 0, and long
+     intervals (4096^3 at bk 2048, 128x8192x8192 at bk 4096), each case required to take
+     the wgmma route: 0/1 inputs must agree exactly (the epilogue cases then use
+     bias + relu, since no library's tanh is correctly rounded), normal inputs within
+     ops.matmul.allowed_error; and the max |error| against an f64 product at 4096^3 of
+     both multi-K bodies and of cuBLAS's f32 product
   2b the staged kernel vs its plain version over {f32, bf16 acc} x {kn, nk} x depth
      {2, 3, 4, 6, 8} x tiles x {bf16, f32 out}, the depth clamp (gk < depth), gk == 1
      (which must not launch it), and the tuning shape's staged candidates: 0/1 inputs
@@ -24,7 +30,8 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
   3  the slice: scripts/eval_one_shape_torch.py's main() for the bring-up shapes
      (gate with guard bands -> offline bench -> summary); every gate must pass
   4  the launch counters, zeroed just before phase 3, must show every kernel body of the
-     heuristic path ran
+     heuristic path ran, both routes of both multi-K bodies included (4096^3 and its
+     batched gate variant take wgmma, 64x8192x8192's 32x64 tile mma.sync)
   tune  `python -m tpul2_torch.autotune` (its main()) for 64x8192x8192 f32 into
      runs/chip_smoke/tunedb_h100.json, with few candidates and rounds: every candidate
      must launch, at least two staged candidates must be timed, the staged kernel must
@@ -34,8 +41,13 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      eval_one_shape_torch's main() for both: every gate must pass with 0 guard hits, and
      the staged kernel must launch on this path
   5  per-kernel times on the card against the plain version and torch.matmul, with the
-     bound of each (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s), and
-     the staged kernel's time at every depth on the dispatched tile
+     bound of each (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s): the
+     two routes of each multi-K body at 4096^3 (and 2 x 4096^3) on the same 128x128 tile,
+     timed in turns (the mma.sync one launched through lib.tl2_matmul_*out directly),
+     the single-K bodies, the staged kernel and its time at every depth on the dispatched
+     tile, the 64-row wgmma tiles against the heuristic's mma.sync 32x64 at
+     64x8192x8192, and for each bring-up shape the entry point's time back to back and
+     its host time per call
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -114,6 +126,66 @@ def _grid_cases():
                               "float32"))
                 i += 1
     return cases
+
+
+def _wgmma_cases():
+    """(name, batch, m, n, k, cfg kwargs, activation, out dtype name) of phase 2's wgmma
+    route grid; each must take the wgmma route."""
+    cases = []
+    i = 0
+    for acc in ("float32", "bfloat16"):
+        for layout in ("kn", "nk"):
+            for bm in (64, 128):
+                for bn in (64, 128):
+                    for edge in (False, True):
+                        # edges: M % BM, N % BN != 0 and a K tail of 8 (K % 64 != 0)
+                        m, n, k = (200, 264, 328) if edge else (256, 384, 512)
+                        for epilogue in (False, True):
+                            act = ("gelu", "silu", "tanh")[i % 3] if epilogue else None
+                            cfg = dict(bm=bm, bn=bn, bk=128, acc_dtype=acc, rhs_layout=layout,
+                                       grid_order="nm" if i % 2 else "mn")
+                            out = "float32" if i % 3 else "bfloat16"
+                            cases.append((f"wgmma/{acc}/{layout}/{'edge' if edge else 'al'}/"
+                                          f"{act or 'plain'}", 1, m, n, k, cfg, act, out))
+                            i += 1
+        for bm, bn in ((64, 128), (128, 64)):  # the rank-3 maps' M edge inside a batch
+            cases.append((f"wgmma-batched/{acc}/m-edge", GRID_BATCH, 100, 136, 328,
+                          dict(bm=bm, bn=bn, bk=128, acc_dtype=acc), None, "float32"))
+    cases.append(("wgmma-long/4096x4096x4096/float32", 1, 4096, 4096, 4096,
+                  dict(bm=128, bn=128, bk=2048), None, "float32"))
+    cases.append(("wgmma-long/128x8192x8192/float32", 1, 128, 8192, 8192,
+                  dict(bm=64, bn=128, bk=4096), None, "float32"))
+    return cases
+
+
+def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
+    """tl2_wgmma_route against ops.matmul.multi_k_route over shapes, tiles, bk, layouts and
+    operand alignments (views 2, 8 and 16 bytes into one allocation); return (cases,
+    wgmma cases).  Raises on the first disagreement."""
+    buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    shapes = ((256, 256, 1024), (200, 1001, 328), (64, 8192, 8192), (96, 160, 1004),
+              (128, 128, 64))
+    n = n_wgmma = 0
+    for off_a in (0, 1, 8):
+        for off_b in (0, 4):
+            a, b = buf[off_a:], buf[off_b:]
+            for m, nn, k in shapes:
+                for bm in (32, 64, 128):
+                    for bn in (32, 64, 128):
+                        for bk in (64, 96, 128, 256, 1024, 8192):
+                            for layout in ("kn", "nk"):
+                                cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
+                                py = mm.multi_k_route(cfg, a, b, m, nn, k) == "wgmma"
+                                c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
+                                                        int(layout == "nk"), a.data_ptr(),
+                                                        b.data_ptr())
+                                if py != bool(c):
+                                    raise AssertionError(
+                                        f"route rule differs at {m}x{nn}x{k} {cfg} "
+                                        f"offsets {off_a}, {off_b}: python {py}, C {c}")
+                                n += 1
+                                n_wgmma += py
+    return n, n_wgmma
 
 
 def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one):
@@ -262,17 +334,21 @@ def main(argv=None) -> int:
     from tpul2_torch.ops import batched as bmm
     from tpul2_torch.ops import matmul as mm
     from tpul2_torch.ops import pipelined as pl
-    from tpul2_torch.ops._build import load_library
+    from tpul2_torch.ops._build import check_launch, load_library
     from tpul2_torch.utils.platform import device_info, require_hopper
 
     def zero_counters():
-        mm.LAUNCHES_MULTI_K = mm.LAUNCHES_SINGLE_K = 0
-        bmm.LAUNCHES_MULTI_K = bmm.LAUNCHES_SINGLE_K = 0
+        mm.LAUNCHES_MULTI_K_WGMMA = mm.LAUNCHES_MULTI_K_MMA_SYNC = mm.LAUNCHES_SINGLE_K = 0
+        bmm.LAUNCHES_MULTI_K_WGMMA = bmm.LAUNCHES_MULTI_K_MMA_SYNC = 0
+        bmm.LAUNCHES_SINGLE_K = 0
         pl.LAUNCHES_STAGED = 0
 
     def counters() -> dict:
-        return {"multi_k": mm.LAUNCHES_MULTI_K, "single_k": mm.LAUNCHES_SINGLE_K,
-                "batched_multi_k": bmm.LAUNCHES_MULTI_K,
+        return {"multi_k_wgmma": mm.LAUNCHES_MULTI_K_WGMMA,
+                "multi_k_mma_sync": mm.LAUNCHES_MULTI_K_MMA_SYNC,
+                "single_k": mm.LAUNCHES_SINGLE_K,
+                "batched_multi_k_wgmma": bmm.LAUNCHES_MULTI_K_WGMMA,
+                "batched_multi_k_mma_sync": bmm.LAUNCHES_MULTI_K_MMA_SYNC,
                 "batched_single_k": bmm.LAUNCHES_SINGLE_K, "staged": pl.LAUNCHES_STAGED}
 
     record = {}
@@ -304,16 +380,19 @@ def main(argv=None) -> int:
                             != cfg.smem_bytes()):
                         raise AssertionError(f"staged smem model differs from the kernel at "
                                              f"{bm}x{bn} depth {depth}")
+        for bm in mm.WGMMA_TILES:
+            for bn in mm.WGMMA_TILES:
+                if lib.tl2_wgmma_smem_bytes(bm, bn) != mm.wgmma_smem_bytes(bm, bn):
+                    raise AssertionError(f"wgmma smem model differs from the kernel at "
+                                         f"{bm}x{bn}")
+        n_route = _check_route_mirror(torch, lib, mm, KernelConfig)
+        print(f"  wgmma smem model and route rule agree with the kernel ({n_route[0]} route "
+              f"cases, {n_route[1]} of them wgmma)")
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds
         record["ptxas"] = regs
 
-    max_err = {"multi_k": 0.0, "single_k": 0.0, "batched_multi_k": 0.0,
-               "batched_single_k": 0.0, "staged": 0.0}
-
-    def body(batch, k, bk):
-        kind = "multi_k" if -(-k // bk) > 1 else "single_k"
-        return f"batched_{kind}" if batch > 1 else kind
+    max_err = {key: 0.0 for key in counters()}
 
     with phase("2 kernel vs plain"):
         gen = torch.Generator(device="cuda")
@@ -337,17 +416,37 @@ def main(argv=None) -> int:
                           "float32"))
         cases.append(("long-interval/4096x4096x4096/float32", 1, 4096, 4096, 4096,
                       dict(bm=128, bn=128, bk=4096), None, "float32"))
+        cases += _wgmma_cases()
         for name, batch, m, n, k, kw, act, out in cases:
             cfg = KernelConfig(**kw)
+            before = counters()
             errs = []
             for zero_one in (True, False):
                 errs.append(_check_case(torch, mods, gen, batch, m, n, k, cfg, act, out,
                                         zero_one))
-            key = body(batch, k, cfg.bk)
+            key = next(key for key, v in counters().items() if v != before[key])
+            if name.startswith("wgmma") and not key.endswith("wgmma"):
+                raise AssertionError(f"{name} took {key}, not the wgmma route")
             max_err[key] = max(max_err[key], errs[1])
-            print(f"  {name} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: 0/1 exact, "
+            print(f"  {name} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: {key}, 0/1 exact, "
                   f"normal max|diff| {errs[1]:.3g}")
         record["phase2_cases"] = len(cases)
+        # precision of both multi-K bodies at the headline shape against an f64 product,
+        # beside cuBLAS's f32 product (the plain version's sum)
+        m = n = k = 4096
+        cfg = resolve_config(m, n, k, "float32")
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        ref = a.double() @ b.double()
+        body = torch.empty((m, n), dtype=torch.float32, device="cuda")
+        check_launch(lib.tl2_matmul_f32out(*mm.launch_args(a, b, cfg, body, None, None, 1,
+                                                           m, n, k)), "tl2_matmul")
+        outs = {"wgmma": mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32),
+                "mma_sync": body, "cublas_f32": a.float() @ b.float()}
+        record["precision_vs_f64_4096"] = {name: (x.double() - ref).abs().max().item()
+                                           for name, x in outs.items()}
+        print(f"  max |err| vs an f64 product at 4096^3 ({cfg.bm}x{cfg.bn} bk={cfg.bk}): "
+              + json.dumps(record["precision_vs_f64_4096"]))
+        del a, b, ref, body, outs
 
     with phase("2b staged kernel vs plain"):
         gen = torch.Generator(device="cuda")
@@ -492,43 +591,78 @@ def main(argv=None) -> int:
         db_mod.reset_default_db()  # phase 5 and later resolve without a DB again
         record["tuned_dispatch_launches"] = staged_launches
 
-    # Representative main-path call of each kernel body, timed against its plain version.
-    timed = {
-        "multi_k": (1, (4096, 4096, 4096), "float32"),
-        "single_k": (1, (8192, 128, 64), "float32"),
-        "batched_multi_k": (GATE_BATCH, (4096, 4096, 4096), "float32"),
-        "batched_single_k": (GATE_BATCH, (8192, 128, 64), "float32"),
-    }
+    # Representative main-path call of each kernel body, timed against its plain version:
+    # both routes of each multi-K body on the same tile and inputs, then the single-K ones.
     kernels = []
     record["shapes"] = []
     with phase("5 timing"):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
-        sources = {"multi_k": ("tl2_matmul (multi-K)", "tpul2/ops/matmul.py:96"),
-                   "single_k": ("tl2_matmul (single-K)", "tpul2/ops/matmul.py:136"),
-                   "batched_multi_k": ("tl2_matmul batched (multi-K)",
-                                       "tpul2/ops/batched.py:25"),
-                   "batched_single_k": ("tl2_matmul batched (single-K)",
-                                        "tpul2/ops/batched.py:40")}
-        for key, (batch, (m, n, k), acc) in timed.items():
-            cfg = resolve_config(m, n, k, acc)
-            shape_a = (batch, m, k) if batch > 1 else (m, k)
-            shape_b = (batch, k, n) if batch > 1 else (k, n)
-            a, b = _inputs(torch, gen, shape_a, False), _inputs(torch, gen, shape_b, False)
-            if batch > 1:
+        m = n = k = 4096
+        cfg = resolve_config(m, n, k, "float32")
+        for batch in (1, GATE_BATCH):
+            batched = batch > 1
+            a = _inputs(torch, gen, (batch, m, k) if batched else (m, k), False)
+            b = _inputs(torch, gen, (batch, k, n) if batched else (k, n), False)
+            out = torch.empty((batch, m, n) if batched else (m, n), dtype=torch.bfloat16,
+                              device="cuda")
+            if mm.multi_k_route(cfg, a, b, m, n, k) != "wgmma":
+                raise AssertionError(f"{cfg} does not take the wgmma route at 4096^3")
+            call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
+            if batched:
+                run = lambda: bmm.cuda_batched_matmul(a, b, cfg, out=out)  # noqa: E731
+                plain = lambda: bmm.batched_matmul_reference(a, b, cfg.bk)  # noqa: E731
+                library = lambda: torch.bmm(a, b)  # noqa: E731
+            else:
+                run = lambda: mm.cuda_matmul(a, b, cfg, out=out)  # noqa: E731
+                plain = lambda: mm.matmul_reference(a, b, cfg.bk)  # noqa: E731
+                library = lambda: torch.matmul(a, b)  # noqa: E731
+            # the mma.sync body on the same tile, launched directly (the route sends this
+            # shape to wgmma)
+            mma_sync = lambda: check_launch(lib.tl2_matmul_bf16out(*call),  # noqa: E731
+                                            "tl2_matmul")
+            turns = [_time_ms(torch, fn) for fn in (run, mma_sync, mma_sync, run)]
+            plain_ms, library_ms = _time_ms(torch, plain), _time_ms(torch, library)
+            bound_ms, bound_by = _bound(batch, m, n, k)
+            prefix = "batched_" if batched else ""
+            print(f"  {prefix}multi_k {batch}x{m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} in "
+                  f"turns (wgmma, mma.sync, mma.sync, wgmma) ms: " + json.dumps(turns))
+            record[f"{prefix}multi_k_turns_ms"] = turns
+            for route, source, ms in (
+                    ("wgmma", "tpul2_torch/csrc/tl2_wgmma.cu", (turns[0] + turns[3]) / 2),
+                    ("mma_sync", "tpul2_torch/csrc/tl2_matmul.cu", (turns[1] + turns[2]) / 2)):
+                key = f"{prefix}multi_k_{route}"
+                kernels.append({
+                    "name": (f"{'tl2_wgmma' if route == 'wgmma' else 'tl2_matmul mma.sync'}"
+                             f"{' batched' if batched else ''} (multi-K)"),
+                    "route": "cuda", "source": source,
+                    "replaces": ("tpul2/ops/batched.py:25" if batched
+                                 else "tpul2/ops/matmul.py:96"),
+                    "launches": launches[key], "max_abs_err": max_err[key], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms})
+        del a, b, out
+        m, n, k = 8192, 128, 64
+        cfg = resolve_config(m, n, k, "float32")
+        for key, batch, replaces in (("single_k", 1, "tpul2/ops/matmul.py:136"),
+                                     ("batched_single_k", GATE_BATCH,
+                                      "tpul2/ops/batched.py:40")):
+            batched = batch > 1
+            a = _inputs(torch, gen, (batch, m, k) if batched else (m, k), False)
+            b = _inputs(torch, gen, (batch, k, n) if batched else (k, n), False)
+            if batched:
                 run = lambda: bmm.cuda_batched_matmul(a, b, cfg)  # noqa: E731
-                plain = lambda: bmm.batched_matmul_reference(a, b, cfg.bk, acc)  # noqa: E731
+                plain = lambda: bmm.batched_matmul_reference(a, b, cfg.bk)  # noqa: E731
                 library = lambda: torch.bmm(a, b)  # noqa: E731
             else:
                 run = lambda: mm.cuda_matmul(a, b, cfg)  # noqa: E731
-                plain = lambda: mm.matmul_reference(a, b, cfg.bk, acc)  # noqa: E731
+                plain = lambda: mm.matmul_reference(a, b, cfg.bk)  # noqa: E731
                 library = lambda: torch.matmul(a, b)  # noqa: E731
             ms, plain_ms = _time_ms(torch, run), _time_ms(torch, plain)
             library_ms = _time_ms(torch, library)
             bound_ms, bound_by = _bound(batch, m, n, k)
-            name, replaces = sources[key]
-            kernels.append({"name": name, "route": "cuda",
-                            "source": "tpul2_torch/csrc/tl2_matmul.cu",
+            kernels.append({"name": f"tl2_matmul{' batched' if batched else ''} (single-K)",
+                            "route": "cuda", "source": "tpul2_torch/csrc/tl2_matmul.cu",
                             "replaces": replaces, "launches": launches[key],
                             "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -554,6 +688,17 @@ def main(argv=None) -> int:
                 a, rhs, dataclasses.replace(staged_cfg, pipeline_depth=d)))
             for depth in PIPELINE_DEPTHS[1:]}
         print("  staged depth sweep (ms): " + json.dumps(record["staged_depth_sweep_ms"]))
+        # the skinny serving shape (same inputs): the heuristic's mma.sync tile against the
+        # 64-row wgmma tiles, in turns
+        heuristic = resolve_config(tm, tn, tk, "float32")
+        tiles = [heuristic] + [KernelConfig(bm=64, bn=bn, bk=heuristic.bk) for bn in (64, 128)]
+        skinny = {f"{c.bm}x{c.bn} bk={c.bk}": {"route": mm.multi_k_route(c, a, b, tm, tn, tk),
+                                               "ms": []} for c in tiles}
+        for c in tiles + tiles[::-1]:
+            skinny[f"{c.bm}x{c.bn} bk={c.bk}"]["ms"].append(
+                _time_ms(torch, lambda c=c: mm.cuda_matmul(a, b, c)))
+        record["skinny_tiles"] = skinny
+        print(f"  {tm}x{tn}x{tk} tiles in turns (ms): " + json.dumps(skinny))
         for row in kernels:
             print("  " + json.dumps(row))
         for (m, n, k), acc in SLICE_SHAPES:
@@ -566,6 +711,14 @@ def main(argv=None) -> int:
                  "torch_matmul_ms": _time_ms(torch, lambda: torch.matmul(a, b))}
             t["kernel_tflops"] = 2 * m * n * k / t["kernel_ms"] * 1e-9
             t["torch_matmul_tflops"] = 2 * m * n * k / t["torch_matmul_ms"] * 1e-9
+            # host time of one entry-point call: 20 calls enqueued with no wait between them
+            # (the card's queue absorbs them), on the host clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                cand(a, b, b_t)
+            t["host_ms_per_call"] = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
             print(f"  {m}x{n}x{k} {acc} cfg {cfg.bm}x{cfg.bn} bk={cfg.bk}: " + json.dumps(t))
             record["shapes"].append({"mnk": [m, n, k], "acc": acc, **t})
     record["kernels"] = kernels

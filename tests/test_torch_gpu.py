@@ -17,7 +17,7 @@ from tpul2_torch.harness import correctness as corr
 from tpul2_torch.ops import batched as bmm
 from tpul2_torch.ops import matmul as mm
 from tpul2_torch.ops import pipelined as pl
-from tpul2_torch.ops._build import LaunchRefused, load_library
+from tpul2_torch.ops._build import LaunchRefused, check_launch, load_library
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
@@ -46,10 +46,11 @@ def test_kernel_matches_plain(cuda, acc, layout, bk):
     a = _01((M, K), 1).to(cuda)
     rhs = _01((N, K) if layout == "nk" else (K, N), 2).to(cuda)
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
-    before = mm.LAUNCHES_MULTI_K + mm.LAUNCHES_SINGLE_K
+    assert mm.multi_k_route(cfg, a, rhs, M, N, K) == "mma_sync"  # K % 8 != 0 or gk == 1
+    before = mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K
     got = fn(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_MULTI_K + mm.LAUNCHES_SINGLE_K == before + 1
+    assert mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
     assert torch.equal(got, want)
 
@@ -96,6 +97,94 @@ def test_refused_launch_raises(cuda):
     out = torch.empty((64, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
         mm.launch_kernel(a, b, KernelConfig(bm=48), out, None, None, 1, 64, 64, 64)
+
+
+WG_M, WG_N, WG_K = 200, 264, 328   # edges in M and N, a K tail of 8 (K % 64 != 0)
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_wgmma_route_matches_plain(cuda, acc, layout, tile):
+    """The wgmma body against the plain version: 0/1 inputs exact, normal inputs within
+    allowed_error."""
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, acc_dtype=acc, rhs_layout=layout)
+    fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    for zero_one in (True, False):
+        shape_b = (WG_N, WG_K) if layout == "nk" else (WG_K, WG_N)
+        if zero_one:
+            a, rhs = _01((WG_M, WG_K), 18).to(cuda), _01(shape_b, 19).to(cuda)
+        else:
+            a = torch.randn((WG_M, WG_K), generator=gen, device=cuda).bfloat16()
+            rhs = torch.randn(shape_b, generator=gen, device=cuda).bfloat16()
+        assert mm.multi_k_route(cfg, a, rhs, WG_M, WG_N, WG_K) == "wgmma"
+        before = mm.LAUNCHES_MULTI_K_WGMMA
+        got = fn(a, rhs, cfg, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES_MULTI_K_WGMMA == before + 1
+        want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
+        if zero_one:
+            assert torch.equal(got, want)
+        else:
+            tol = mm.allowed_error(a, rhs, cfg.bk, acc, layout, torch.float32)
+            assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (128, 64)], ids=lambda t: f"{t[0]}x{t[1]}")
+def test_wgmma_batched_m_edge(cuda, tile):
+    """M % BM != 0 inside a batch: the rank-3 tensor maps fill rows past M with zeros,
+    not with the next batch element's rows, and stores stay inside each element."""
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, acc_dtype="bfloat16")
+    a, b = _01((3, 100, WG_K), 20).to(cuda), _01((3, WG_K, 136), 21).to(cuda)
+    before = bmm.LAUNCHES_MULTI_K_WGMMA
+    got = bmm.cuda_batched_matmul(a, b, cfg, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert bmm.LAUNCHES_MULTI_K_WGMMA == before + 1
+    assert torch.equal(got, bmm.batched_matmul_reference(a, b, cfg.bk, "bfloat16",
+                                                         torch.float32))
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_wgmma_long_interval_stays_in_f32_tolerance(cuda, layout):
+    """Two K intervals of 4096: the wgmma body's f32 sum stays inside allowed_error."""
+    m, n, k = 128, 512, 8192
+    cfg = KernelConfig(bm=64, bn=128, bk=4096, rhs_layout=layout)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    rhs = torch.randn((n, k) if layout == "nk" else (k, n), generator=gen,
+                      device=cuda).bfloat16()
+    assert mm.multi_k_route(cfg, a, rhs, m, n, k) == "wgmma"
+    fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
+    got = fn(a, rhs, cfg, out_dtype=torch.float32)
+    want = mm.matmul_reference(a, rhs, cfg.bk, "float32", layout, out_dtype=torch.float32)
+    tol = mm.allowed_error(a, rhs, cfg.bk, "float32", layout, torch.float32)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_wgmma_refused_launch_raises(cuda):
+    """A launch outside the wgmma route (K % 8 != 0) is refused by the C launcher before
+    any work, and check_launch raises LaunchRefused; the route sends it to mma.sync."""
+    lib = load_library()
+    m, n, k = 64, 64, 1001
+    cfg = KernelConfig(bm=64, bn=64, bk=128)
+    a, b = _01((m, k), 22).to(cuda), _01((k, n), 23).to(cuda)
+    out = torch.empty((m, n), dtype=torch.float32, device=cuda)
+    assert mm.multi_k_route(cfg, a, b, m, n, k) == "mma_sync"
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr()) == 0
+    err = lib.tl2_wgmma_f32out(*mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
+    with pytest.raises(LaunchRefused, match="launch failed"):
+        check_launch(err, "tl2_wgmma")
+
+
+def test_wgmma_smem_model_matches_the_kernel(cuda):
+    lib = load_library()
+    for bm in mm.WGMMA_TILES:
+        for bn in mm.WGMMA_TILES:
+            assert lib.tl2_wgmma_smem_bytes(bm, bn) == mm.wgmma_smem_bytes(bm, bn)
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])

@@ -4,8 +4,15 @@ Counterpart of ``tpul2/config.py``.  One dataclass names a point of the searched
 field names are the JAX package's, so a configuration carries across
 (``KernelConfig.from_jax``).  What the fields mean on Hopper:
 
-  bm, bn          CTA output tile; one of TILE_CHOICES (each warp owns a 32 x 32 sub-tile
-                  of m16n8k16 MMAs, and the kernel is instantiated for these tiles only)
+  bm, bn          CTA output tile; one of TILE_CHOICES.  Two bodies serve them, picked per
+                  launch by ``ops.matmul.multi_k_route``: a K carry (gk > 1) on a tile of
+                  64 or 128 in both edges, with bk % 64 == 0 and operands TMA can read,
+                  runs tl2_wgmma.cu (m64 x bn wgmmas, one consumer warpgroup per 64 rows,
+                  a TMA ring of 64-deep K stages); everything else, the 32-edge tiles and
+                  every gk == 1 launch included, runs tl2_matmul.cu (each warp a 32 x 32
+                  sub-tile of m16n8k16 MMAs).  ``smem_bytes`` models tl2_matmul.cu; the
+                  wgmma ring (``ops.matmul.wgmma_smem_bytes``, 132 KB at 128 x 128) fits
+                  every tile, so ``validate`` needs no second model
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
                   (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, the
                   kernel's shared-memory K step

@@ -6,7 +6,10 @@
 //   tpul2/ops/batched.py::_bmm_kernel        (batched, K carry)
 //   tpul2/ops/batched.py::_bmm_kernel_single_k
 // The K-loop length (1 or many bk intervals) is a runtime value and the batch index is
-// blockIdx.z, so the four are one launch path.
+// blockIdx.z, so the four are one launch path. Since tl2_wgmma.cu, this body serves the two
+// K-carry kernels only off the wgmma route (ops/matmul.py::multi_k_route): 32-edge tiles
+// (the skinny heuristic's 32 x 64), bk not a multiple of 64, and operands TMA cannot read
+// (unaligned bases, K % 8 or, for 'kn', N % 8 != 0). It serves every gk == 1 launch.
 //
 // What it computes, per output tile, for C = act(A @ B [+ bias]) cast to the output type:
 //   for each K interval of length bk (the config's rounding interval):
@@ -38,9 +41,9 @@
 // operand/output traffic, far above the card's ~295 FLOP/byte ridge, so the tensor cores
 // should bound it; the skinny 64x8192x8192 and thin-K 8192x128x64 shapes are below the ridge
 // and bound by bytes. This design reaches neither: with one synchronous stage every load
-// latency is exposed, and mma.sync runs at a fraction of the wgmma rate. Left for later PRs:
-// a cp.async/TMA multi-stage ring (the port of tpul2/ops/pipelined.py's stage count), wgmma
-// warpgroups, ldmatrix, a persistent schedule, and a shared-memory-staged epilogue.
+// latency is exposed, and mma.sync runs at a fraction of the wgmma rate. The TMA ring and
+// wgmma warpgroups are tl2_wgmma.cu, which takes 4096^3 off this body; the skinny and
+// thin-K shapes still run here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

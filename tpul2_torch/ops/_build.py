@@ -27,8 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: C signature of each tl2_matmul launcher: a, b, bias, c, batch, m, n, k, sa, sb, sc, bm,
-#: bn, bk, rhs_nk, acc_bf16, act, raster_nm, vec_a, vec_b, stream.
+#: C signature of each tl2_matmul and tl2_wgmma launcher: a, b, bias, c, batch, m, n, k,
+#: sa, sb, sc, bm, bn, bk, rhs_nk, acc_bf16, act, raster_nm, vec_a, vec_b, stream.
 _LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P]
 #: C signature of tl2_staged: a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm, out_f32,
@@ -118,7 +118,8 @@ def load_library() -> ctypes.CDLL:
         seconds, log = _compile(sources, digest)
     lib = ctypes.CDLL(str(LIB_PATH))
     lib.build_seconds, lib.build_log = seconds, log
-    for name in ("tl2_matmul_bf16out", "tl2_matmul_f32out"):
+    for name in ("tl2_matmul_bf16out", "tl2_matmul_f32out", "tl2_wgmma_bf16out",
+                 "tl2_wgmma_f32out"):
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -130,4 +131,9 @@ def load_library() -> ctypes.CDLL:
     lib.tl2_staged_smem_bytes.restype = ctypes.c_int
     lib.tl2_kstep.argtypes = []
     lib.tl2_kstep.restype = ctypes.c_int
+    lib.tl2_wgmma_smem_bytes.argtypes = [_I, _I]
+    lib.tl2_wgmma_smem_bytes.restype = ctypes.c_int
+    # m, n, k, bm, bn, bk, rhs_nk, a, b
+    lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.tl2_wgmma_route.restype = ctypes.c_int
     return lib

@@ -1,10 +1,11 @@
-"""Batched GEMM C[t] = A[t] @ B[t] on the same Hopper kernel.
+"""Batched GEMM C[t] = A[t] @ B[t] on the same Hopper kernels.
 
 Counterpart of ``tpul2/ops/batched.py`` (``_bmm_kernel`` and ``_bmm_kernel_single_k``):
-the batch index is the kernel's ``blockIdx.z`` and each batch element reuses the 2-D
-tiling, with the same bk rounding points.  As in the JAX kernel there is no bias, no
-activation and no 'nk' layout.  For a CUDA tensor the wrapper launches the kernel or
-raises; for a CPU tensor it runs ``batched_matmul_reference``.
+the batch index is the kernels' ``blockIdx.z`` and each batch element reuses the 2-D
+tiling and route (``ops.matmul.multi_k_route``), with the same bk rounding points.  As
+in the JAX kernel there is no bias, no activation and no 'nk' layout.  For a CUDA tensor
+the wrapper launches a kernel or raises; for a CPU tensor it runs
+``batched_matmul_reference``.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import torch
 
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops.matmul import check_operands, launch_kernel, matmul_reference
+from tpul2_torch.utils.padding import cdiv
 
-#: Launches of the batched kernel with more than one bk interval (``_bmm_kernel``) and
-#: with one (``_bmm_kernel_single_k``), counted where the kernel is launched.
-LAUNCHES_MULTI_K = 0
+#: Launches of the batched kernels with more than one bk interval (``_bmm_kernel``) on
+#: the wgmma body or on the mma.sync body, and with one (``_bmm_kernel_single_k``),
+#: counted where a kernel is launched.
+LAUNCHES_MULTI_K_WGMMA = 0
+LAUNCHES_MULTI_K_MMA_SYNC = 0
 LAUNCHES_SINGLE_K = 0
 
 
@@ -35,7 +39,7 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
                         out_dtype: Optional[torch.dtype] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[t] = A[t] @ B[t]; a (B, M, K), b (B, K, N), both bf16."""
-    global LAUNCHES_MULTI_K, LAUNCHES_SINGLE_K
+    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC, LAUNCHES_SINGLE_K
     cfg = dataclasses.replace(config or KernelConfig(), rhs_layout="kn")
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     batch, m, n, k = check_operands(a, b, cfg, out_dtype, None, None, out, batched=True)
@@ -46,9 +50,11 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
-    gk = launch_kernel(a, b, cfg, out, None, None, batch, m, n, k)
-    if gk > 1:
-        LAUNCHES_MULTI_K += 1
+    route = launch_kernel(a, b, cfg, out, None, None, batch, m, n, k)
+    if route == "wgmma":
+        LAUNCHES_MULTI_K_WGMMA += 1
+    elif cdiv(k, cfg.bk) > 1:
+        LAUNCHES_MULTI_K_MMA_SYNC += 1
     else:
         LAUNCHES_SINGLE_K += 1
     return out

@@ -1,10 +1,13 @@
-"""The tuned GEMM: wrappers of the Hopper kernel and its plain torch version.
+"""The tuned GEMM: wrappers of the Hopper kernels and their plain torch version.
 
 Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 ``cuda_matmul_fused`` play ``pallas_matmul``, ``pallas_matmul_tn`` and
-``pallas_matmul_fused``.  For a CUDA tensor each launches ``csrc/tl2_matmul.cu`` or
-raises; for a CPU tensor it runs ``matmul_reference``, the plain version of the same
-semantics.  Nothing falls back from the kernel to the plain version.
+``pallas_matmul_fused``.  For a CUDA tensor each launches one of two bodies, picked by
+``multi_k_route`` from the shape before the launch: ``csrc/tl2_wgmma.cu`` (TMA ring +
+wgmma) for the K carry on the tiles and alignments it takes, ``csrc/tl2_matmul.cu``
+(mma.sync) for everything else; a launch that fails raises.  For a CPU tensor it runs
+``matmul_reference``, the plain version of the same semantics.  Nothing falls back from
+a kernel to another kernel or to the plain version.
 
 The kernel predicates its own edges, so ``edge='pad'`` and ``edge='mask'`` are the same
 launch: no padding copy, no output slice, and with ``out=`` the kernel writes straight
@@ -35,11 +38,19 @@ ACTIVATIONS = {
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
-#: Launches of the 2-D kernel, by K-loop length: more than one bk interval (the port of
-#: ``_kernel_multi_k``) and exactly one (``_kernel_single_k``).  Counted where the
-#: kernel is launched and nowhere else.
-LAUNCHES_MULTI_K = 0
+#: Launches of the 2-D kernels, by K-loop length and route: more than one bk interval
+#: (the port of ``_kernel_multi_k``) on the wgmma body or on the mma.sync body, and
+#: exactly one (``_kernel_single_k``, always mma.sync).  Counted where a kernel is
+#: launched and nowhere else.
+LAUNCHES_MULTI_K_WGMMA = 0
+LAUNCHES_MULTI_K_MMA_SYNC = 0
 LAUNCHES_SINGLE_K = 0
+
+#: The wgmma body (csrc/tl2_wgmma.cu): its tile edges, the K depth of one TMA ring stage
+#: (one 128-byte row of bf16, so bk must be a multiple) and its ring depth.
+WGMMA_TILES = (64, 128)
+WGMMA_KSTAGE = 64
+WGMMA_STAGES = 4
 
 
 def matmul_reference(a: torch.Tensor, rhs: torch.Tensor, bk: int,
@@ -106,6 +117,29 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
     return tol
 
 
+def wgmma_smem_bytes(bm: int, bn: int) -> int:
+    """Shared memory of one wgmma CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
+    ring to the swizzle period, WGMMA_STAGES stages of (bm + bn) rows of 128 bytes, and a
+    full and an empty mbarrier per stage."""
+    return 1024 + WGMMA_STAGES * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * WGMMA_STAGES * 8
+
+
+def multi_k_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
+                  m: int, n: int, k: int) -> str:
+    """The body a launch takes, from the shape before the launch (``tl2_wgmma_route``
+    mirrors it): 'wgmma' iff gk > 1, bm and bn are in WGMMA_TILES, bk is a multiple of
+    WGMMA_KSTAGE (no ring stage straddles a rounding point), and TMA can read both
+    operands (16-byte aligned bases; rows of a multiple of 16 bytes: K % 8 for A and
+    B_t, N % 8 for B).  Else 'mma_sync', which also serves every gk == 1 launch."""
+    rhs_row = k if cfg.rhs_layout == "nk" else n
+    wgmma = (min(m, n, k) > 0 and cdiv(k, cfg.bk) > 1
+             and cfg.bm in WGMMA_TILES and cfg.bn in WGMMA_TILES
+             and cfg.bk % WGMMA_KSTAGE == 0
+             and a.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+             and k % 8 == 0 and rhs_row % 8 == 0)
+    return "wgmma" if wgmma else "mma_sync"
+
+
 def _vector_ok(t: torch.Tensor, row_len: int) -> bool:
     """16-byte loads are legal: an aligned base and rows of a multiple of 8 bf16."""
     return t.data_ptr() % 16 == 0 and row_len % 8 == 0
@@ -160,31 +194,39 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
     return batch, m, n, k
 
 
+def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
+                batch: int, m: int, n: int, k: int) -> tuple:
+    """The argument list of every C launcher (tl2_matmul_* and tl2_wgmma_*), on the
+    current stream of ``a``'s card."""
+    rhs_row = k if cfg.rhs_layout == "nk" else n
+    return (a.data_ptr(), rhs.data_ptr(), bias.data_ptr() if bias is not None else None,
+            out.data_ptr(), batch, m, n, k, m * k, k * n, m * n, cfg.bm, cfg.bn, cfg.bk,
+            int(cfg.rhs_layout == "nk"), int(cfg.acc_dtype == "bfloat16"),
+            _ACT_CODES[activation], int(cfg.grid_order == "nm"),
+            int(_vector_ok(a, k)), int(_vector_ok(rhs, rhs_row)),
+            torch.cuda.current_stream(a.device).cuda_stream)
+
+
 def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
-                  batch: int, m: int, n: int, k: int) -> int:
-    """Launch tl2_matmul.cu on the current stream, writing ``out``; return gk.
+                  batch: int, m: int, n: int, k: int) -> str:
+    """Launch the body ``multi_k_route`` picks on the current stream, writing ``out``;
+    return the route ('wgmma' or 'mma_sync').
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
     from tpul2_torch.ops._build import check_launch, load_library
     lib = load_library()
-    fn = lib.tl2_matmul_f32out if out.dtype == torch.float32 else lib.tl2_matmul_bf16out
-    rhs_row = k if cfg.rhs_layout == "nk" else n
+    route = multi_k_route(cfg, a, rhs, m, n, k)
+    name = "tl2_wgmma" if route == "wgmma" else "tl2_matmul"
+    fn = getattr(lib, f"{name}_{'f32' if out.dtype == torch.float32 else 'bf16'}out")
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), rhs.data_ptr(),
-                 bias.data_ptr() if bias is not None else None, out.data_ptr(),
-                 batch, m, n, k, m * k, k * n, m * n,
-                 cfg.bm, cfg.bn, cfg.bk,
-                 int(cfg.rhs_layout == "nk"), int(cfg.acc_dtype == "bfloat16"),
-                 _ACT_CODES[activation], int(cfg.grid_order == "nm"),
-                 int(_vector_ok(a, k)), int(_vector_ok(rhs, rhs_row)), stream)
-    check_launch(err, f"tl2_matmul ({cfg} at batch={batch} m={m} n={n} k={k})")
-    return cdiv(k, cfg.bk)
+        err = fn(*launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k))
+    check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
+    return route
 
 
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
-    global LAUNCHES_MULTI_K, LAUNCHES_SINGLE_K
+    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC, LAUNCHES_SINGLE_K
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     batch, m, n, k = check_operands(a, rhs, cfg, out_dtype, bias, activation, out)
     if a.device.type == "cpu":
@@ -195,9 +237,11 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
         return out.copy_(res)
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    gk = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
-    if gk > 1:
-        LAUNCHES_MULTI_K += 1
+    route = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
+    if route == "wgmma":
+        LAUNCHES_MULTI_K_WGMMA += 1
+    elif cdiv(k, cfg.bk) > 1:
+        LAUNCHES_MULTI_K_MMA_SYNC += 1
     else:
         LAUNCHES_SINGLE_K += 1
     return out
