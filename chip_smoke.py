@@ -10,28 +10,35 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
   1  build csrc/*.cu for sm_90a (nvcc, one process per source, at first use), print the
      build time and ptxas report; the shared-memory models of config.py and ops/matmul.py
      must equal the kernels' own counts for every tile (and depth) they take, and
-     tl2_wgmma_route must agree with ops.matmul.multi_k_route over a grid of shapes,
-     tiles, bk, layouts and operand alignments
+     tl2_wgmma_route must agree with ops.matmul.launch_route over a grid of shapes,
+     tiles, bk (single intervals included), layouts and operand alignments
   2  kernel vs plain torch version on the card over the grid
      {f32, bf16 acc} x {kn, nk} x {gk == 1, gk > 1} x {aligned, unaligned}
      x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), at the main-path
      shapes, and with long K intervals (bk = K = 8192, bk = 4096); then the wgmma route
-     over {f32, bf16 acc} x {kn, nk} x {64, 128}^2 tiles x {aligned, M/N/K edges with
-     K % 64 != 0} x {plain, bias + act}, batched (B = 3) with M % BM != 0, and long
-     intervals (4096^3 at bk 2048, 128x8192x8192 at bk 4096), each case required to take
-     the wgmma route: 0/1 inputs must agree exactly (the epilogue cases then use
-     bias + relu, since no library's tanh is correctly rounded), normal inputs within
-     ops.matmul.allowed_error; and the max |error| against an f64 product at 4096^3 of
-     both multi-K bodies and of cuBLAS's f32 product
+     over {K carry (bk 128), one interval (bk >= K)} x {f32, bf16 acc} x {kn, nk}
+     x {64, 128}^2 tiles x {aligned, M/N/K edges with K % 64 != 0} x {plain, bias + act},
+     batched (B = 3) with M % BM != 0 for both, 1000^3 at one interval over families,
+     layouts and epilogues, and long intervals (4096^3 at bk 2048, 128x8192x8192 at
+     bk 4096), each case required to take the wgmma route and the body its gk names:
+     0/1 inputs must agree exactly (the epilogue cases then use bias + relu, since no
+     library's tanh is correctly rounded), normal inputs within ops.matmul.allowed_error
+     (which holds a single interval to the f32 terms in both families); the bf16
+     family's single interval with f32 output must also differ from its own bf16
+     rounding; and the max |error| against an f64 product at 4096^3 of both multi-K
+     bodies and of cuBLAS's f32 product
   2b the staged kernel vs its plain version over {f32, bf16 acc} x {kn, nk} x depth
      {2, 3, 4, 6, 8} x tiles x {bf16, f32 out}, the depth clamp (gk < depth), gk == 1
      (which must not launch it), and the tuning shape's staged candidates: 0/1 inputs
      exact, normal inputs within allowed_error(..., bk=K, acc_dtype='float32')
   3  the slice: scripts/eval_one_shape_torch.py's main() for the bring-up shapes
-     (gate with guard bands -> offline bench -> summary); every gate must pass
-  4  the launch counters, zeroed just before phase 3, must show every kernel body of the
-     heuristic path ran, both routes of both multi-K bodies included (4096^3 and its
-     batched gate variant take wgmma, 64x8192x8192's 32x64 tile mma.sync)
+     (gate with guard bands -> offline bench -> summary); every gate must pass; then the
+     entry points (dispatch.matmul, dispatch.batched_matmul) at shapes with K % 8 != 0,
+     which TMA cannot read, with one K interval and with several: exact on 0/1 inputs
+  4  the launch counters, zeroed just before phase 3, must show that each body ran on
+     both routes, single-K and multi-K, 2-D and batched: the bring-up shapes and the
+     gate's batched variants take wgmma (64x8192x8192 at the heuristic's 64x64 tile
+     included), the K % 8 != 0 shapes mma.sync
   tune  `python -m tpul2_torch.autotune` (its main()) for 64x8192x8192 f32 into
      runs/chip_smoke/tunedb_h100.json, with few candidates and rounds: every candidate
      must launch, at least two staged candidates must be timed, the staged kernel must
@@ -43,11 +50,14 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
   5  per-kernel times on the card against the plain version and torch.matmul, with the
      bound of each (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s): the
      two routes of each multi-K body at 4096^3 (and 2 x 4096^3) on the same 128x128 tile,
-     timed in turns (the mma.sync one launched through lib.tl2_matmul_*out directly),
-     the single-K bodies, the staged kernel and its time at every depth on the dispatched
-     tile, the 64-row wgmma tiles against the heuristic's mma.sync 32x64 at
-     64x8192x8192, and for each bring-up shape the entry point's time back to back and
-     its host time per call
+     timed in turns (the mma.sync one launched through lib.tl2_matmul_*out directly);
+     the two routes of each single-K body alone (a CUDA graph of direct launches, so no
+     host time enters; torch.matmul the same way) at 8192x128x64 (and 2 x), and at 1000^3
+     in both families; the staged kernel and its time at every depth on the dispatched
+     tile; the heuristic's 64x64 wgmma tile against the 32x64 mma.sync tile it used to
+     pick and the 64x128 wgmma tile at 64x8192x8192, through the wrapper in turns and
+     alone; and for each bring-up shape the entry point's time back to back and its host
+     time per call
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -74,6 +84,10 @@ SLICE_SHAPES = [
 ]
 GATE_BATCH = 2   # the gate's batched variant (harness.correctness.gate_kernel_variants)
 GRID_BATCH = 3
+#: (batch, m, n, k) with K % 8 != 0, whose rows TMA cannot read: the entry points send
+#: them to the mma.sync bodies, with one K interval (bk 1024 >= K) and with two.
+UNALIGNED_SHAPES = [(1, 200, 300, 1001), (1, 200, 300, 2001), (GATE_BATCH, 200, 300, 1001),
+                    (GATE_BATCH, 200, 300, 2001)]
 #: The tuning path's shape: the skinny serving shape, where the kStage axis competes.
 TUNE_SHAPE = (64, 8192, 8192)
 #: Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM rate.
@@ -130,27 +144,40 @@ def _grid_cases():
 
 def _wgmma_cases():
     """(name, batch, m, n, k, cfg kwargs, activation, out dtype name) of phase 2's wgmma
-    route grid; each must take the wgmma route."""
+    route grid; each must take the wgmma route: a K carry (bk 128) and one interval
+    (bk >= K; at the edge shape 352, not a multiple of 64)."""
     cases = []
     i = 0
+    for gk in ("gkN", "gk1"):
+        for acc in ("float32", "bfloat16"):
+            for layout in ("kn", "nk"):
+                for bm in (64, 128):
+                    for bn in (64, 128):
+                        for edge in (False, True):
+                            # edges: M % BM, N % BN != 0 and a K tail of 8 (K % 64 != 0)
+                            m, n, k = (200, 264, 328) if edge else (256, 384, 512)
+                            bk = 128 if gk == "gkN" else -(-k // 32) * 32
+                            for epilogue in (False, True):
+                                act = ("gelu", "silu", "tanh")[i % 3] if epilogue else None
+                                cfg = dict(bm=bm, bn=bn, bk=bk, acc_dtype=acc,
+                                           rhs_layout=layout,
+                                           grid_order="nm" if i % 2 else "mn")
+                                out = "float32" if i % 3 else "bfloat16"
+                                cases.append((f"wgmma/{gk}/{acc}/{layout}/"
+                                              f"{'edge' if edge else 'al'}/{act or 'plain'}",
+                                              1, m, n, k, cfg, act, out))
+                                i += 1
+            for bm, bn in ((64, 128), (128, 64)):  # the rank-3 maps' M edge inside a batch
+                cases.append((f"wgmma-batched/{gk}/{acc}/m-edge", GRID_BATCH, 100, 136, 328,
+                              dict(bm=bm, bn=bn, bk=128 if gk == "gkN" else 352,
+                                   acc_dtype=acc), None, "float32"))
+    # the unaligned bring-up shape at one interval, as the heuristic resolves it
     for acc in ("float32", "bfloat16"):
         for layout in ("kn", "nk"):
-            for bm in (64, 128):
-                for bn in (64, 128):
-                    for edge in (False, True):
-                        # edges: M % BM, N % BN != 0 and a K tail of 8 (K % 64 != 0)
-                        m, n, k = (200, 264, 328) if edge else (256, 384, 512)
-                        for epilogue in (False, True):
-                            act = ("gelu", "silu", "tanh")[i % 3] if epilogue else None
-                            cfg = dict(bm=bm, bn=bn, bk=128, acc_dtype=acc, rhs_layout=layout,
-                                       grid_order="nm" if i % 2 else "mn")
-                            out = "float32" if i % 3 else "bfloat16"
-                            cases.append((f"wgmma/{acc}/{layout}/{'edge' if edge else 'al'}/"
-                                          f"{act or 'plain'}", 1, m, n, k, cfg, act, out))
-                            i += 1
-        for bm, bn in ((64, 128), (128, 64)):  # the rank-3 maps' M edge inside a batch
-            cases.append((f"wgmma-batched/{acc}/m-edge", GRID_BATCH, 100, 136, 328,
-                          dict(bm=bm, bn=bn, bk=128, acc_dtype=acc), None, "float32"))
+            for act in (None, "gelu"):
+                cases.append((f"wgmma/gk1/1000^3/{acc}/{layout}/{act or 'plain'}", 1, 1000,
+                              1000, 1000, dict(bm=64, bn=64, bk=1024, acc_dtype=acc,
+                                               rhs_layout=layout), act, "float32"))
     cases.append(("wgmma-long/4096x4096x4096/float32", 1, 4096, 4096, 4096,
                   dict(bm=128, bn=128, bk=2048), None, "float32"))
     cases.append(("wgmma-long/128x8192x8192/float32", 1, 128, 8192, 8192,
@@ -159,12 +186,12 @@ def _wgmma_cases():
 
 
 def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
-    """tl2_wgmma_route against ops.matmul.multi_k_route over shapes, tiles, bk, layouts and
-    operand alignments (views 2, 8 and 16 bytes into one allocation); return (cases,
-    wgmma cases).  Raises on the first disagreement."""
+    """tl2_wgmma_route against ops.matmul.launch_route over shapes, tiles, bk (one interval
+    and several), layouts and operand alignments (views 2, 8 and 16 bytes into one
+    allocation); return (cases, wgmma cases).  Raises on the first disagreement."""
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((256, 256, 1024), (200, 1001, 328), (64, 8192, 8192), (96, 160, 1004),
-              (128, 128, 64))
+              (128, 128, 64), (8192, 128, 64), (1000, 1000, 1000))
     n = n_wgmma = 0
     for off_a in (0, 1, 8):
         for off_b in (0, 4):
@@ -175,7 +202,7 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
                         for bk in (64, 96, 128, 256, 1024, 8192):
                             for layout in ("kn", "nk"):
                                 cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
-                                py = mm.multi_k_route(cfg, a, b, m, nn, k) == "wgmma"
+                                py = mm.launch_route(cfg, a, b, m, nn, k) == "wgmma"
                                 c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
                                                         int(layout == "nk"), a.data_ptr(),
                                                         b.data_ptr())
@@ -300,6 +327,14 @@ def _bound(batch: int, m: int, n: int, k: int, out_bytes: int = 2) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _script(repo: Path, name: str):
+    """The module of scripts/<name>.py."""
+    spec = importlib.util.spec_from_file_location(name, repo / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _time_ms(torch, fn, reps: int = 20) -> float:
     """Mean device milliseconds per call over ``reps`` back-to-back calls (CUDA events)."""
     for _ in range(3):
@@ -326,6 +361,7 @@ def main(argv=None) -> int:
         return 1
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    from tpul2_torch import dispatch
     from tpul2_torch.autotune import __main__ as tune_cli
     from tpul2_torch.autotune import db as db_mod
     from tpul2_torch.config import PIPELINE_DEPTHS, KernelConfig, candidate_configs
@@ -337,19 +373,19 @@ def main(argv=None) -> int:
     from tpul2_torch.ops._build import check_launch, load_library
     from tpul2_torch.utils.platform import device_info, require_hopper
 
+    #: counter key -> (module, attribute): each body on each route, 2-D and batched
+    count_attrs = {f"{prefix}{body}_k_{route}": (mod, f"LAUNCHES_{body.upper()}_K_"
+                                                      f"{route.upper()}")
+                   for prefix, mod in (("", mm), ("batched_", bmm))
+                   for body in ("multi", "single") for route in ("wgmma", "mma_sync")}
+    count_attrs["staged"] = (pl, "LAUNCHES_STAGED")
+
     def zero_counters():
-        mm.LAUNCHES_MULTI_K_WGMMA = mm.LAUNCHES_MULTI_K_MMA_SYNC = mm.LAUNCHES_SINGLE_K = 0
-        bmm.LAUNCHES_MULTI_K_WGMMA = bmm.LAUNCHES_MULTI_K_MMA_SYNC = 0
-        bmm.LAUNCHES_SINGLE_K = 0
-        pl.LAUNCHES_STAGED = 0
+        for mod, attr in count_attrs.values():
+            setattr(mod, attr, 0)
 
     def counters() -> dict:
-        return {"multi_k_wgmma": mm.LAUNCHES_MULTI_K_WGMMA,
-                "multi_k_mma_sync": mm.LAUNCHES_MULTI_K_MMA_SYNC,
-                "single_k": mm.LAUNCHES_SINGLE_K,
-                "batched_multi_k_wgmma": bmm.LAUNCHES_MULTI_K_WGMMA,
-                "batched_multi_k_mma_sync": bmm.LAUNCHES_MULTI_K_MMA_SYNC,
-                "batched_single_k": bmm.LAUNCHES_SINGLE_K, "staged": pl.LAUNCHES_STAGED}
+        return {key: getattr(mod, attr) for key, (mod, attr) in count_attrs.items()}
 
     record = {}
     with phase("0 device"):
@@ -425,12 +461,29 @@ def main(argv=None) -> int:
                 errs.append(_check_case(torch, mods, gen, batch, m, n, k, cfg, act, out,
                                         zero_one))
             key = next(key for key, v in counters().items() if v != before[key])
-            if name.startswith("wgmma") and not key.endswith("wgmma"):
-                raise AssertionError(f"{name} took {key}, not the wgmma route")
+            if name.startswith("wgmma") and (not key.endswith("wgmma") or (
+                    "single_k" in key) != (-(-k // cfg.bk) == 1)):
+                raise AssertionError(f"{name} took {key}, not the wgmma route of its body")
             max_err[key] = max(max_err[key], errs[1])
             print(f"  {name} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: {key}, 0/1 exact, "
                   f"normal max|diff| {errs[1]:.3g}")
         record["phase2_cases"] = len(cases)
+        # the bf16 family's single interval with f32 output is the f32 sum: the kernel's
+        # result must stand off its own bf16 rounding, as the f32 sum does
+        m = n = k = 1000
+        cfg = KernelConfig(bm=64, bn=64, bk=1024, acc_dtype="bfloat16")
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        got = mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32)
+        f32_sum = a.float() @ b.float()
+        rounded = (got.bfloat16().float() - got).abs().max().item()
+        record["bf16_family_gk1_f32_out"] = {
+            "route": mm.launch_route(cfg, a, b, m, n, k),
+            "max_diff_vs_f32_sum": (got - f32_sum).abs().max().item(),
+            "max_diff_vs_own_bf16_rounding": rounded}
+        print("  bf16 family, one interval, f32 out at 1000^3: "
+              + json.dumps(record["bf16_family_gk1_f32_out"]))
+        if record["bf16_family_gk1_f32_out"]["route"] != "wgmma" or rounded == 0.0:
+            raise AssertionError("the bf16 family's single interval was rounded to bf16")
         # precision of both multi-K bodies at the headline shape against an f64 product,
         # beside cuBLAS's f32 product (the plain version's sum)
         m = n = k = 4096
@@ -466,25 +519,25 @@ def main(argv=None) -> int:
                   f"normal max|diff| {errs[1]:.3g}")
         record["phase2b_cases"] = len(cases)
         # precision of the f32 sums at the tuning shape, against an f64 product: the staged
-        # kernel, the plain version (cuBLAS f32) and tl2_matmul over one K interval (bk = K)
+        # kernel, the plain version (cuBLAS f32) and one K interval (bk = K) on the staged
+        # config's tile, through the body the route picks for it
         m, n, k = TUNE_SHAPE
         cfg = next(KernelConfig(**kw) for _, cm, _, _, kw, _, _ in cases if cm == m)
         a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
         ref = a.double() @ b.double()
+        one = KernelConfig(bm=cfg.bm, bn=cfg.bn, bk=k)
         outs = {"staged": pl.cuda_matmul_pipelined(a, b.t().contiguous() if cfg.rhs_layout
                                                    == "nk" else b, cfg, out_dtype=torch.float32),
                 "plain": pl.pipelined_reference(a, b, "kn", torch.float32),
-                "tl2_matmul_one_interval": mm.cuda_matmul(
-                    a, b, KernelConfig(bm=cfg.bm, bn=cfg.bn, bk=k), out_dtype=torch.float32)}
+                f"one_interval_{mm.launch_route(one, a, b, m, n, k)}": mm.cuda_matmul(
+                    a, b, one, out_dtype=torch.float32)}
         record["precision_vs_f64"] = {name: (x.double() - ref).abs().max().item()
                                       for name, x in outs.items()}
         print(f"  max |err| vs an f64 product at {m}x{n}x{k}: "
               + json.dumps(record["precision_vs_f64"]))
 
-    eval_spec = importlib.util.spec_from_file_location(
-        "eval_one_shape_torch", repo / "scripts" / "eval_one_shape_torch.py")
-    eval_mod = importlib.util.module_from_spec(eval_spec)
-    eval_spec.loader.exec_module(eval_mod)
+    eval_mod = _script(repo, "eval_one_shape_torch")
+    host_time = _script(repo, "host_time_torch")  # alone_ms: device time, no host time
 
     def run_slice(m, n, k, acc, base) -> dict:
         """eval_one_shape_torch's main(): gate -> bench -> summary; the gate must pass
@@ -509,6 +562,23 @@ def main(argv=None) -> int:
         for (m, n, k), acc in SLICE_SHAPES:
             base = repo / "runs" / "chip_smoke" / f"{m}x{n}x{k}_{acc}"
             record["slice"].append(run_slice(m, n, k, acc, base))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        for batch, m, n, k in UNALIGNED_SHAPES:
+            cfg = resolve_config(m, n, k)
+            if batch > 1:
+                a = _inputs(torch, gen, (batch, m, k), True)
+                b = _inputs(torch, gen, (batch, k, n), True)
+                got = dispatch.batched_matmul(a, b, out_dtype=torch.float32)
+            else:
+                a, b = _inputs(torch, gen, (m, k), True), _inputs(torch, gen, (k, n), True)
+                got = dispatch.matmul(a, b, out_dtype=torch.float32)
+            want = mm.matmul_reference(a, b, cfg.bk, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"entry point at {batch}x{m}x{n}x{k} is not exact")
+            print(f"  entry point {batch}x{m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
+                  f"({mm.launch_route(cfg, a, b, m, n, k)}): exact on 0/1 inputs")
     launches = counters()
 
     with phase("4 launch counts"):
@@ -606,7 +676,7 @@ def main(argv=None) -> int:
             b = _inputs(torch, gen, (batch, k, n) if batched else (k, n), False)
             out = torch.empty((batch, m, n) if batched else (m, n), dtype=torch.bfloat16,
                               device="cuda")
-            if mm.multi_k_route(cfg, a, b, m, n, k) != "wgmma":
+            if mm.launch_route(cfg, a, b, m, n, k) != "wgmma":
                 raise AssertionError(f"{cfg} does not take the wgmma route at 4096^3")
             call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
             if batched:
@@ -642,31 +712,67 @@ def main(argv=None) -> int:
                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
         del a, b, out
-        m, n, k = 8192, 128, 64
-        cfg = resolve_config(m, n, k, "float32")
-        for key, batch, replaces in (("single_k", 1, "tpul2/ops/matmul.py:136"),
-                                     ("batched_single_k", GATE_BATCH,
-                                      "tpul2/ops/batched.py:40")):
+        # the single-K bodies alone on both routes, in turns (wgmma, mma.sync, mma.sync,
+        # wgmma): CUDA graphs of direct launches, since the entry point's host time exceeds
+        # their device time; torch.matmul (torch.bmm) the same way
+        record["single_k_alone"] = []
+        fns = {"wgmma": lib.tl2_wgmma_bf16out, "mma_sync": lib.tl2_matmul_bf16out}
+        for batch, m, n, k, acc in ((1, 8192, 128, 64, "float32"),
+                                    (GATE_BATCH, 8192, 128, 64, "float32"),
+                                    (1, 1000, 1000, 1000, "float32"),
+                                    (1, 1000, 1000, 1000, "bfloat16")):
             batched = batch > 1
-            a = _inputs(torch, gen, (batch, m, k) if batched else (m, k), False)
-            b = _inputs(torch, gen, (batch, k, n) if batched else (k, n), False)
+            lead = (batch,) if batched else ()
+            cfg = resolve_config(m, n, k, acc)
+            a = _inputs(torch, gen, (*lead, m, k), False)
+            b = _inputs(torch, gen, (*lead, k, n), False)
+            out = torch.empty((*lead, m, n), dtype=torch.bfloat16, device="cuda")
+            if mm.launch_route(cfg, a, b, m, n, k) != "wgmma" or -(-k // cfg.bk) != 1:
+                raise AssertionError(f"{cfg} is not a single-K wgmma launch at {m}x{n}x{k}")
+
+            def direct(route, a=a, b=b, cfg=cfg, out=out, batch=batch, m=m, n=n, k=k):
+                def make():  # the arguments name the capturing stream
+                    call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
+                    return lambda: check_launch(fns[route](*call), route)
+                return make
+
+            library = torch.bmm if batched else torch.matmul
             if batched:
-                run = lambda: bmm.cuda_batched_matmul(a, b, cfg)  # noqa: E731
                 plain = lambda: bmm.batched_matmul_reference(a, b, cfg.bk)  # noqa: E731
-                library = lambda: torch.bmm(a, b)  # noqa: E731
+                wrapper = lambda: bmm.cuda_batched_matmul(a, b, cfg, out=out)  # noqa: E731
             else:
-                run = lambda: mm.cuda_matmul(a, b, cfg)  # noqa: E731
-                plain = lambda: mm.matmul_reference(a, b, cfg.bk)  # noqa: E731
-                library = lambda: torch.matmul(a, b)  # noqa: E731
-            ms, plain_ms = _time_ms(torch, run), _time_ms(torch, plain)
-            library_ms = _time_ms(torch, library)
+                plain = lambda: mm.matmul_reference(a, b, cfg.bk, acc)  # noqa: E731
+                wrapper = lambda: mm.cuda_matmul(a, b, cfg, out=out)  # noqa: E731
+            turns = [host_time.alone_ms(torch, direct(route))
+                     for route in ("wgmma", "mma_sync", "mma_sync", "wgmma")]
             bound_ms, bound_by = _bound(batch, m, n, k)
-            kernels.append({"name": f"tl2_matmul{' batched' if batched else ''} (single-K)",
-                            "route": "cuda", "source": "tpul2_torch/csrc/tl2_matmul.cu",
-                            "replaces": replaces, "launches": launches[key],
-                            "max_abs_err": max_err[key], "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by,
-                            "library_ms": library_ms})
+            row = {"batch": batch, "mnk": [m, n, k], "acc": acc,
+                   "config": f"{cfg.bm}x{cfg.bn} bk={cfg.bk}", "turns_ms": turns,
+                   "wgmma_ms": (turns[0] + turns[3]) / 2,
+                   "mma_sync_ms": (turns[1] + turns[2]) / 2,
+                   "torch_alone_ms": host_time.alone_ms(torch, lambda: (lambda: library(a, b))),
+                   "wrapper_back_to_back_ms": _time_ms(torch, wrapper),
+                   "plain_ms": _time_ms(torch, plain), "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            record["single_k_alone"].append(row)
+            print("  single-K alone " + json.dumps(row))
+            if (m, n, k) != (8192, 128, 64):
+                continue
+            prefix = "batched_" if batched else ""
+            for route, source in (("wgmma", "tpul2_torch/csrc/tl2_wgmma.cu"),
+                                  ("mma_sync", "tpul2_torch/csrc/tl2_matmul.cu")):
+                key = f"{prefix}single_k_{route}"
+                kernels.append({
+                    "name": (f"{'tl2_wgmma' if route == 'wgmma' else 'tl2_matmul mma.sync'}"
+                             f"{' batched' if batched else ''} (single-K)"),
+                    "route": "cuda", "source": source,
+                    "replaces": ("tpul2/ops/batched.py:40" if batched
+                                 else "tpul2/ops/matmul.py:136"),
+                    "launches": launches[key], "max_abs_err": max_err[key],
+                    "ms": row[f"{route}_ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": row["torch_alone_ms"]})
+        del a, b, out
         # the staged kernel at the tuning shape, with the config the tuned path dispatched
         a, b = _inputs(torch, gen, (tm, tk), False), _inputs(torch, gen, (tk, tn), False)
         rhs = b.t().contiguous() if staged_cfg.rhs_layout == "nk" else b
@@ -688,15 +794,29 @@ def main(argv=None) -> int:
                 a, rhs, dataclasses.replace(staged_cfg, pipeline_depth=d)))
             for depth in PIPELINE_DEPTHS[1:]}
         print("  staged depth sweep (ms): " + json.dumps(record["staged_depth_sweep_ms"]))
-        # the skinny serving shape (same inputs): the heuristic's mma.sync tile against the
-        # 64-row wgmma tiles, in turns
+        # the skinny serving shape (same inputs): the heuristic's tile against the 32x64
+        # mma.sync tile it picked before it stopped at the wgmma tiles and the 64x128 wgmma
+        # tile, through the wrapper in turns, then each alone
         heuristic = resolve_config(tm, tn, tk, "float32")
-        tiles = [heuristic] + [KernelConfig(bm=64, bn=bn, bk=heuristic.bk) for bn in (64, 128)]
-        skinny = {f"{c.bm}x{c.bn} bk={c.bk}": {"route": mm.multi_k_route(c, a, b, tm, tn, tk),
+        if heuristic.bm != 64 or mm.launch_route(heuristic, a, b, tm, tn, tk) != "wgmma":
+            raise AssertionError(f"the heuristic's {heuristic} at {tm}x{tn}x{tk} is not a "
+                                 "64-row wgmma tile")
+        tiles = [heuristic] + [KernelConfig(bm=bm, bn=bn, bk=heuristic.bk)
+                               for bm, bn in ((32, 64), (64, 128))]
+        skinny = {f"{c.bm}x{c.bn} bk={c.bk}": {"route": mm.launch_route(c, a, b, tm, tn, tk),
                                                "ms": []} for c in tiles}
         for c in tiles + tiles[::-1]:
             skinny[f"{c.bm}x{c.bn} bk={c.bk}"]["ms"].append(
                 _time_ms(torch, lambda c=c: mm.cuda_matmul(a, b, c)))
+        out = torch.empty((tm, tn), dtype=torch.bfloat16, device="cuda")
+        for c in tiles:
+            fn = fns[mm.launch_route(c, a, b, tm, tn, tk)]
+
+            def make(c=c, fn=fn):
+                call = mm.launch_args(a, b, c, out, None, None, 1, tm, tn, tk)
+                return lambda: check_launch(fn(*call), "skinny")
+
+            skinny[f"{c.bm}x{c.bn} bk={c.bk}"]["alone_ms"] = host_time.alone_ms(torch, make)
         record["skinny_tiles"] = skinny
         print(f"  {tm}x{tn}x{tk} tiles in turns (ms): " + json.dumps(skinny))
         for row in kernels:

@@ -166,6 +166,52 @@ def test_resolution_follows_db_changes(tmp_default_db):
     assert dispatch.resolve_config(64, 256, 1024) == before
 
 
+@pytest.mark.parametrize("change", ["put", "reset_default_db", "env_var"])
+def test_resolution_memo_is_invalidated(change, tmp_default_db, tmp_path, monkeypatch):
+    """resolve_config keeps its decision per shape, so a repeated call resolves nothing
+    again, until the DB it came from changes: a put into the default DB (the tuner's
+    save), ``reset_default_db()`` after the file changed, and a change of
+    TPUL2_TORCH_TUNEDB each make it stale."""
+    m, n, k = 64, 256, 1024
+    calls = []
+    real = dispatch.heuristic_config
+    monkeypatch.setattr(dispatch, "heuristic_config",
+                        lambda *args: calls.append(args) or real(*args))
+    first = dispatch.resolve_config(m, n, k)
+    assert first == real(m, n, k)
+    assert dispatch.resolve_config(m, n, k) is first and len(calls) == 1
+    staged = KernelConfig(bm=32, bn=64, bk=256, pipeline_depth=4)
+    if change == "put":
+        db_mod.default_db().put(m, n, k, staged, 1.0)
+    else:
+        path = tmp_default_db if change == "reset_default_db" else tmp_path / "other.json"
+        other = db_mod.TuneDB(path=path)
+        other.put(m, n, k, staged, 1.0)
+        other.save()
+        if change == "reset_default_db":
+            # the loaded DB has not read the file again, so the memo still holds
+            assert dispatch.resolve_config(m, n, k) is first
+            db_mod.reset_default_db()
+        else:
+            monkeypatch.setenv(db_mod.ENV_VAR, str(path))
+    assert dispatch.resolve_config(m, n, k) == staged
+    assert len(calls) == 1
+
+
+def test_resolution_memo_is_bounded(tmp_default_db, monkeypatch):
+    monkeypatch.setattr(dispatch, "MEMO_LIMIT", 4)
+    for m in range(1, 11):
+        assert dispatch.resolve_config(m, 256, 1024) == heuristic_config(m, 256, 1024)
+        assert len(db_mod.default_db().memo) <= 4
+
+
+def test_resolution_sends_an_unrunnable_entry_to_the_sentinel(tmp_default_db):
+    """A DB entry the kernel cannot run (a tile it has no instance for) resolves to the
+    vendor sentinel instead of failing at the launch."""
+    db_mod.default_db().put(64, 256, 1024, KernelConfig(bm=16, bn=64, bk=256), 1.0)
+    assert dispatch.resolve_config(64, 256, 1024) == KernelConfig.vendor()
+
+
 def test_default_path_is_the_h100_file(monkeypatch):
     monkeypatch.delenv(db_mod.ENV_VAR, raising=False)
     path = db_mod.TuneDB().path

@@ -6,8 +6,8 @@ import pytest
 import torch
 
 import tpul2.config as jcfg
-from tpul2_torch.config import (KSTEP, NUM_SMS, SMEM_LIMIT, TILE_CHOICES, KernelConfig,
-                                heuristic_config)
+from tpul2_torch.config import (KSTEP, NUM_SMS, SMEM_LIMIT, TILE_CHOICES, WGMMA_TILES,
+                                KernelConfig, heuristic_config)
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 from tpul2_torch.utils.padding import cdiv
 
@@ -93,10 +93,21 @@ def test_heuristic_is_a_valid_kernel_config(m, n, k, acc):
     assert not cfg.use_vendor
     assert cfg.validate() is None
     assert cfg.acc_dtype == acc
-    # the grid fills the card, or the tiles are already the smallest
+    # the grid fills the card, or the tiles are already the wgmma body's least
     assert (cdiv(m, cfg.bm) * cdiv(n, cfg.bn) >= NUM_SMS
-            or (cfg.bm, cfg.bn) == (TILE_CHOICES[0], TILE_CHOICES[0])
-            or max(cfg.bm, cfg.bn) == TILE_CHOICES[0])
+            or max(cfg.bm, cfg.bn) <= WGMMA_TILES[0])
+    # an edge goes below the wgmma tiles only where its own dimension does
+    for edge, dim in ((cfg.bm, m), (cfg.bn, n)):
+        assert edge in WGMMA_TILES or dim <= TILE_CHOICES[0]
+
+
+def test_heuristic_puts_the_skinny_shape_on_a_64_row_tile():
+    """64x8192x8192 (the skinny serving shape): the 64x64 wgmma tile, 128 CTAs, where the
+    grid rule alone went down to the 32x64 mma.sync tile."""
+    for acc in ("float32", "bfloat16"):
+        cfg = heuristic_config(64, 8192, 8192, acc)
+        assert (cfg.bm, cfg.bn, cfg.bk) == (64, 64, 1024)
+        assert cdiv(64, cfg.bm) * cdiv(8192, cfg.bn) == 128
 
 
 @pytest.mark.parametrize("k", [1, 31, 64, 100, 127, 128, 200, 300, 1000, 1024, 4096,

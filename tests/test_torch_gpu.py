@@ -46,11 +46,11 @@ def test_kernel_matches_plain(cuda, acc, layout, bk):
     a = _01((M, K), 1).to(cuda)
     rhs = _01((N, K) if layout == "nk" else (K, N), 2).to(cuda)
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
-    assert mm.multi_k_route(cfg, a, rhs, M, N, K) == "mma_sync"  # K % 8 != 0 or gk == 1
-    before = mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K
+    assert mm.launch_route(cfg, a, rhs, M, N, K) == "mma_sync"  # K % 8 != 0
+    before = mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K_MMA_SYNC
     got = fn(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K == before + 1
+    assert mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K_MMA_SYNC == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
     assert torch.equal(got, want)
 
@@ -102,14 +102,17 @@ def test_refused_launch_raises(cuda):
 WG_M, WG_N, WG_K = 200, 264, 328   # edges in M and N, a K tail of 8 (K % 64 != 0)
 
 
+@pytest.mark.parametrize("bk", [128, 352], ids=["carry", "one_interval"])
 @pytest.mark.parametrize("tile", [(64, 64), (64, 128), (128, 64), (128, 128)],
                          ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("acc", ["float32", "bfloat16"])
-def test_wgmma_route_matches_plain(cuda, acc, layout, tile):
-    """The wgmma body against the plain version: 0/1 inputs exact, normal inputs within
+def test_wgmma_route_matches_plain(cuda, acc, layout, tile, bk):
+    """The wgmma body against the plain version, with a K carry and with one interval
+    (bk 352 >= K, not a multiple of 64): 0/1 inputs exact, normal inputs within
     allowed_error."""
-    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, acc_dtype=acc, rhs_layout=layout)
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=bk, acc_dtype=acc, rhs_layout=layout)
+    counter = "LAUNCHES_MULTI_K_WGMMA" if bk < WG_K else "LAUNCHES_SINGLE_K_WGMMA"
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     gen = torch.Generator(device=cuda)
     gen.manual_seed(17)
@@ -120,11 +123,11 @@ def test_wgmma_route_matches_plain(cuda, acc, layout, tile):
         else:
             a = torch.randn((WG_M, WG_K), generator=gen, device=cuda).bfloat16()
             rhs = torch.randn(shape_b, generator=gen, device=cuda).bfloat16()
-        assert mm.multi_k_route(cfg, a, rhs, WG_M, WG_N, WG_K) == "wgmma"
-        before = mm.LAUNCHES_MULTI_K_WGMMA
+        assert mm.launch_route(cfg, a, rhs, WG_M, WG_N, WG_K) == "wgmma"
+        before = getattr(mm, counter)
         got = fn(a, rhs, cfg, out_dtype=torch.float32)
         torch.cuda.synchronize()
-        assert mm.LAUNCHES_MULTI_K_WGMMA == before + 1
+        assert getattr(mm, counter) == before + 1
         want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
         if zero_one:
             assert torch.equal(got, want)
@@ -157,7 +160,7 @@ def test_wgmma_long_interval_stays_in_f32_tolerance(cuda, layout):
     a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
     rhs = torch.randn((n, k) if layout == "nk" else (k, n), generator=gen,
                       device=cuda).bfloat16()
-    assert mm.multi_k_route(cfg, a, rhs, m, n, k) == "wgmma"
+    assert mm.launch_route(cfg, a, rhs, m, n, k) == "wgmma"
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     got = fn(a, rhs, cfg, out_dtype=torch.float32)
     want = mm.matmul_reference(a, rhs, cfg.bk, "float32", layout, out_dtype=torch.float32)
@@ -173,11 +176,33 @@ def test_wgmma_refused_launch_raises(cuda):
     cfg = KernelConfig(bm=64, bn=64, bk=128)
     a, b = _01((m, k), 22).to(cuda), _01((k, n), 23).to(cuda)
     out = torch.empty((m, n), dtype=torch.float32, device=cuda)
-    assert mm.multi_k_route(cfg, a, b, m, n, k) == "mma_sync"
+    assert mm.launch_route(cfg, a, b, m, n, k) == "mma_sync"
     assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr()) == 0
     err = lib.tl2_wgmma_f32out(*mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
     with pytest.raises(LaunchRefused, match="launch failed"):
         check_launch(err, "tl2_wgmma")
+
+
+def test_bf16_family_single_interval_is_the_f32_sum(cuda):
+    """A bf16-family launch with one K interval and f32 output runs the f32-carry
+    instance: its result is the f32 sum, within the f32 tolerance, and not that sum's
+    bf16 rounding (which the 0/1 gate cannot tell apart)."""
+    m, n, k = 1000, 1000, 1000
+    cfg = KernelConfig(bm=64, bn=64, bk=1024, acc_dtype="bfloat16")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    assert mm.launch_route(cfg, a, b, m, n, k) == "wgmma"
+    before = mm.LAUNCHES_SINGLE_K_WGMMA
+    got = mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES_SINGLE_K_WGMMA == before + 1
+    tol = mm.allowed_error(a, b, k, "float32", "kn", torch.float32)
+    f32_sum = a.float() @ b.float()
+    assert bool(((got - f32_sum).abs() <= tol).all())
+    assert bool(((f32_sum.bfloat16().float() - f32_sum).abs() > tol).any())
+    assert not torch.equal(got, got.bfloat16().float())
 
 
 def test_wgmma_smem_model_matches_the_kernel(cuda):
@@ -214,12 +239,14 @@ def test_staged_smem_model_matches_the_kernel(cuda):
 
 
 def test_staged_single_k_takes_the_single_k_kernel(cuda):
+    """gk == 1 on a staged config: the single-K body, on the wgmma route (64x64 tile,
+    aligned operands), not the staged ring."""
     cfg = KernelConfig(bm=64, bn=64, bk=512, pipeline_depth=4)
     a, b = _01((128, 512), 11).to(cuda), _01((512, 128), 12).to(cuda)
-    staged, single = pl.LAUNCHES_STAGED, mm.LAUNCHES_SINGLE_K
+    staged, single = pl.LAUNCHES_STAGED, mm.LAUNCHES_SINGLE_K_WGMMA
     got = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pl.LAUNCHES_STAGED == staged and mm.LAUNCHES_SINGLE_K == single + 1
+    assert pl.LAUNCHES_STAGED == staged and mm.LAUNCHES_SINGLE_K_WGMMA == single + 1
     assert torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32))
 
 

@@ -1,14 +1,16 @@
-"""The multi-K route rule, and the wgmma route's semantics on the CPU path.
+"""The route rule, and the wgmma route's semantics on the CPU path.
 
-``ops.matmul.multi_k_route`` sends a launch to ``csrc/tl2_wgmma.cu`` or to
+``ops.matmul.launch_route`` sends a launch to ``csrc/tl2_wgmma.cu`` or to
 ``csrc/tl2_matmul.cu``'s mma.sync body, from the shape before the launch; on the card,
 ``chip_smoke.py`` phase 1 holds the C mirror (``tl2_wgmma_route``) to it.  Here: each
-condition flips the route on its own, gk == 1 never takes wgmma, the CPU path launches
-nothing, and at each wgmma tile, with gk > 1 and K % 64 != 0, the port's CPU path agrees
-with ``tpul2.ops.matmul`` in interpret mode.  Tolerances as in test_torch_matmul.py:
-0/1 inputs bit-exact (every sum is an integer below 2^24); normal inputs within
+condition flips the route on its own, a single interval takes wgmma exactly where its
+tile and operands allow, the CPU path launches nothing, at each wgmma tile, with gk > 1
+and K % 64 != 0, the port's CPU path agrees with ``tpul2.ops.matmul`` in interpret mode,
+and so does the bf16 family's single interval (the f32 sum, never rounded, then the
+epilogue) against ``pallas_matmul_fused``.  Tolerances as in test_torch_matmul.py: 0/1
+inputs bit-exact (every sum is an integer below 2^24); normal inputs within
 ``ops.matmul.allowed_error`` (f32 reorder, plus one bf16 ulp of the running sum in the
-bf16 family).
+bf16 family where there is more than one interval).
 
 On the CPU the port's result does not depend on the tile, so each tile case has a shape
 of its own, with M and N edges off that tile; the JAX kernel runs each shape at a tile it
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 import tpul2.config as jcfg
-from tpul2.ops.matmul import pallas_matmul, pallas_matmul_tn
+from tpul2.ops.matmul import pallas_matmul, pallas_matmul_fused, pallas_matmul_tn
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops import batched as bmm
 from tpul2_torch.ops import matmul as mm
@@ -50,7 +52,7 @@ ROUTE_CASES = [
     ("tile_64x64", {"bm": 64, "bn": 64}, "wgmma"),
     ("tile_128x64", {"bn": 64}, "wgmma"),
     ("k_tail", {"k": 328}, "wgmma"),
-    ("gk1", {"bk": 512}, "mma_sync"),
+    ("gk1", {"bk": 512}, "wgmma"),
     ("bm32", {"bm": 32}, "mma_sync"),
     ("bn32", {"bn": 32}, "mma_sync"),
     ("bk_not_64", {"bk": 96}, "mma_sync"),
@@ -70,17 +72,27 @@ def test_route_rule(case, change, route):
     d.update(change)
     cfg = KernelConfig(bm=d["bm"], bn=d["bn"], bk=d["bk"], rhs_layout=d["layout"])
     a, rhs = _operands(d["m"], d["n"], d["k"], d["layout"], d["off_a"], d["off_b"])
-    assert mm.multi_k_route(cfg, a, rhs, d["m"], d["n"], d["k"]) == route
+    assert mm.launch_route(cfg, a, rhs, d["m"], d["n"], d["k"]) == route
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("k,bk", [(512, 512), (328, 512), (64, 64), (1024, 8192)])
 def test_single_interval_never_takes_wgmma(k, bk, layout):
+    """gk == 1 never takes the wgmma body off its tiles or with operands TMA cannot read:
+    the mma.sync body at a 32 edge, or where an operand's base is off 16 bytes or its
+    rows are not (K % 8 != 0).  On the 64/128 tiles with readable operands it takes wgmma
+    at any bk (there is no rounding point inside K)."""
     a, rhs = _operands(128, 128, k, layout)
+    a_off, _ = _operands(128, 128, k, layout, off_a=1)
+    odd_a, odd_rhs = _operands(128, 128, k - 1, layout)
     for bm in (32, 64, 128):
         for bn in (32, 64, 128):
             cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
-            assert mm.multi_k_route(cfg, a, rhs, 128, 128, k) == "mma_sync"
+            on_tile = bm in mm.WGMMA_TILES and bn in mm.WGMMA_TILES
+            assert mm.launch_route(cfg, a, rhs, 128, 128, k) == ("wgmma" if on_tile
+                                                                 else "mma_sync")
+            assert mm.launch_route(cfg, a_off, rhs, 128, 128, k) == "mma_sync"
+            assert mm.launch_route(cfg, odd_a, odd_rhs, 128, 128, k - 1) == "mma_sync"
 
 
 def test_wgmma_smem_model_fits_every_tile():
@@ -91,9 +103,8 @@ def test_wgmma_smem_model_fits_every_tile():
 
 
 def _counts():
-    return (mm.LAUNCHES_MULTI_K_WGMMA, mm.LAUNCHES_MULTI_K_MMA_SYNC, mm.LAUNCHES_SINGLE_K,
-            bmm.LAUNCHES_MULTI_K_WGMMA, bmm.LAUNCHES_MULTI_K_MMA_SYNC,
-            bmm.LAUNCHES_SINGLE_K)
+    return tuple(getattr(mod, f"LAUNCHES_{body}_K_{route}") for mod in (mm, bmm)
+                 for body in ("MULTI", "SINGLE") for route in ("WGMMA", "MMA_SYNC"))
 
 
 @pytest.mark.parametrize("entry", ["nn", "tn", "fused", "batched"])
@@ -106,7 +117,7 @@ def test_cpu_path_launches_nothing(entry, route):
     a = torch.from_numpy(rng.integers(0, 2, (2, M, K)).astype(np.float32)).bfloat16()
     b = torch.from_numpy(rng.integers(0, 2, (2, K, N)).astype(np.float32)).bfloat16()
     rhs = b[0].t().contiguous() if entry == "tn" else b[0]
-    assert mm.multi_k_route(cfg, a[0], rhs, M, N, K) == route
+    assert mm.launch_route(cfg, a[0], rhs, M, N, K) == route
     want = (a @ b).float()
     before = _counts()
     if entry == "nn":
@@ -167,7 +178,7 @@ def test_wgmma_tiles_match_jax(acc, layout, tile, zero_one):
     a = torch.from_numpy(a_np).bfloat16()
     rhs = torch.from_numpy(np.ascontiguousarray(b_np.T) if layout == "nk" else b_np).bfloat16()
     assert m % tile[0] and n % tile[1] and K % 64 and K > BK
-    assert mm.multi_k_route(cfg, a, rhs, m, n, K) == "wgmma"
+    assert mm.launch_route(cfg, a, rhs, m, n, K) == "wgmma"
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     ours = fn(a, rhs, cfg, out_dtype=torch.float32)
     theirs = _jax_result(m, n, acc, layout, zero_one)
@@ -177,3 +188,61 @@ def test_wgmma_tiles_match_jax(acc, layout, tile, zero_one):
     else:
         tol = mm.allowed_error(a, rhs, BK, acc, layout, torch.float32)
         assert bool(((ours - theirs).abs() <= tol).all()), (ours - theirs).abs().max()
+
+
+#: A single interval with edges like 1000^3: M and N off every wgmma tile, K % 64 != 0.
+GK1_M, GK1_N, GK1_K = 200, 264, 328
+
+
+@functools.cache
+def _jax_fused_gk1(zero_one: bool) -> tuple:
+    """(a, b, bias) as numpy and the JAX fused kernel's f32 result at one interval in the
+    bf16 family (bk 384 >= K), run in interpret mode on the CPU: bias + gelu on normal
+    inputs, bias + relu on 0/1 inputs (integer-exact)."""
+    rng = np.random.default_rng(31)
+    if zero_one:
+        a_np = rng.integers(0, 2, (GK1_M, GK1_K)).astype(np.float32)
+        b_np = rng.integers(0, 2, (GK1_K, GK1_N)).astype(np.float32)
+        bias_np = rng.integers(0, 2, (GK1_N,)).astype(np.float32)
+    else:
+        a_np = _bf16_exact(rng.standard_normal((GK1_M, GK1_K)))
+        b_np = _bf16_exact(rng.standard_normal((GK1_K, GK1_N)))
+        bias_np = rng.standard_normal((GK1_N,)).astype(np.float32)
+    jax_cfg = jcfg.KernelConfig(bm=128, bn=128, bk=384, acc_dtype="bfloat16")
+    res = pallas_matmul_fused(jnp.asarray(a_np, jnp.bfloat16), jnp.asarray(b_np, jnp.bfloat16),
+                              bias=jnp.asarray(bias_np),
+                              activation="relu" if zero_one else "gelu", config=jax_cfg,
+                              out_dtype=jnp.float32)
+    return a_np, b_np, bias_np, torch.from_numpy(np.array(res, np.float32))
+
+
+@pytest.mark.parametrize("zero_one", [True, False], ids=["01", "normal"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_bf16_family_single_interval_matches_jax(layout, zero_one):
+    """The bf16 family at gk == 1 with f32 output and a fused epilogue: one f32 sum over
+    all of K, never rounded to bf16 before the bias (``_kernel_single_k``), on a 64x64
+    launch that takes the wgmma route.  Normal inputs (gelu) within the f32 tolerance,
+    which a bf16 rounding of the sum breaks; 0/1 inputs (relu) bit-exact."""
+    a_np, b_np, bias_np, theirs = _jax_fused_gk1(zero_one)
+    act = "relu" if zero_one else "gelu"
+    cfg = KernelConfig(bm=64, bn=64, bk=384, acc_dtype="bfloat16", rhs_layout=layout)
+    a = torch.from_numpy(a_np).bfloat16()
+    b = torch.from_numpy(b_np).bfloat16()
+    b_t = b.t().contiguous()
+    rhs = b_t if layout == "nk" else b
+    bias = torch.from_numpy(bias_np)
+    assert mm.launch_route(cfg, a, rhs, GK1_M, GK1_N, GK1_K) == "wgmma"
+    ours = mm.cuda_matmul_fused(a, b, bias=bias, activation=act, config=cfg,
+                                out_dtype=torch.float32, b_t=b_t)
+    assert ours.shape == (GK1_M, GK1_N)
+    if zero_one:
+        assert torch.equal(ours, theirs)
+        assert torch.equal(ours, torch.relu(torch.from_numpy(a_np @ b_np + bias_np)))
+        return
+    tol = mm.allowed_error(a, rhs, cfg.bk, "bfloat16", layout, torch.float32, bias, act)
+    assert torch.equal(tol, mm.allowed_error(a, rhs, cfg.bk, "float32", layout,
+                                             torch.float32, bias, act))
+    assert bool(((ours - theirs).abs() <= tol).all()), (ours - theirs).abs().max()
+    # the sum rounded to bf16 before the epilogue lies outside that tolerance
+    rounded = mm.ACTIVATIONS[act]((a.float() @ b.float()).bfloat16().float() + bias)
+    assert bool(((rounded - theirs).abs() > tol).any())

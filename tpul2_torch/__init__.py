@@ -7,9 +7,11 @@ stays the reference.  Module names mirror ``tpul2``'s:
   tpul2_torch.harness               correctness gate, offline bench, summary
   python -m tpul2_torch.autotune    tuner: candidates -> launch screen -> timing ->
                                     exactness screen -> TuneDB (tunedb_h100.json)
-  tpul2_torch.dispatch              config resolution (DB -> neighbour -> heuristic)
-                                    and the candidate entries
-  tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_matmul.cu + plain versions
+  tpul2_torch.dispatch              config resolution (DB -> neighbour -> heuristic,
+                                    kept per shape until the DB changes) and the
+                                    candidate entries
+  tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_wgmma.cu and csrc/tl2_matmul.cu
+                                    (the route picks one per launch) + plain versions
   tpul2_torch.ops.pipelined         wrapper of csrc/tl2_staged.cu (the staged K ring)
                                     + plain version
   tpul2_torch.ops.baselines         library GEMMs (torch.matmul, cuBLAS, cuBLASLt)

@@ -3,7 +3,9 @@
 Counterpart of ``tpul2/autotune/db.py``, with its key format and JSON layout.  The
 default file is ``tpul2_torch/data/tunedb_h100.json``; ``TPUL2_TORCH_TUNEDB`` overrides
 it.  The JAX package's ``tunedb_v5e.json`` is TPU data and is never read.  Eager torch has
-no trace cache, so the JAX side's epoch counter has no counterpart here.
+no trace cache, so the JAX side's epoch counter has no counterpart; ``TuneDB.version``
+counts the changes of the entries instead, so that a decision drawn from them (the
+entry point's resolved config, ``dispatch.resolve_config``) can be kept until they change.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ class TuneDB:
         #: (acc, dtype) -> {octave bucket (log2 m, log2 n, log2 k) -> [((m, n, k), entry)]};
         #: rebuilt lazily after any mutation.
         self._octave_index: Optional[dict] = None
+        #: Bumped by every load and put: a value read before a decision was drawn from the
+        #: entries and equal to the current one means they have not changed since.
+        self.version = 0
+        #: Decisions drawn from the entries, each stored with the version it was drawn at
+        #: (``dispatch.resolve_config``'s memo); an entry whose version is not current is
+        #: stale and never served.
+        self.memo: dict = {}
 
     # ---- persistence ----
     def load(self) -> "TuneDB":
@@ -53,6 +62,7 @@ class TuneDB:
                 self._entries = json.loads(self.path.read_text()).get("entries", {})
             self._loaded = True
             self._octave_index = None
+            self.version += 1
         return self
 
     def save(self) -> None:
@@ -136,27 +146,35 @@ class TuneDB:
         with self._lock:
             self._entries[_key(m, n, k, acc, in_dtype)] = entry
             self._octave_index = None
+            self.version += 1
 
     def __len__(self) -> int:
         self._ensure()
         return len(self._entries)
 
 
-_default_db: Optional[TuneDB] = None
+#: (TPUL2_TORCH_TUNEDB as it was at the load, the loaded DB), or None; one reference, so
+#: that a reader sees a matching pair without taking the lock.
+_default: Optional[tuple] = None
 _default_lock = threading.Lock()
 
 
 def default_db() -> TuneDB:
-    """The process's DB at the default path (``TPUL2_TORCH_TUNEDB`` or the data dir)."""
-    global _default_db
+    """The process's DB at the default path (``TPUL2_TORCH_TUNEDB`` or the data dir),
+    loaded anew when the variable has changed since the last load."""
+    global _default
+    env = os.environ.get(ENV_VAR)
+    current = _default
+    if current is not None and current[0] == env:
+        return current[1]
     with _default_lock:
-        if _default_db is None:
-            _default_db = TuneDB().load()
-        return _default_db
+        if _default is None or _default[0] != env:
+            _default = (env, TuneDB(path=env or None).load())
+        return _default[1]
 
 
 def reset_default_db() -> None:
     """Drop the cached default DB (after the path or the file changed)."""
-    global _default_db
+    global _default
     with _default_lock:
-        _default_db = None
+        _default = None

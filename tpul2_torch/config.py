@@ -5,14 +5,15 @@ field names are the JAX package's, so a configuration carries across
 (``KernelConfig.from_jax``).  What the fields mean on Hopper:
 
   bm, bn          CTA output tile; one of TILE_CHOICES.  Two bodies serve them, picked per
-                  launch by ``ops.matmul.multi_k_route``: a K carry (gk > 1) on a tile of
-                  64 or 128 in both edges, with bk % 64 == 0 and operands TMA can read,
-                  runs tl2_wgmma.cu (m64 x bn wgmmas, one consumer warpgroup per 64 rows,
-                  a TMA ring of 64-deep K stages); everything else, the 32-edge tiles and
-                  every gk == 1 launch included, runs tl2_matmul.cu (each warp a 32 x 32
-                  sub-tile of m16n8k16 MMAs).  ``smem_bytes`` models tl2_matmul.cu; the
-                  wgmma ring (``ops.matmul.wgmma_smem_bytes``, 132 KB at 128 x 128) fits
-                  every tile, so ``validate`` needs no second model
+                  launch by ``ops.matmul.launch_route``: a tile of 64 or 128 in both edges
+                  (WGMMA_TILES) with operands TMA can read, and bk % 64 == 0 where there is
+                  a K carry (gk > 1), runs tl2_wgmma.cu (m64 x bn wgmmas, one consumer
+                  warpgroup per 64 rows, a TMA ring of 64-deep K stages), for the K carry
+                  and for the single interval (gk == 1) alike; the 32-edge tiles and
+                  unaligned operands run tl2_matmul.cu (each warp a 32 x 32 sub-tile of
+                  m16n8k16 MMAs).  ``smem_bytes`` models tl2_matmul.cu; the wgmma ring
+                  (``ops.matmul.wgmma_smem_bytes``, 132 KB at 128 x 128) fits every tile, so
+                  ``validate`` needs no second model
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
                   (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, the
                   kernel's shared-memory K step
@@ -42,6 +43,8 @@ from tpul2_torch.utils.padding import cdiv, round_up
 
 #: Output tile edges the kernels are instantiated for (TL2_TILE, TL2_STAGED_TILE).
 TILE_CHOICES = (32, 64, 128)
+#: Tile edges of the wgmma body (csrc/tl2_wgmma.cu): one consumer warpgroup per 64 rows.
+WGMMA_TILES = (64, 128)
 #: K depth of one shared-memory stage (tl2_matmul.cu KSTEP); every bk is a multiple.
 KSTEP = 32
 #: Row padding of the shared-memory tiles, in bf16 elements (tl2_matmul.cu KPAD).
@@ -124,7 +127,17 @@ class KernelConfig:
         return max(1, self.pipeline_depth) * (self.bm + self.bn) * (KSTEP + KPAD) * 2
 
     def validate(self) -> Optional[str]:
-        """Return an error string if the kernel cannot run this config, else None."""
+        """Return an error string if the kernel cannot run this config, else None.
+
+        Worked out once per instance (the config is frozen): the entry point validates
+        the same resolved config on every call."""
+        err = self.__dict__.get("_validated", False)
+        if err is False:
+            err = self._check()
+            object.__setattr__(self, "_validated", err)
+        return err
+
+    def _check(self) -> Optional[str]:
         if self.use_vendor:
             if self.vendor_variant not in VENDOR_VARIANTS:
                 return f"unknown vendor_variant {self.vendor_variant}"
@@ -180,12 +193,15 @@ def heuristic_config(m: int, n: int, k: int, acc_dtype: str = "float32") -> Kern
 
     Starts from the largest tile the problem fills, then halves the larger tile edge
     (bm on a tie) while the grid has fewer CTAs than the card has SMs, so a skinny or
-    thin problem still spreads over the card.  Never returns the vendor sentinel."""
+    thin problem still spreads over the card, but never below the wgmma body's least
+    edge (WGMMA_TILES): a 32-edge tile runs the mma.sync body, 12-14x slower than a
+    64-row wgmma tile at 64 x 8192 x 8192 on the H100 (PERF.md).  An edge is 32 only
+    where the problem's own dimension is at most 32.  Never returns the vendor sentinel."""
     def edge(dim: int) -> int:
         return next((t for t in TILE_CHOICES if t >= dim), TILE_CHOICES[-1])
 
     bm, bn = edge(m), edge(n)
-    while cdiv(m, bm) * cdiv(n, bn) < NUM_SMS and max(bm, bn) > TILE_CHOICES[0]:
+    while cdiv(m, bm) * cdiv(n, bn) < NUM_SMS and max(bm, bn) > WGMMA_TILES[0]:
         if bm >= bn:
             bm //= 2
         else:
@@ -222,7 +238,7 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
 
     bks = {c for c in _BK_CHOICES if c <= round_up(k, 128)}
     if k <= 2 * _BK_CHOICES[-1]:
-        bks.add(round_up(k, KSTEP))  # whole K in one interval: the single-K body
+        bks.add(round_up(k, KSTEP))  # whole K in one interval (gk == 1)
     out, seen = [], set()
     for bm in tiles(m):
         for bn in tiles(n):

@@ -6,10 +6,10 @@
 //   tpul2/ops/batched.py::_bmm_kernel        (batched, K carry)
 //   tpul2/ops/batched.py::_bmm_kernel_single_k
 // The K-loop length (1 or many bk intervals) is a runtime value and the batch index is
-// blockIdx.z, so the four are one launch path. Since tl2_wgmma.cu, this body serves the two
-// K-carry kernels only off the wgmma route (ops/matmul.py::multi_k_route): 32-edge tiles
-// (the skinny heuristic's 32 x 64), bk not a multiple of 64, and operands TMA cannot read
-// (unaligned bases, K % 8 or, for 'kn', N % 8 != 0). It serves every gk == 1 launch.
+// blockIdx.z, so the four are one launch path. Since tl2_wgmma.cu, this body serves all four
+// only off the wgmma route (ops/matmul.py::launch_route): 32-edge tiles, a K carry whose bk
+// is not a multiple of 64, and operands TMA cannot read (unaligned bases, K % 8 or, for
+// 'kn', N % 8 != 0).
 //
 // What it computes, per output tile, for C = act(A @ B [+ bias]) cast to the output type:
 //   for each K interval of length bk (the config's rounding interval):
@@ -42,8 +42,7 @@
 // should bound it; the skinny 64x8192x8192 and thin-K 8192x128x64 shapes are below the ridge
 // and bound by bytes. This design reaches neither: with one synchronous stage every load
 // latency is exposed, and mma.sync runs at a fraction of the wgmma rate. The TMA ring and
-// wgmma warpgroups are tl2_wgmma.cu, which takes 4096^3 off this body; the skinny and
-// thin-K shapes still run here.
+// wgmma warpgroups are tl2_wgmma.cu, which takes every bring-up shape off this body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,24 +1,31 @@
-// tl2_wgmma.cu — the K-carry GEMM body of tpul2_torch redesigned for Hopper (sm_90a): a ring
-// of K slices filled by TMA and guarded by mbarriers, consumed by wgmma warpgroups.
+// tl2_wgmma.cu — the GEMM body of tpul2_torch redesigned for Hopper (sm_90a): a ring of K
+// slices filled by TMA and guarded by mbarriers, consumed by wgmma warpgroups.
 //
 // Replaces, on the route below, the Pallas TPU kernels
-//   tpul2/ops/matmul.py::_kernel_multi_k   (K carry across grid steps, gk > 1)
-//   tpul2/ops/batched.py::_bmm_kernel      (batched, K carry; the batch index is blockIdx.z)
-// Route (tl2_wgmma_route, mirrored by ops/matmul.py::multi_k_route): gk > 1, BM and BN in
-// {64, 128}, bk a multiple of 64 (so a ring stage never straddles a rounding point), and
-// operands TMA can read: 16-byte aligned bases and rows of a multiple of 16 bytes (K % 8 for
-// A and B_t, N % 8 for B). Everything else runs tl2_matmul.cu's mma.sync body. The route is
-// chosen from the shape before the launch; a launch outside it is refused, never redirected.
+//   tpul2/ops/matmul.py::_kernel_multi_k       (K carry across grid steps, gk > 1)
+//   tpul2/ops/matmul.py::_kernel_single_k      (one block product over all of K, gk == 1)
+//   tpul2/ops/batched.py::_bmm_kernel          (batched, K carry; the batch index is blockIdx.z)
+//   tpul2/ops/batched.py::_bmm_kernel_single_k (batched, gk == 1)
+// Route (tl2_wgmma_route, mirrored by ops/matmul.py::launch_route): BM and BN in {64, 128},
+// operands TMA can read (16-byte aligned bases and rows of a multiple of 16 bytes: K % 8 for
+// A and B_t, N % 8 for B), and, where there is a K carry (gk > 1), bk a multiple of 64 so
+// that a ring stage never straddles a rounding point. A single interval (gk == 1) has no
+// rounding point inside K, so any bk >= K takes the route. Everything else runs
+// tl2_matmul.cu's mma.sync body. The route is chosen from the shape before the launch; a
+// launch outside it is refused, never redirected.
 //
 // What it computes, per output tile, exactly as tl2_matmul.cu does (and the JAX kernels,
-// matmul.py:116 and batched.py:33):
-//   for each K interval of length bk:
-//     part = the interval's product in f32
-//     acc  = round_to_acc_dtype(acc + part)   -- after every interval, first and last
+// matmul.py:116, :146 and batched.py:33, :42):
+//   gk > 1: for each K interval of length bk:
+//             part = the interval's product in f32
+//             acc  = round_to_acc_dtype(acc + part)   -- after every interval, first and last
+//   gk == 1:  acc  = the product over all of K in f32 -- never rounded, in both families
 //   then + bias (f32), the activation (gelu is the tanh approximation), the cast.
 // The bf16 family keeps `part` in f32 registers and the carry as bf16, two to a register.
 // The f32 family folds each stage straight into the carry: only the order of the f32 adds
-// changes, which ops/matmul.py::allowed_error's first term covers.
+// changes, which ops/matmul.py::allowed_error's first term covers. A gk == 1 launch runs the
+// f32-carry instance whatever acc_dtype says: the bf16-carry instance would round the sum
+// at the end of its one interval, before the bias, where the single-K kernel does not.
 // Precision: each stage's four k16 wgmmas start from a fresh accumulator (scale-d = 0 on the
 // first) whose sum then joins the f32 total with ordinary adds. Chaining a whole interval
 // through the tensor cores' accumulator lost ~25x cuBLAS's f32 accuracy at K = 8192 with
@@ -29,7 +36,9 @@
 // cores. So the design keeps wgmma issuing: one producer thread keeps STAGES K slices in
 // flight with TMA (no thread spends registers or instructions on addresses), and BM / 64
 // consumer warpgroups run m64 x BN x k16 wgmmas on whichever stage has landed, each
-// releasing its stage through an mbarrier as soon as its wgmmas have read it.
+// releasing its stage through an mbarrier as soon as its wgmmas have read it. The skinny
+// (64 x 8192 x 8192) and thin-K (8192 x 128 x 64) shapes are bound by bytes instead: B, and
+// at thin K the f32 output's stores, which no design of the mainloop shortens.
 //
 // Shared memory: a ring of STAGES stages, each [BM][64] of A then 64 deep of B, rows of 128
 // bytes with the 128-byte swizzle (the TMA boxes and the wgmma descriptors agree on it):
@@ -44,6 +53,9 @@
 // carry (f32) or of `part` plus BN / 4 packed bf16 carry registers; with two consumer
 // warpgroups the producer warpgroup (one thread of it issues the copies) gives registers up
 // (setmaxnreg) and the consumers take them.
+// Short K (gk == 1 at K = 64, the thin bring-up shape): the producer issues only the stages K
+// needs, so the ring's unused slots cost shared memory, not copies or waits; the fixed cost
+// of a CTA is the barrier set-up, one stage's latency and the epilogue's stores.
 // Left for later: a persistent schedule, a TMA store staged through shared memory, and
 // overlapping one stage's adds with the next stage's wgmmas.
 
@@ -446,8 +458,9 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int batch
 
 int route_ok(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
              const void* b) {
-  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0 || cdiv(k, bk) <= 1) return 0;
-  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || bk % KSTAGE) return 0;
+  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0) return 0;
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128)) return 0;
+  if (cdiv(k, bk) > 1 && bk % KSTAGE) return 0;  // a stage would straddle a rounding point
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16) return 0;
   return k % 8 == 0 && (rhs_nk ? k : n) % 8 == 0;
 }
@@ -501,6 +514,7 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
                     (rhs_nk ? make_map(&tb, b, k, n, batch, sb, bn)
                             : make_map(&tb, b, n, k, batch, sb, KSTAGE));
   if (!maps) return (int)cudaErrorInvalidValue;
+  if (cdiv(k, bk) == 1) acc_bf16 = 0;  // one interval: the f32 sum is never rounded
   WgParams p;
   p.bias = static_cast<const float*>(bias);
   p.c = c;
@@ -525,7 +539,8 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
 extern "C" {
 
 // C = act(A @ B [+ bias]) with bf16 output on the wgmma route; the argument list is
-// tl2_matmul_bf16out's (vec_a and vec_b are unused: the route requires TMA's alignment).
+// tl2_matmul_bf16out's (vec_a and vec_b are unused: the route requires TMA's alignment;
+// acc_bf16 is ignored where gk == 1).
 // Returns the cudaError_t of the launch: cudaErrorInvalidValue, before any work, for a
 // launch outside the route.
 int tl2_wgmma_bf16out(const void* a, const void* b, const void* bias, void* c, int batch, int m,
@@ -552,8 +567,8 @@ int tl2_wgmma_f32out(const void* a, const void* b, const void* bias, void* c, in
 // Shared memory of one CTA for a (bm, bn) tile; mirrors ops/matmul.py::wgmma_smem_bytes.
 int tl2_wgmma_smem_bytes(int bm, int bn) { return smem_bytes(bm, bn); }
 
-// 1 where the multi-K launch takes this kernel, 0 where it takes tl2_matmul.cu's mma.sync
-// body; mirrors ops/matmul.py::multi_k_route.
+// 1 where the launch takes this kernel, 0 where it takes tl2_matmul.cu's mma.sync body;
+// mirrors ops/matmul.py::launch_route.
 int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                     const void* b) {
   return route_ok(m, n, k, bm, bn, bk, rhs_nk, a, b);

@@ -5,8 +5,10 @@ entries ``cuda_l2_h100_f32`` / ``cuda_l2_h100_bf16`` keep the harness ABI
 ``(a, b, b_t)`` of the reference's ``cuda_l2_<dev>_<acc>`` symbols, plus ``out=`` so the
 correctness gate can hand the kernel caller memory framed by guard bands.
 
-Eager torch has no trace cache, so the JAX side's jit/epoch machinery has no counterpart:
-each call resolves its config against the DB as it stands.
+Eager torch has no trace cache, so the JAX side's jit/epoch machinery has no counterpart.
+A call resolves its config against the DB as it stands, through a memo of the decision per
+shape that the DB's version keys (``resolve_config``): the resolution took more host time
+than the kernel's launch at the small bring-up shapes (PERF.md).
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from typing import Optional
 
 import torch
 
+from tpul2_torch.autotune.db import default_db
 from tpul2_torch.config import KernelConfig, heuristic_config
 from tpul2_torch.ops import baselines
-from tpul2_torch.ops.matmul import ACTIVATIONS, cuda_matmul, cuda_matmul_fused, cuda_matmul_tn
+from tpul2_torch.ops.matmul import ACTIVATIONS, cuda_matmul_fused
 from tpul2_torch.ops.pipelined import cuda_matmul_pipelined
+
+#: Most shapes the resolve memo holds; past it the memo starts empty again, so a caller
+#: that sends ever new shapes does not grow it without bound.
+MEMO_LIMIT = 1 << 16
 
 
 def resolve_config(m: int, n: int, k: int, acc: str = "float32",
@@ -30,14 +37,30 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     The DB is the H100's (``autotune.db.default_db``: ``TPUL2_TORCH_TUNEDB`` or
     ``tpul2_torch/data/tunedb_h100.json``); the JAX package's ``tunedb_v5e.json`` is TPU
     data and is never read.  With no DB file, every shape takes the heuristic, which
-    never returns the vendor sentinel.  An explicit ``config=`` on the entry points
-    overrides all of this."""
-    from tpul2_torch.autotune.db import default_db
+    never returns the vendor sentinel.  A resolved config the kernel cannot run goes to
+    the sentinel (the role of the JAX out-dtype guard).  An explicit ``config=`` on the
+    entry points overrides all of this.
+
+    The decision is kept in the DB's memo with the DB's version: a put or a load of the
+    DB, ``reset_default_db()`` or a change of ``TPUL2_TORCH_TUNEDB`` (a new default DB)
+    makes it stale, so it is never served from entries that have changed."""
     db = default_db()
+    key = (m, n, k, acc, in_dtype)
+    version = db.version
+    hit = db.memo.get(key)
+    if hit is not None and hit[0] == version:
+        return hit[1]
     cfg = db.get(m, n, k, acc, in_dtype)
     if cfg is None:
         cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
-    return cfg if cfg is not None else heuristic_config(m, n, k, acc)
+    if cfg is None:
+        cfg = heuristic_config(m, n, k, acc)
+    if cfg.validate() is not None:
+        cfg = KernelConfig.vendor()
+    if len(db.memo) >= MEMO_LIMIT:
+        db.memo.clear()
+    db.memo[key] = (version, cfg)
+    return cfg
 
 
 def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2.0,
@@ -105,10 +128,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     if config is None:
         config = resolve_config(m, n, k, acc)
-        # Shared-memory fit guard (the role of the JAX out-dtype guard): a resolved
-        # config the kernel cannot run goes to the sentinel instead of failing.
-        if config.validate() is not None:
-            config = KernelConfig.vendor()
     if config.use_vendor:
         return _vendor(a, b, b_t, config, bias, activation, out_dtype, out)
     if config.pipeline_depth >= 2:
@@ -120,13 +139,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
             return cuda_matmul_pipelined(a, rhs, config, out_dtype=out_dtype, out=out)
         # the other kernels have no stages (as in the JAX package)
         config = dataclasses.replace(config, pipeline_depth=0)
-    if bias is not None or activation is not None:
-        return cuda_matmul_fused(a, b, bias=bias, activation=activation, config=config,
-                                 out_dtype=out_dtype, out=out, b_t=b_t)
-    if config.rhs_layout == "nk":
-        bt = b_t if b_t is not None else b.t().contiguous()
-        return cuda_matmul_tn(a, bt, config=config, out_dtype=out_dtype, out=out)
-    return cuda_matmul(a, b, config=config, out_dtype=out_dtype, out=out)
+    # the RHS in the config's layout (b_t read with no copy where given), then the kernel,
+    # with the epilogue where there is one
+    return cuda_matmul_fused(a, b, bias=bias, activation=activation, config=config,
+                             out_dtype=out_dtype, out=out, b_t=b_t)
 
 
 def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -145,8 +161,6 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     if config is None:
         config = resolve_config(m, n, k, acc)
-        if config.validate() is not None:
-            config = KernelConfig.vendor()
     if config.use_vendor:
         baselines.pin_precision()  # the f32 sum, cast once (as vendor_product)
         res = torch.matmul(a, b) if out_dtype == a.dtype else \

@@ -3,11 +3,11 @@
 Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 ``cuda_matmul_fused`` play ``pallas_matmul``, ``pallas_matmul_tn`` and
 ``pallas_matmul_fused``.  For a CUDA tensor each launches one of two bodies, picked by
-``multi_k_route`` from the shape before the launch: ``csrc/tl2_wgmma.cu`` (TMA ring +
-wgmma) for the K carry on the tiles and alignments it takes, ``csrc/tl2_matmul.cu``
-(mma.sync) for everything else; a launch that fails raises.  For a CPU tensor it runs
-``matmul_reference``, the plain version of the same semantics.  Nothing falls back from
-a kernel to another kernel or to the plain version.
+``launch_route`` from the shape before the launch: ``csrc/tl2_wgmma.cu`` (TMA ring +
+wgmma) for the K carry and the single K interval alike, on the tiles and alignments it
+takes, ``csrc/tl2_matmul.cu`` (mma.sync) for everything else; a launch that fails
+raises.  For a CPU tensor it runs ``matmul_reference``, the plain version of the same
+semantics.  Nothing falls back from a kernel to another kernel or to the plain version.
 
 The kernel predicates its own edges, so ``edge='pad'`` and ``edge='mask'`` are the same
 launch: no padding copy, no output slice, and with ``out=`` the kernel writes straight
@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tpul2_torch.config import KernelConfig
+from tpul2_torch.config import WGMMA_TILES, KernelConfig
+from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.utils.padding import cdiv
 
 #: Fused epilogues, applied in f32 after the bias and before the output cast.
@@ -39,16 +40,17 @@ _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Launches of the 2-D kernels, by K-loop length and route: more than one bk interval
-#: (the port of ``_kernel_multi_k``) on the wgmma body or on the mma.sync body, and
-#: exactly one (``_kernel_single_k``, always mma.sync).  Counted where a kernel is
-#: launched and nowhere else.
+#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each on the
+#: wgmma body or on the mma.sync body.  Counted where a kernel is launched and nowhere
+#: else.
 LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_MMA_SYNC = 0
-LAUNCHES_SINGLE_K = 0
+LAUNCHES_SINGLE_K_WGMMA = 0
+LAUNCHES_SINGLE_K_MMA_SYNC = 0
 
-#: The wgmma body (csrc/tl2_wgmma.cu): its tile edges, the K depth of one TMA ring stage
-#: (one 128-byte row of bf16, so bk must be a multiple) and its ring depth.
-WGMMA_TILES = (64, 128)
+#: The wgmma body (csrc/tl2_wgmma.cu): its tile edges are config.WGMMA_TILES; the K depth
+#: of one TMA ring stage (one 128-byte row of bf16, so a K carry's bk must be a multiple)
+#: and its ring depth.
 WGMMA_KSTAGE = 64
 WGMMA_STAGES = 4
 
@@ -90,24 +92,27 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
 
     Each term has its reason:
       rtol 1e-5·|C| + atol 1e-5·√K   the f32 sums are taken in another order;
-      2^-7 · max_j |running sum_j|   bf16 family only: an f32 reorder can flip one bf16
-                                     rounding of the running sum, which moves it by at
-                                     most one bf16 ulp of the largest sum it passed;
+      2^-7 · max_j |running sum_j|   bf16 family with more than one K interval only: an
+                                     f32 reorder can flip one bf16 rounding of the running
+                                     sum, which moves it by at most one bf16 ulp of the
+                                     largest sum it passed (a single interval is never
+                                     rounded, so it is held to the f32 terms);
       x 1.2                          with an activation: no slope above 1.13 (gelu);
       2^-7 · |act(C + bias)|         bf16 output only: the final cast can round the two
                                      f32 values to neighbouring bf16 values.
     On 0/1 inputs every sum is an exact integer, so no tolerance applies there."""
     b = rhs.transpose(-1, -2) if rhs_layout == "nk" else rhs
     k = a.shape[-1]
+    gk = cdiv(k, bk)
     acc = None
     run_max = None
-    for kb in range(cdiv(k, bk)):
+    for kb in range(gk):
         ks, ke = kb * bk, min((kb + 1) * bk, k)
         part = a[..., ks:ke].float() @ b[..., ks:ke, :].float()
         acc = part if acc is None else acc + part
         run_max = acc.abs() if run_max is None else torch.maximum(run_max, acc.abs())
     tol = 1e-5 * acc.abs() + 1e-5 * k ** 0.5
-    if acc_dtype == "bfloat16":
+    if acc_dtype == "bfloat16" and gk > 1:
         tol = tol + 2.0 ** -7 * run_max
     if activation is not None:
         tol = 1.2 * tol
@@ -124,17 +129,17 @@ def wgmma_smem_bytes(bm: int, bn: int) -> int:
     return 1024 + WGMMA_STAGES * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * WGMMA_STAGES * 8
 
 
-def multi_k_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
-                  m: int, n: int, k: int) -> str:
+def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
+                 m: int, n: int, k: int) -> str:
     """The body a launch takes, from the shape before the launch (``tl2_wgmma_route``
-    mirrors it): 'wgmma' iff gk > 1, bm and bn are in WGMMA_TILES, bk is a multiple of
-    WGMMA_KSTAGE (no ring stage straddles a rounding point), and TMA can read both
-    operands (16-byte aligned bases; rows of a multiple of 16 bytes: K % 8 for A and
-    B_t, N % 8 for B).  Else 'mma_sync', which also serves every gk == 1 launch."""
+    mirrors it): 'wgmma' iff bm and bn are in WGMMA_TILES, TMA can read both operands
+    (16-byte aligned bases; rows of a multiple of 16 bytes: K % 8 for A and B_t, N % 8
+    for B), and, with more than one bk interval, bk is a multiple of WGMMA_KSTAGE (no ring
+    stage straddles a rounding point).  A single interval (gk == 1) has no rounding point
+    inside K, so it takes wgmma at any bk.  Else 'mma_sync'."""
     rhs_row = k if cfg.rhs_layout == "nk" else n
-    wgmma = (min(m, n, k) > 0 and cdiv(k, cfg.bk) > 1
-             and cfg.bm in WGMMA_TILES and cfg.bn in WGMMA_TILES
-             and cfg.bk % WGMMA_KSTAGE == 0
+    wgmma = (min(m, n, k) > 0 and cfg.bm in WGMMA_TILES and cfg.bn in WGMMA_TILES
+             and (cfg.bk % WGMMA_KSTAGE == 0 or cdiv(k, cfg.bk) == 1)
              and a.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
              and k % 8 == 0 and rhs_row % 8 == 0)
     return "wgmma" if wgmma else "mma_sync"
@@ -173,23 +178,25 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
                          f"(rhs_layout={cfg.rhs_layout})")
     if min(m, n, k) <= 0:
         raise ValueError(f"empty problem {(m, n, k)}")
-    tensors = [a, rhs]
-    if bias is not None:
-        if bias.dtype != torch.float32 or bias.shape != (n,):
-            raise TypeError(f"bias must be float32 of shape ({n},), got {bias.dtype} "
-                            f"{tuple(bias.shape)}")
-        tensors.append(bias)
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)):
+        raise TypeError(f"bias must be float32 of shape ({n},), got {bias.dtype} "
+                        f"{tuple(bias.shape)}")
     if out is not None:
         want = (batch, m, n) if batched else (m, n)
         if out.dtype != out_dtype or tuple(out.shape) != want:
             raise ValueError(f"out must be {out_dtype} {want}, got {out.dtype} "
                              f"{tuple(out.shape)}")
-        tensors.append(out)
-    if any(t.device != a.device for t in tensors):
+    # written out rather than looped over a list: this runs on every call of the entry
+    # point, whose host time the small shapes pay in full
+    device = a.device
+    if (rhs.device != device or (bias is not None and bias.device != device)
+            or (out is not None and out.device != device)):
         raise ValueError("all tensors must lie on one device")
-    if a.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {a.device}")
-    if not all(t.is_contiguous() for t in tensors):
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if not (a.is_contiguous() and rhs.is_contiguous()
+            and (bias is None or bias.is_contiguous())
+            and (out is None or out.is_contiguous())):
         raise ValueError("the kernel takes contiguous tensors only")
     return batch, m, n, k
 
@@ -197,39 +204,50 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
 def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                 batch: int, m: int, n: int, k: int) -> tuple:
     """The argument list of every C launcher (tl2_matmul_* and tl2_wgmma_*), on the
-    current stream of ``a``'s card."""
+    current stream of ``a``'s card.
+
+    The stream is taken as its raw handle (``torch._C._cuda_getCurrentRawStream``, what
+    torch's own compiled kernels launch on): ``torch.cuda.current_stream`` builds a Stream
+    object per call, 4-7 us of host time on the H100's host (PERF.md)."""
+    a_ptr, rhs_ptr = a.data_ptr(), rhs.data_ptr()
     rhs_row = k if cfg.rhs_layout == "nk" else n
-    return (a.data_ptr(), rhs.data_ptr(), bias.data_ptr() if bias is not None else None,
+    return (a_ptr, rhs_ptr, bias.data_ptr() if bias is not None else None,
             out.data_ptr(), batch, m, n, k, m * k, k * n, m * n, cfg.bm, cfg.bn, cfg.bk,
             int(cfg.rhs_layout == "nk"), int(cfg.acc_dtype == "bfloat16"),
             _ACT_CODES[activation], int(cfg.grid_order == "nm"),
-            int(_vector_ok(a, k)), int(_vector_ok(rhs, rhs_row)),
-            torch.cuda.current_stream(a.device).cuda_stream)
+            int(a_ptr % 16 == 0 and k % 8 == 0), int(rhs_ptr % 16 == 0 and rhs_row % 8 == 0),
+            torch._C._cuda_getCurrentRawStream(a.get_device()))
+
+
+#: The C launcher of each (route, f32 output).
+_LAUNCHERS = {("wgmma", True): "tl2_wgmma_f32out", ("wgmma", False): "tl2_wgmma_bf16out",
+              ("mma_sync", True): "tl2_matmul_f32out",
+              ("mma_sync", False): "tl2_matmul_bf16out"}
 
 
 def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                   batch: int, m: int, n: int, k: int) -> str:
-    """Launch the body ``multi_k_route`` picks on the current stream, writing ``out``;
+    """Launch the body ``launch_route`` picks on the current stream, writing ``out``;
     return the route ('wgmma' or 'mma_sync').
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
-    from tpul2_torch.ops._build import check_launch, load_library
-    lib = load_library()
-    route = multi_k_route(cfg, a, rhs, m, n, k)
-    name = "tl2_wgmma" if route == "wgmma" else "tl2_matmul"
-    fn = getattr(lib, f"{name}_{'f32' if out.dtype == torch.float32 else 'bf16'}out")
-    with torch.cuda.device(a.device):
-        err = fn(*launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k))
-    check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
+    route = launch_route(cfg, a, rhs, m, n, k)
+    name = _LAUNCHERS[route, out.dtype == torch.float32]
+    with torch.cuda.device(a.get_device()):  # an int index: the cheap way in
+        err = getattr(load_library(), name)(
+            *launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k))
+    if err:  # the message formats the config, so only on failure
+        check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
     return route
 
 
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
-    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC, LAUNCHES_SINGLE_K
+    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC
+    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_MMA_SYNC
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     batch, m, n, k = check_operands(a, rhs, cfg, out_dtype, bias, activation, out)
-    if a.device.type == "cpu":
+    if a.is_cpu:
         res = matmul_reference(a, rhs, cfg.bk, cfg.acc_dtype, cfg.rhs_layout, bias,
                                activation, out_dtype)
         if out is None:
@@ -238,13 +256,25 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
-    if route == "wgmma":
-        LAUNCHES_MULTI_K_WGMMA += 1
-    elif cdiv(k, cfg.bk) > 1:
-        LAUNCHES_MULTI_K_MMA_SYNC += 1
+    if cdiv(k, cfg.bk) > 1:
+        if route == "wgmma":
+            LAUNCHES_MULTI_K_WGMMA += 1
+        else:
+            LAUNCHES_MULTI_K_MMA_SYNC += 1
+    elif route == "wgmma":
+        LAUNCHES_SINGLE_K_WGMMA += 1
     else:
-        LAUNCHES_SINGLE_K += 1
+        LAUNCHES_SINGLE_K_MMA_SYNC += 1
     return out
+
+
+def _with_layout(config: Optional[KernelConfig], rhs_layout: str) -> KernelConfig:
+    """``config`` (default: ``KernelConfig()``) reading the RHS in ``rhs_layout``; the same
+    object where it already does, since ``dataclasses.replace`` costs microseconds a call."""
+    cfg = config or KernelConfig()
+    if cfg.rhs_layout == rhs_layout:
+        return cfg
+    return dataclasses.replace(cfg, rhs_layout=rhs_layout)
 
 
 def cuda_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -252,8 +282,7 @@ def cuda_matmul(a: torch.Tensor, b: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A @ B, a (M, K), b (K, N), both bf16.  ``out=`` receives C in place."""
-    cfg = dataclasses.replace(config or KernelConfig(), rhs_layout="kn")
-    return _matmul(a, b, cfg, out_dtype, out)
+    return _matmul(a, b, _with_layout(config, "kn"), out_dtype, out)
 
 
 def cuda_matmul_tn(a: torch.Tensor, b_t: torch.Tensor,
@@ -261,8 +290,7 @@ def cuda_matmul_tn(a: torch.Tensor, b_t: torch.Tensor,
                    out_dtype: Optional[torch.dtype] = None,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A @ B with the RHS supplied transposed as b_t (N, K), read with no copy."""
-    cfg = dataclasses.replace(config or KernelConfig(), rhs_layout="nk")
-    return _matmul(a, b_t, cfg, out_dtype, out)
+    return _matmul(a, b_t, _with_layout(config, "nk"), out_dtype, out)
 
 
 def cuda_matmul_fused(a: torch.Tensor, b: torch.Tensor,
