@@ -8,10 +8,12 @@ Run from the repository root, on a machine with one Hopper card:
 Phases (each prints one line; any failure raises and the exit code is non-zero):
   0  require an sm_90 card; print the environment record and nvidia-smi's name/power line
   1  build csrc/*.cu for sm_90a (nvcc, one process per source, at first use), print the
-     build time and ptxas report; the shared-memory models of config.py and ops/matmul.py
-     must equal the kernels' own counts for every tile (and depth) they take, and
-     tl2_wgmma_route must agree with ops.matmul.launch_route over a grid of shapes,
-     tiles, bk (single intervals included), layouts and operand alignments
+     build time and ptxas report; the shared-memory models of config.py must equal the
+     kernels' own counts for every tile (and depth, on each staged route) they take, and
+     validate must refuse exactly what exceeds 227 KB; tl2_wgmma_route must agree with
+     ops.matmul.launch_route over a grid of shapes, tiles, bk (single intervals
+     included), layouts and operand alignments, and tl2_staged_route with
+     ops.pipelined.staged_route over shapes, tiles, depths, layouts and alignments
   2  kernel vs plain torch version on the card over the grid
      {f32, bf16 acc} x {kn, nk} x {gk == 1, gk > 1} x {aligned, unaligned}
      x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), at the main-path
@@ -27,37 +29,51 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      family's single interval with f32 output must also differ from its own bf16
      rounding; and the max |error| against an f64 product at 4096^3 of both multi-K
      bodies and of cuBLAS's f32 product
-  2b the staged kernel vs its plain version over {f32, bf16 acc} x {kn, nk} x depth
-     {2, 3, 4, 6, 8} x tiles x {bf16, f32 out}, the depth clamp (gk < depth), gk == 1
-     (which must not launch it), and the tuning shape's staged candidates: 0/1 inputs
-     exact, normal inputs within allowed_error(..., bk=K, acc_dtype='float32')
-  3  the slice: scripts/eval_one_shape_torch.py's main() for the bring-up shapes
-     (gate with guard bands -> offline bench -> summary); every gate must pass; then the
-     entry points (dispatch.matmul, dispatch.batched_matmul) at shapes with K % 8 != 0,
-     which TMA cannot read, with one K interval and with several: exact on 0/1 inputs
+  2b the staged kernel vs its plain version (with the launch's split count) on both
+     routes: every tile x depth {2, 3, 4, 6, 8} that fits, the ring tiles at a shape of
+     few tiles (split K) and of many (one split), families, layouts and out dtypes
+     spread over them; the depth clamp (gk < depth) on both routes, gk == 1 (which must
+     not launch it), a K tail (K % 64 != 0) with and without a split, and the tuning
+     shapes' staged candidates; each case must take its route (and split where its
+     shape says): 0/1 inputs exact, normal inputs within allowed_error(..., bk=K,
+     acc_dtype='float32'), a split case run twice on the same inputs bit-identical;
+     then the max |error| against an f64 product at 64x8192x8192 of the ring, a split
+     of it (8 splits, launched directly), the mma.sync body and one K interval
+  3  the slice: scripts/eval_one_shape_torch.py's main() for the bring-up shapes and the
+     few-CTA streaming shapes (gate with guard bands -> offline bench -> summary); every
+     gate must pass; then the entry points (dispatch.matmul, dispatch.batched_matmul) at
+     shapes with K % 8 != 0, which TMA cannot read, with one K interval and with several,
+     and dispatch.matmul with a staged config on each route (a 32-edge tile; a ring tile
+     whose few tiles split K): exact on 0/1 inputs
   4  the launch counters, zeroed just before phase 3, must show that each body ran on
-     both routes, single-K and multi-K, 2-D and batched: the bring-up shapes and the
-     gate's batched variants take wgmma (64x8192x8192 at the heuristic's 64x64 tile
-     included), the K % 8 != 0 shapes mma.sync
-  tune  `python -m tpul2_torch.autotune` (its main()) for 64x8192x8192 f32 into
-     runs/chip_smoke/tunedb_h100.json, with few candidates and rounds: every candidate
-     must launch, at least two staged candidates must be timed, the staged kernel must
-     have launched, and the entry must be on disk
-  tuned dispatch  a DB holding the tune's fastest staged candidate for both families at
-     64x8192x8192 (runs/chip_smoke/tunedb_staged.json, via TPUL2_TORCH_TUNEDB), then
+     both routes, single-K and multi-K, 2-D and batched, and the staged kernel on both
+     routes with a split: the bring-up shapes and the gate's batched variants take wgmma
+     (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0 shapes
+     mma.sync
+  tune  `python -m tpul2_torch.autotune` (its main()) for each tuning shape (64x8192x8192,
+     64x64x12288) f32 into runs/chip_smoke/tunedb_h100.json, with few candidates and
+     rounds: every candidate must launch, at least two staged candidates must be timed,
+     every staged candidate must be a ring tile and launch on the ring (never mma.sync),
+     64x64x12288's must split K, and the entry must be on disk
+  tuned dispatch  a DB holding each tuning shape's fastest staged candidate for both
+     families (runs/chip_smoke/tunedb_staged.json, via TPUL2_TORCH_TUNEDB), then
      eval_one_shape_torch's main() for both: every gate must pass with 0 guard hits, and
-     the staged kernel must launch on this path
+     the staged ring (with a split at 64x64x12288) must launch on this path
   5  per-kernel times on the card against the plain version and torch.matmul, with the
      bound of each (the larger of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s): the
      two routes of each multi-K body at 4096^3 (and 2 x 4096^3) on the same 128x128 tile,
      timed in turns (the mma.sync one launched through lib.tl2_matmul_*out directly);
      the two routes of each single-K body alone (a CUDA graph of direct launches, so no
      host time enters; torch.matmul the same way) at 8192x128x64 (and 2 x), and at 1000^3
-     in both families; the staged kernel and its time at every depth on the dispatched
-     tile; the heuristic's 64x64 wgmma tile against the 32x64 mma.sync tile it used to
-     pick and the 64x128 wgmma tile at 64x8192x8192, through the wrapper in turns and
-     alone; and for each bring-up shape the entry point's time back to back and its host
-     time per call
+     in both families; the staged kernel alone at 64x8192x8192 on the dispatched ring
+     tile against tl2_staged.cu's 32x64 at depth 4, in turns, and at every depth on both
+     (64x64 ring, 32x64 mma.sync); for each few-CTA shape, alone and through the entry
+     point in turns, the heuristic config (both families), the fastest of the tuner's
+     staged candidates there (split K) and torch.matmul, beside the bound; the split
+     launch and the reduction alone at 64x64x12288; the heuristic's 64x64 wgmma tile
+     against the 32x64 mma.sync tile it used to pick and the 64x128 wgmma tile at
+     64x8192x8192, through the wrapper in turns and alone; and for each bring-up shape
+     the entry point's time back to back and its host time per call
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -69,6 +85,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import math
 import os
 import sys
 import time
@@ -90,6 +107,12 @@ UNALIGNED_SHAPES = [(1, 200, 300, 1001), (1, 200, 300, 2001), (GATE_BATCH, 200, 
                     (GATE_BATCH, 200, 300, 2001)]
 #: The tuning path's shape: the skinny serving shape, where the kStage axis competes.
 TUNE_SHAPE = (64, 8192, 8192)
+#: Streaming shapes of bench.py's DEFAULT_SHAPES whose heuristic grid has few CTAs (1, 1,
+#: 2, 4 and 64 of 132 SMs): where the staged ring splits K.
+FEW_CTA_SHAPES = [(64, 64, 12288), (64, 64, 4096), (128, 64, 4096), (64, 256, 8192),
+                  (64, 4096, 4096)]
+#: The shapes the tune phase tunes: the skinny one (no split) and a one-CTA one (48 splits).
+TUNE_SHAPES = [TUNE_SHAPE, FEW_CTA_SHAPES[0]]
 #: Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM rate.
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -215,6 +238,37 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
     return n, n_wgmma
 
 
+def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
+    """tl2_staged_route against ops.pipelined.staged_route over shapes, tiles, depths,
+    layouts and operand alignments; return (cases, ring cases).  Raises on the first
+    disagreement."""
+    buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    shapes = ((64, 8192, 8192), (64, 64, 12288), (96, 160, 1004), (128, 100, 2048),
+              (128, 128, 2080))
+    n = n_ring = 0
+    for off_a in (0, 1, 8):
+        for off_b in (0, 4):
+            a, b = buf[off_a:], buf[off_b:]
+            for m, nn, k in shapes:
+                for bm in (32, 64, 128):
+                    for bn in (32, 64, 128):
+                        for depth in (2, 3, 4, 6, 8):
+                            for layout in ("kn", "nk"):
+                                cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
+                                                   pipeline_depth=depth)
+                                py = pl.staged_route(cfg, a, b, m, nn, k) == "ring"
+                                c = lib.tl2_staged_route(m, nn, k, bm, bn,
+                                                         int(layout == "nk"), a.data_ptr(),
+                                                         b.data_ptr())
+                                if py != bool(c):
+                                    raise AssertionError(
+                                        f"staged route differs at {m}x{nn}x{k} {cfg} "
+                                        f"offsets {off_a}, {off_b}: python {py}, C {c}")
+                                n += 1
+                                n_ring += py
+    return n, n_ring
+
+
 def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one):
     """Run kernel and plain version on the same inputs; return max |diff| (raises if out
     of tolerance)."""
@@ -263,45 +317,73 @@ def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one):
     return diff.max().item()
 
 
-def _staged_cases(candidate_configs):
-    """(name, m, n, k, cfg kwargs, out dtype name, launches) of phase 2b; ``launches`` is
-    whether the staged kernel must launch (False where gk == 1 takes the single-K one)."""
-    tiles = [(bm, bn) for bm in (32, 64, 128) for bn in (32, 64, 128)]
+def _staged_cases(candidate_configs, KernelConfig, wgmma_tiles):
+    """(name, m, n, k, cfg kwargs, out dtype name, route) of phase 2b; ``route`` is the
+    staged body the case must launch ('ring' or 'mma_sync'), or None where gk == 1 takes
+    the single-K kernel."""
     cases = []
     i = 0
+    for bm in (32, 64, 128):
+        for bn in (32, 64, 128):
+            ring = bm in wgmma_tiles and bn in wgmma_tiles
+            for depth in (2, 3, 4, 6, 8):
+                if KernelConfig(bm=bm, bn=bn, pipeline_depth=depth).validate() is not None:
+                    continue  # 128 x 128 at depth 8: a ring of more than 227 KB
+                acc = ("float32", "bfloat16")[i % 2]
+                layout = ("kn", "nk")[i // 2 % 2]
+                kw = dict(bm=bm, bn=bn, bk=256, acc_dtype=acc, rhs_layout=layout,
+                          pipeline_depth=depth, grid_order="nm" if i % 3 == 0 else "mn")
+                out = "float32" if i % 3 else "bfloat16"
+                # few tiles (the ring splits K) and, on the ring, many (one split)
+                for m, n, k in [(256, 384, 2048)] + ([(2048, 1024, 2048)] if ring else []):
+                    cases.append((f"staged/{bm}x{bn}/d{depth}/{acc}/{layout}/{m}x{n}x{k}",
+                                  m, n, k, kw, out, "ring" if ring else "mma_sync"))
+                i += 1
     for acc in ("float32", "bfloat16"):
         for layout in ("kn", "nk"):
-            for depth in (2, 3, 4, 6, 8):
-                bm, bn = tiles[i % len(tiles)]
+            # gk = 3 < depth 8: the ring is clamped to 3 stages (slices)
+            for (bm, bn), route in (((64, 128), "ring"), ((32, 128), "mma_sync")):
                 kw = dict(bm=bm, bn=bn, bk=256, acc_dtype=acc, rhs_layout=layout,
-                          pipeline_depth=depth, grid_order="nm" if i % 2 else "mn")
-                out = "float32" if i % 3 else "bfloat16"
-                cases.append((f"staged/{acc}/{layout}/d{depth}", 256, 384, 2048, kw, out, True))
-                i += 1
-            # gk = 3 < depth 8: the ring is clamped to 3 slots
-            kw = dict(bm=64, bn=128, bk=256, acc_dtype=acc, rhs_layout=layout, pipeline_depth=8)
-            cases.append((f"staged-clamp/{acc}/{layout}", 128, 256, 768, kw, "float32", True))
+                          pipeline_depth=8)
+                cases.append((f"staged-clamp/{acc}/{layout}/{route}", 128, 256, 768, kw,
+                              "float32", route))
             # gk == 1: the single-K kernel, not the ring
             kw = dict(bm=128, bn=64, bk=512, acc_dtype=acc, rhs_layout=layout, pipeline_depth=4)
-            cases.append((f"staged-gk1/{acc}/{layout}", 128, 256, 512, kw, "bfloat16", False))
-    m, n, k = TUNE_SHAPE  # the tuning path's staged candidates, at its shape
-    for c in candidate_configs(m, n, k, "float32"):
-        if c.pipeline_depth >= 2:
-            kw = {f: getattr(c, f) for f in ("bm", "bn", "bk", "acc_dtype", "rhs_layout",
-                                             "pipeline_depth", "grid_order")}
-            cases.append((f"staged-tune/{c.bm}x{c.bn}/{c.rhs_layout}/d{c.pipeline_depth}",
-                          m, n, k, kw, "bfloat16", True))
+            cases.append((f"staged-gk1/{acc}/{layout}", 128, 256, 512, kw, "bfloat16", None))
+            # a K tail (K = 2080, K % 64 = 32): TMA zero-fills the last stage, with 11
+            # splits and with one, and the 32-deep slices of the mma.sync body
+            for (m, n), (bm, bn), route in (((128, 128), (64, 64), "ring"),
+                                            ((2048, 1024), (64, 64), "ring"),
+                                            ((128, 128), (32, 64), "mma_sync")):
+                kw = dict(bm=bm, bn=bn, bk=160, acc_dtype=acc, rhs_layout=layout,
+                          pipeline_depth=2)
+                out = "bfloat16" if layout == "nk" else "float32"
+                cases.append((f"staged-ktail/{acc}/{layout}/{m}x{n}x2080/{bm}x{bn}", m, n,
+                              2080, kw, out, route))
+    for m, n, k in TUNE_SHAPES:  # the tuning path's staged candidates, at its shapes
+        for c in candidate_configs(m, n, k, "float32"):
+            if c.pipeline_depth >= 2:
+                kw = {f: getattr(c, f) for f in ("bm", "bn", "bk", "acc_dtype", "rhs_layout",
+                                                 "pipeline_depth", "grid_order")}
+                cases.append((f"staged-tune/{m}x{n}x{k}/{c.bm}x{c.bn}/{c.grid_order}/"
+                              f"{c.rhs_layout}/d{c.pipeline_depth}", m, n, k, kw, "bfloat16",
+                              "ring"))
     return cases
 
 
-def _check_staged(torch, mm, pl, gen, m, n, k, cfg, out_name, zero_one):
-    """Run the staged wrapper and its plain version on the same inputs; return max |diff|
-    (raises if out of tolerance)."""
+def _check_staged(torch, mm, pl, gen, m, n, k, cfg, out_name, zero_one, splits,
+                  repeat=False):
+    """Run the staged wrapper and its plain version (with ``splits``) on the same inputs;
+    return max |diff| (raises if out of tolerance, or, with ``repeat``, if a second run on
+    the same inputs differs in any bit)."""
     out_dtype = getattr(torch, out_name)
     a = _inputs(torch, gen, (m, k), zero_one)
     rhs = _inputs(torch, gen, (n, k) if cfg.rhs_layout == "nk" else (k, n), zero_one)
     got = pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=out_dtype)
-    want = pl.pipelined_reference(a, rhs, cfg.rhs_layout, out_dtype)
+    want = pl.pipelined_reference(a, rhs, cfg.rhs_layout, out_dtype, splits)
+    if repeat and not torch.equal(got, pl.cuda_matmul_pipelined(a, rhs, cfg,
+                                                                out_dtype=out_dtype)):
+        raise AssertionError("two runs on the same inputs differ")
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all():
         raise AssertionError("non-finite kernel output")
@@ -364,7 +446,8 @@ def main(argv=None) -> int:
     from tpul2_torch import dispatch
     from tpul2_torch.autotune import __main__ as tune_cli
     from tpul2_torch.autotune import db as db_mod
-    from tpul2_torch.config import PIPELINE_DEPTHS, KernelConfig, candidate_configs
+    from tpul2_torch.config import (PIPELINE_DEPTHS, SMEM_LIMIT, KernelConfig,
+                                    candidate_configs, heuristic_config)
     from tpul2_torch.dispatch import candidate_fn, resolve_config
     from tpul2_torch.ops import baselines
     from tpul2_torch.ops import batched as bmm
@@ -378,7 +461,8 @@ def main(argv=None) -> int:
                                                       f"{route.upper()}")
                    for prefix, mod in (("", mm), ("batched_", bmm))
                    for body in ("multi", "single") for route in ("wgmma", "mma_sync")}
-    count_attrs["staged"] = (pl, "LAUNCHES_STAGED")
+    for key in ("ring", "mma_sync", "split"):
+        count_attrs[f"staged_{key}"] = (pl, f"LAUNCHES_STAGED_{key.upper()}")
 
     def zero_counters():
         for mod, attr in count_attrs.values():
@@ -410,20 +494,28 @@ def main(argv=None) -> int:
             for bn in (32, 64, 128):
                 if lib.tl2_smem_bytes(bm, bn) != KernelConfig(bm=bm, bn=bn).smem_bytes():
                     raise AssertionError(f"smem model differs from the kernel at {bm}x{bn}")
+                ring = bm in mm.WGMMA_TILES and bn in mm.WGMMA_TILES
                 for depth in PIPELINE_DEPTHS[1:]:
                     cfg = KernelConfig(bm=bm, bn=bn, pipeline_depth=depth)
-                    if (cfg.validate() is None and lib.tl2_staged_smem_bytes(bm, bn, depth)
-                            != cfg.smem_bytes()):
+                    kernel = (lib.tl2_wgmma_smem_bytes(bm, bn, depth) if ring
+                              else lib.tl2_staged_smem_bytes(bm, bn, depth))
+                    if kernel != cfg.smem_bytes():
                         raise AssertionError(f"staged smem model differs from the kernel at "
-                                             f"{bm}x{bn} depth {depth}")
+                                             f"{bm}x{bn} depth {depth} (ring {ring})")
+                    if (cfg.validate() is None) != (kernel <= SMEM_LIMIT):
+                        raise AssertionError(f"validate at {bm}x{bn} depth {depth} does not "
+                                             f"follow the kernel's {kernel} bytes")
         for bm in mm.WGMMA_TILES:
             for bn in mm.WGMMA_TILES:
-                if lib.tl2_wgmma_smem_bytes(bm, bn) != mm.wgmma_smem_bytes(bm, bn):
+                if lib.tl2_wgmma_smem_bytes(bm, bn, mm.WGMMA_STAGES) != mm.wgmma_smem_bytes(
+                        bm, bn):
                     raise AssertionError(f"wgmma smem model differs from the kernel at "
                                          f"{bm}x{bn}")
         n_route = _check_route_mirror(torch, lib, mm, KernelConfig)
-        print(f"  wgmma smem model and route rule agree with the kernel ({n_route[0]} route "
-              f"cases, {n_route[1]} of them wgmma)")
+        n_staged = _check_staged_route_mirror(torch, lib, pl, KernelConfig)
+        print(f"  smem models and route rules agree with the kernels ({n_route[0]} route "
+              f"cases, {n_route[1]} of them wgmma; {n_staged[0]} staged route cases, "
+              f"{n_staged[1]} of them on the ring)")
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds
         record["ptxas"] = regs
@@ -504,37 +596,62 @@ def main(argv=None) -> int:
     with phase("2b staged kernel vs plain"):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(2)
-        cases = _staged_cases(candidate_configs)
-        for name, m, n, k, kw, out, launches in cases:
+        cases = _staged_cases(candidate_configs, KernelConfig, mm.WGMMA_TILES)
+        seen = set()
+        for name, m, n, k, kw, out, route in cases:
             cfg = KernelConfig(**kw)
-            before = pl.LAUNCHES_STAGED
-            errs = [_check_staged(torch, mm, pl, gen, m, n, k, cfg, out, zero_one)
+            depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk)
+            splits = (pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route == "ring"
+                      else 1)
+            before = counters()
+            errs = [_check_staged(torch, mm, pl, gen, m, n, k, cfg, out, zero_one, splits,
+                                  repeat=splits > 1 and not zero_one)
                     for zero_one in (True, False)]
-            if (pl.LAUNCHES_STAGED - before == 2) != launches:
-                raise AssertionError(f"{name}: staged launches {pl.LAUNCHES_STAGED - before}, "
-                                     f"expected {2 if launches else 0}")
-            if launches:
-                max_err["staged"] = max(max_err["staged"], errs[1])
-            print(f"  {name} {m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: 0/1 exact, "
-                  f"normal max|diff| {errs[1]:.3g}")
+            moved = {key: v - before[key] for key, v in counters().items() if v != before[key]}
+            if route is None:  # gk == 1: one single-K launch per input set, on either route
+                want = {key: 2 for key in moved if key.startswith("single_k")} or {"single_k": 2}
+            else:  # a split case runs its normal inputs twice
+                runs = 3 if splits > 1 else 2
+                want = {f"staged_{route}": runs} | ({"staged_split": runs} if splits > 1 else {})
+            if moved != want:
+                raise AssertionError(f"{name}: launches {moved}, expected {want}")
+            if route is not None:
+                seen.add((route, splits > 1))
+                for key in want:
+                    max_err[key] = max(max_err[key], errs[1])
+            print(f"  {name} {cfg.bm}x{cfg.bn} bk={cfg.bk} out={out}: {route or 'single-K'}"
+                  f"{f', {splits} splits, repeat bit-identical' if splits > 1 else ''}, 0/1 "
+                  f"exact, normal max|diff| {errs[1]:.3g}")
+        if seen != {("ring", True), ("ring", False), ("mma_sync", False)}:
+            raise AssertionError(f"phase 2b missed a route or split: {seen}")
         record["phase2b_cases"] = len(cases)
-        # precision of the f32 sums at the tuning shape, against an f64 product: the staged
-        # kernel, the plain version (cuBLAS f32) and one K interval (bk = K) on the staged
-        # config's tile, through the body the route picks for it
+        # precision of the f32 sums at the tuning shape, against an f64 product: the ring
+        # (one split, as its shape gives), the same ring split 8 ways (launched directly),
+        # the mma.sync body on a 32-edge tile, the plain version (cuBLAS f32) and one K
+        # interval (bk = K) on the ring's tile, through the body the route picks for it
         m, n, k = TUNE_SHAPE
-        cfg = next(KernelConfig(**kw) for _, cm, _, _, kw, _, _ in cases if cm == m)
+        cfg = next(KernelConfig(**kw) for _, *mnk, kw, _, _ in cases
+                   if tuple(mnk) == TUNE_SHAPE)
+        cfg = dataclasses.replace(cfg, rhs_layout="kn")
+        mma_cfg = KernelConfig(bm=32, bn=64, bk=cfg.bk, pipeline_depth=4)
         a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
         ref = a.double() @ b.double()
         one = KernelConfig(bm=cfg.bm, bn=cfg.bn, bk=k)
-        outs = {"staged": pl.cuda_matmul_pipelined(a, b.t().contiguous() if cfg.rhs_layout
-                                                   == "nk" else b, cfg, out_dtype=torch.float32),
+        split8 = torch.empty((m, n), dtype=torch.float32, device="cuda")
+        pl.launch_staged(a, b, cfg, split8, cfg.pipeline_depth, m, n, k, "ring", 8)
+        outs = {"staged_ring": pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=torch.float32),
+                "staged_ring_split8": split8,
+                "staged_mma_sync": pl.cuda_matmul_pipelined(a, b, mma_cfg,
+                                                            out_dtype=torch.float32),
                 "plain": pl.pipelined_reference(a, b, "kn", torch.float32),
                 f"one_interval_{mm.launch_route(one, a, b, m, n, k)}": mm.cuda_matmul(
                     a, b, one, out_dtype=torch.float32)}
         record["precision_vs_f64"] = {name: (x.double() - ref).abs().max().item()
                                       for name, x in outs.items()}
-        print(f"  max |err| vs an f64 product at {m}x{n}x{k}: "
+        print(f"  max |err| vs an f64 product at {m}x{n}x{k} ({cfg.bm}x{cfg.bn} depth "
+              f"{cfg.pipeline_depth}; mma.sync 32x64 depth 4): "
               + json.dumps(record["precision_vs_f64"]))
+        del a, b, ref, outs, split8
 
     eval_mod = _script(repo, "eval_one_shape_torch")
     host_time = _script(repo, "host_time_torch")  # alone_ms: device time, no host time
@@ -559,7 +676,7 @@ def main(argv=None) -> int:
     zero_counters()
     record["slice"] = []
     with phase("3 slice"):
-        for (m, n, k), acc in SLICE_SHAPES:
+        for (m, n, k), acc in SLICE_SHAPES + [(sh, "float32") for sh in FEW_CTA_SHAPES]:
             base = repo / "runs" / "chip_smoke" / f"{m}x{n}x{k}_{acc}"
             record["slice"].append(run_slice(m, n, k, acc, base))
         gen = torch.Generator(device="cuda")
@@ -579,87 +696,123 @@ def main(argv=None) -> int:
                 raise AssertionError(f"entry point at {batch}x{m}x{n}x{k} is not exact")
             print(f"  entry point {batch}x{m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
                   f"({mm.launch_route(cfg, a, b, m, n, k)}): exact on 0/1 inputs")
+        # the entry point with a staged config on each route: a 32-edge tile (mma.sync)
+        # and a ring tile whose one output tile splits K 48 ways
+        for (m, n, k), (bm, bn) in (((64, 256, 8192), (32, 64)), ((64, 64, 12288), (64, 64))):
+            cfg = KernelConfig(bm=bm, bn=bn, bk=1024, pipeline_depth=4)
+            a, b = _inputs(torch, gen, (m, k), True), _inputs(torch, gen, (k, n), True)
+            got = dispatch.matmul(a, b, config=cfg, out_dtype=torch.float32)
+            route = pl.staged_route(cfg, a, b, m, n, k)
+            splits = pl.staged_splits(m, n, k, bm, bn, 4) if route == "ring" else 1
+            if not torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32, splits)):
+                raise AssertionError(f"staged entry point at {m}x{n}x{k} is not exact")
+            print(f"  entry point {m}x{n}x{k} staged {bm}x{bn} depth 4 ({route}, {splits} "
+                  "splits): exact on 0/1 inputs")
     launches = counters()
 
     with phase("4 launch counts"):
         print("  " + json.dumps(launches))
-        missing = [key for key, v in launches.items() if v <= 0 and key != "staged"]
+        missing = [key for key, v in launches.items() if v <= 0]
         if missing:
             raise AssertionError(f"main path never launched: {missing}")
 
-    tm, tn, tk = TUNE_SHAPE
+    tuned = {}
     with phase("tune"):
         db_path = repo / "runs" / "chip_smoke" / "tunedb_h100.json"
         db_path.unlink(missing_ok=True)
         os.environ[db_mod.ENV_VAR] = str(db_path)
         db_mod.reset_default_db()
-        zero_counters()
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            rc = tune_cli.main(["--mnk", str(tm), str(tn), str(tk), "--acc", "float32",
-                                "--max_candidates", "8", "--stage1_rounds", "3",
-                                "--stage2_rounds", "5", "--finalists", "4"])
-        tune_launches = counters()
-        if rc != 0:
-            raise AssertionError(f"the tuner exited {rc}")
-        tuned = json.loads(printed.getvalue())
-        for d in tuned["medians_ms"]:
-            c = d["config"]
-            name = (f"vendor {c['vendor_variant']}" if c["use_vendor"] else
-                    f"{c['bm']}x{c['bn']} bk={c['bk']} {c['grid_order']} {c['rhs_layout']} "
-                    f"depth={c['pipeline_depth']}")
-            print(f"  {name}: stage1 {d['stage1_ms']:.5f} ms, stage2 "
-                  + ("-" if d["stage2_ms"] is None else f"{d['stage2_ms']:.5f} ms"))
-        best = tuned["best"]
-        print(f"  winner: {json.dumps(best)}, {tuned['best_tflops']:.2f} TFLOP/s, "
-              f"{tuned['speedup']:.4f}x vs torch_matmul "
-              f"({tuned['torch_matmul_tflops']:.2f} TFLOP/s); launches "
-              + json.dumps(tune_launches))
-        staged = [d for d in tuned["medians_ms"] if d["config"]["pipeline_depth"] >= 2]
-        if tuned["n_launched"] != tuned["n_candidates"]:
-            raise AssertionError(f"only {tuned['n_launched']} of {tuned['n_candidates']} "
-                                 "candidates launched")
-        if len(staged) < 2:
-            raise AssertionError(f"{len(staged)} staged candidates timed (need 2)")
-        if tune_launches["staged"] <= 0:
-            raise AssertionError("the tuning path never launched the staged kernel")
-        stored = db_mod.TuneDB(path=db_path).load().get(tm, tn, tk, "float32")
-        if stored != KernelConfig(**best):
-            raise AssertionError(f"the winner is not on disk: {stored}")
-        record["tune"] = {**tuned, "launches": tune_launches}
+        record["tune"] = []
+        for tm, tn, tk in TUNE_SHAPES:
+            zero_counters()
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = tune_cli.main(["--mnk", str(tm), str(tn), str(tk), "--acc", "float32",
+                                    "--max_candidates", "8", "--stage1_rounds", "3",
+                                    "--stage2_rounds", "5", "--finalists", "4"])
+            tune_launches = counters()
+            if rc != 0:
+                raise AssertionError(f"the tuner exited {rc} at {tm}x{tn}x{tk}")
+            res = json.loads(printed.getvalue())
+            print(f"  {tm}x{tn}x{tk}:")
+            for d in res["medians_ms"]:
+                c = d["config"]
+                name = (f"vendor {c['vendor_variant']}" if c["use_vendor"] else
+                        f"{c['bm']}x{c['bn']} bk={c['bk']} {c['grid_order']} "
+                        f"{c['rhs_layout']} depth={c['pipeline_depth']}")
+                print(f"    {name}: stage1 {d['stage1_ms']:.5f} ms, stage2 "
+                      + ("-" if d["stage2_ms"] is None else f"{d['stage2_ms']:.5f} ms"))
+            print(f"    winner: {json.dumps(res['best'])}, {res['best_tflops']:.2f} TFLOP/s, "
+                  f"{res['speedup']:.4f}x vs torch_matmul "
+                  f"({res['torch_matmul_tflops']:.2f} TFLOP/s); launches "
+                  + json.dumps(tune_launches))
+            staged = [d for d in res["medians_ms"] if d["config"]["pipeline_depth"] >= 2]
+            if res["n_launched"] != res["n_candidates"]:
+                raise AssertionError(f"only {res['n_launched']} of {res['n_candidates']} "
+                                     "candidates launched")
+            if len(staged) < 2:
+                raise AssertionError(f"{len(staged)} staged candidates timed (need 2)")
+            if not all(d["config"]["bm"] in mm.WGMMA_TILES
+                       and d["config"]["bn"] in mm.WGMMA_TILES for d in staged):
+                raise AssertionError("a staged candidate is not a ring tile")
+            if tune_launches["staged_ring"] <= 0 or tune_launches["staged_mma_sync"] != 0:
+                raise AssertionError("the staged candidates did not all launch on the ring")
+            if ((tm, tn, tk) != TUNE_SHAPE) != (tune_launches["staged_split"] > 0):
+                raise AssertionError(f"split launches {tune_launches['staged_split']} at "
+                                     f"{tm}x{tn}x{tk}")
+            stored = db_mod.TuneDB(path=db_path).load().get(tm, tn, tk, "float32")
+            if stored != KernelConfig(**res["best"]):
+                raise AssertionError(f"the winner is not on disk: {stored}")
+            tuned[tm, tn, tk] = res
+            record["tune"].append({**res, "launches": tune_launches})
 
     with phase("tuned dispatch"):
-        fastest = min(staged, key=lambda d: d["stage1_ms"])
-        staged_cfg = KernelConfig(**fastest["config"])
-        reference_ms = next(d["stage1_ms"] for d in tuned["medians_ms"]
-                            if d["config"]["use_vendor"]
-                            and d["config"]["vendor_variant"] == "torch_matmul")
         db_path = repo / "runs" / "chip_smoke" / "tunedb_staged.json"
         db_path.unlink(missing_ok=True)
         db = db_mod.TuneDB(path=db_path)
-        for acc in ("float32", "bfloat16"):
-            db.put(tm, tn, tk, dataclasses.replace(staged_cfg, acc_dtype=acc),
-                   2.0 * tm * tn * tk / fastest["stage1_ms"] * 1e-9, acc=acc,
-                   extra={"speedup_vs_torch_matmul": reference_ms / fastest["stage1_ms"]})
+        staged_cfgs = {}
+        for shape, res in tuned.items():
+            staged = [d for d in res["medians_ms"] if d["config"]["pipeline_depth"] >= 2]
+            fastest = min(staged, key=lambda d: d["stage1_ms"])
+            staged_cfgs[shape] = KernelConfig(**fastest["config"])
+            reference_ms = next(d["stage1_ms"] for d in res["medians_ms"]
+                                if d["config"]["use_vendor"]
+                                and d["config"]["vendor_variant"] == "torch_matmul")
+            for acc in ("float32", "bfloat16"):
+                db.put(*shape, dataclasses.replace(staged_cfgs[shape], acc_dtype=acc),
+                       2.0 * math.prod(shape) / fastest["stage1_ms"] * 1e-9, acc=acc,
+                       extra={"speedup_vs_torch_matmul": reference_ms / fastest["stage1_ms"]})
+            print(f"  stored {staged_cfgs[shape]} at {shape} (stage1 "
+                  f"{fastest['stage1_ms']:.5f} ms)")
         db.save()
         os.environ[db_mod.ENV_VAR] = str(db_path)
         db_mod.reset_default_db()
-        for acc in ("float32", "bfloat16"):
-            got = resolve_config(tm, tn, tk, acc)
-            if got != dataclasses.replace(staged_cfg, acc_dtype=acc):
-                raise AssertionError(f"dispatch resolved {got}, not the stored staged config")
-        print(f"  stored {staged_cfg} (stage1 {fastest['stage1_ms']:.5f} ms)")
-        zero_counters()
-        record["tuned_dispatch"] = [
-            run_slice(tm, tn, tk, acc, repo / "runs" / "chip_smoke" / f"staged_{acc}")
-            for acc in ("float32", "bfloat16")]
-        staged_launches = counters()
-        print("  launches " + json.dumps(staged_launches))
-        if staged_launches["staged"] <= 0:
-            raise AssertionError("the tuned dispatch path never launched the staged kernel")
+        record["tuned_dispatch"] = []
+        record["tuned_dispatch_launches"] = {}
+        for (tm, tn, tk), staged_cfg in staged_cfgs.items():
+            for acc in ("float32", "bfloat16"):
+                got = resolve_config(tm, tn, tk, acc)
+                if got != dataclasses.replace(staged_cfg, acc_dtype=acc):
+                    raise AssertionError(f"dispatch resolved {got}, not the stored staged "
+                                         "config")
+            zero_counters()
+            record["tuned_dispatch"] += [
+                run_slice(tm, tn, tk, acc, repo / "runs" / "chip_smoke" /
+                          f"staged_{tm}x{tn}x{tk}_{acc}") for acc in ("float32", "bfloat16")]
+            path_launches = counters()
+            print(f"  {tm}x{tn}x{tk} launches " + json.dumps(path_launches))
+            split = (tm, tn, tk) != TUNE_SHAPE
+            if (path_launches["staged_ring"] <= 0
+                    or (path_launches["staged_split"] > 0) != split):
+                raise AssertionError("the tuned dispatch path did not launch the staged ring"
+                                     + (" with a split" if split else " without a split"))
+            record["tuned_dispatch_launches"][f"{tm}x{tn}x{tk}"] = path_launches
         os.environ.pop(db_mod.ENV_VAR)
         db_mod.reset_default_db()  # phase 5 and later resolve without a DB again
-        record["tuned_dispatch_launches"] = staged_launches
+    # the launches of each staged body on its main paths: the staged entry points of
+    # phase 3 and the tuned dispatch path
+    for key in ("staged_ring", "staged_mma_sync", "staged_split"):
+        launches[key] += sum(c[key] for c in record["tuned_dispatch_launches"].values())
 
     # Representative main-path call of each kernel body, timed against its plain version:
     # both routes of each multi-K body on the same tile and inputs, then the single-K ones.
@@ -773,27 +926,53 @@ def main(argv=None) -> int:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": row["torch_alone_ms"]})
         del a, b, out
-        # the staged kernel at the tuning shape, with the config the tuned path dispatched
+        # the staged kernel alone at the tuning shape: the ring on the config the tuned path
+        # dispatched against tl2_staged.cu's 32x64 at depth 4, in turns (CUDA graphs of
+        # wrapper calls, so no host time enters)
+        tm, tn, tk = TUNE_SHAPE
+        ring_cfg = dataclasses.replace(staged_cfgs[TUNE_SHAPE], acc_dtype="float32")
+        mma_cfg = KernelConfig(bm=32, bn=64, bk=ring_cfg.bk, pipeline_depth=4)
         a, b = _inputs(torch, gen, (tm, tk), False), _inputs(torch, gen, (tk, tn), False)
-        rhs = b.t().contiguous() if staged_cfg.rhs_layout == "nk" else b
-        ms = _time_ms(torch, lambda: pl.cuda_matmul_pipelined(a, rhs, staged_cfg))
-        plain_ms = _time_ms(torch, lambda: pl.pipelined_reference(a, rhs, staged_cfg.rhs_layout))
-        library_ms = _time_ms(torch, lambda: torch.matmul(a, b))
+        b_t = b.t().contiguous()
+        out = torch.empty((tm, tn), dtype=torch.bfloat16, device="cuda")
+
+        def staged_call(cfg, a=a, b=b, b_t=b_t, out=out):
+            rhs = b_t if cfg.rhs_layout == "nk" else b
+            return lambda: (lambda: pl.cuda_matmul_pipelined(a, rhs, cfg, out=out))
+
+        turns = [host_time.alone_ms(torch, staged_call(c))
+                 for c in (ring_cfg, mma_cfg, mma_cfg, ring_cfg)]
+        plain_ms = _time_ms(torch, lambda: pl.pipelined_reference(a, b))
+        library_ms = host_time.alone_ms(torch, lambda: (lambda: torch.matmul(a, b)))
         bound_ms, bound_by = _bound(1, tm, tn, tk)
-        kernels.append({"name": f"tl2_staged ({staged_cfg.bm}x{staged_cfg.bn} "
-                                f"{staged_cfg.rhs_layout} depth {staged_cfg.pipeline_depth})",
-                        "route": "cuda", "source": "tpul2_torch/csrc/tl2_staged.cu",
-                        "replaces": "tpul2/ops/pipelined.py:39",
-                        "launches": staged_launches["staged"],
-                        "max_abs_err": max_err["staged"], "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms})
-        # the same tile at every depth (same inputs): what the ring depth buys at this shape
-        record["staged_depth_sweep_ms"] = {
-            depth: _time_ms(torch, lambda d=depth: pl.cuda_matmul_pipelined(
-                a, rhs, dataclasses.replace(staged_cfg, pipeline_depth=d)))
-            for depth in PIPELINE_DEPTHS[1:]}
-        print("  staged depth sweep (ms): " + json.dumps(record["staged_depth_sweep_ms"]))
+        record["staged_alone_turns_ms"] = {"ring": str(ring_cfg), "mma_sync": str(mma_cfg),
+                                           "turns_ms": turns, "torch_alone_ms": library_ms}
+        print(f"  staged alone at {tm}x{tn}x{tk} in turns (ring {ring_cfg.bm}x{ring_cfg.bn} "
+              f"{ring_cfg.rhs_layout} d{ring_cfg.pipeline_depth}, mma.sync 32x64 d4, mma.sync, "
+              f"ring) ms: {json.dumps(turns)}; torch.matmul alone {library_ms:.5f}")
+        for route, cfg, ms in (("ring", ring_cfg, (turns[0] + turns[3]) / 2),
+                               ("mma_sync", mma_cfg, (turns[1] + turns[2]) / 2)):
+            kernels.append({
+                "name": (f"{'tl2_wgmma_staged ring' if route == 'ring' else 'tl2_staged mma.sync'}"
+                         f" ({cfg.bm}x{cfg.bn} {cfg.rhs_layout} depth {cfg.pipeline_depth}, "
+                         f"{tm}x{tn}x{tk}, one split)"),
+                "route": "cuda",
+                "source": ("tpul2_torch/csrc/tl2_wgmma.cu" if route == "ring"
+                           else "tpul2_torch/csrc/tl2_staged.cu"),
+                "replaces": "tpul2/ops/pipelined.py:39",
+                "launches": launches[f"staged_{route}"],
+                "max_abs_err": max_err[f"staged_{route}"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+        # every depth on both routes (same inputs, alone): the 64x64 ring, 32x64 mma.sync
+        sweep = {}
+        for depth in PIPELINE_DEPTHS[1:]:
+            sweep[depth] = {}
+            for c in (KernelConfig(bm=64, bn=64, bk=ring_cfg.bk, pipeline_depth=depth),
+                      dataclasses.replace(mma_cfg, pipeline_depth=depth)):
+                key = f"{c.bm}x{c.bn} {pl.staged_route(c, a, b, tm, tn, tk)}"
+                sweep[depth][key] = host_time.alone_ms(torch, staged_call(c))
+        record["staged_depth_sweep_alone_ms"] = sweep
+        print("  staged depth sweep alone (ms): " + json.dumps(sweep))
         # the skinny serving shape (same inputs): the heuristic's tile against the 32x64
         # mma.sync tile it picked before it stopped at the wgmma tiles and the 64x128 wgmma
         # tile, through the wrapper in turns, then each alone
@@ -819,6 +998,109 @@ def main(argv=None) -> int:
             skinny[f"{c.bm}x{c.bn} bk={c.bk}"]["alone_ms"] = host_time.alone_ms(torch, make)
         record["skinny_tiles"] = skinny
         print(f"  {tm}x{tn}x{tk} tiles in turns (ms): " + json.dumps(skinny))
+        # the few-CTA streaming shapes: the heuristic config (both families), the fastest of
+        # the tuner's staged candidates there (alone), and torch.matmul, each alone (a CUDA
+        # graph of direct launches) and through the entry point (back to back), in turns
+        record["few_cta"] = []
+        for m, n, k in FEW_CTA_SHAPES:
+            a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+            b_t = b.t().contiguous()
+            out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+            candidates = {c: host_time.alone_ms(torch, staged_call(c, a, b, b_t, out))
+                          for c in candidate_configs(m, n, k, "float32") if c.pipeline_depth >= 2}
+            best = min(candidates, key=candidates.get)
+            depth = pl.staged_depth(best.pipeline_depth, k // best.bk)
+            heur = {acc: heuristic_config(m, n, k, acc) for acc in ("float32", "bfloat16")}
+
+            def direct(cfg, a=a, b=b, out=out, m=m, n=n, k=k):
+                def make():
+                    call = mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k)
+                    fn = fns[mm.launch_route(cfg, a, b, m, n, k)]
+                    return lambda: check_launch(fn(*call), "heuristic")
+                return make
+
+            alone_fns = {"heuristic_f32": direct(heur["float32"]),
+                         "heuristic_bf16": direct(heur["bfloat16"]),
+                         "staged": staged_call(best, a, b, b_t, out),
+                         "torch_matmul": lambda a=a, b=b: (lambda: torch.matmul(a, b))}
+            entry_fns = {"heuristic_f32": lambda a=a, b=b, b_t=b_t, out=out: dispatch.matmul(
+                             a, b, acc="float32", b_t=b_t, out=out),
+                         "heuristic_bf16": lambda a=a, b=b, b_t=b_t, out=out: dispatch.matmul(
+                             a, b, acc="bfloat16", b_t=b_t, out=out),
+                         "staged": lambda a=a, b=b, b_t=b_t, out=out, c=best: dispatch.matmul(
+                             a, b, config=c, b_t=b_t, out=out),
+                         "torch_matmul": lambda a=a, b=b: torch.matmul(a, b)}
+            order = list(alone_fns) + list(alone_fns)[::-1]
+            alone = {key: [] for key in alone_fns}
+            entry = {key: [] for key in alone_fns}
+            for key in order:
+                alone[key].append(host_time.alone_ms(torch, alone_fns[key]))
+            for key in order:
+                entry[key].append(_time_ms(torch, entry_fns[key]))
+            bound_ms, bound_by = _bound(1, m, n, k)
+            row = {"mnk": [m, n, k],
+                   "heuristic": f"{heur['float32'].bm}x{heur['float32'].bn} "
+                                f"bk={heur['float32'].bk}",
+                   "heuristic_ctas": (m // heur["float32"].bm) * (n // heur["float32"].bn),
+                   "staged": str(best), "staged_splits": pl.staged_splits(
+                       m, n, k, best.bm, best.bn, depth),
+                   "staged_candidates_alone_ms": {
+                       f"{c.grid_order} {c.rhs_layout} d{c.pipeline_depth}": ms
+                       for c, ms in candidates.items()},
+                   "alone_ms": alone, "entry_ms": entry, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            record["few_cta"].append(row)
+            print("  few-CTA " + json.dumps(row))
+        # the split launch alone at 64x64x12288 on the tuned dispatch's config, and the
+        # reduction alone on a workspace of its size
+        m, n, k = FEW_CTA_SHAPES[0]
+        split_cfg = dataclasses.replace(staged_cfgs[FEW_CTA_SHAPES[0]], acc_dtype="float32")
+        depth = pl.staged_depth(split_cfg.pipeline_depth, k // split_cfg.bk)
+        splits = pl.staged_splits(m, n, k, split_cfg.bm, split_cfg.bn, depth)
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        b_t = b.t().contiguous()
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        rhs = b_t if split_cfg.rhs_layout == "nk" else b
+        bound_ms, bound_by = _bound(1, m, n, k)
+        kernels.append({
+            "name": (f"tl2_wgmma_staged ring, split K ({split_cfg.bm}x{split_cfg.bn} "
+                     f"{split_cfg.rhs_layout} depth {split_cfg.pipeline_depth}, {m}x{n}x{k}, "
+                     f"{splits} splits + reduction)"),
+            "route": "cuda", "source": "tpul2_torch/csrc/tl2_wgmma.cu",
+            "replaces": "tpul2/ops/pipelined.py:39", "launches": launches["staged_split"],
+            "max_abs_err": max_err["staged_split"],
+            "ms": host_time.alone_ms(torch, staged_call(split_cfg, a, b, b_t, out)),
+            "plain_ms": _time_ms(torch, lambda: pl.pipelined_reference(
+                a, rhs, split_cfg.rhs_layout, torch.bfloat16, splits)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": host_time.alone_ms(torch, lambda: (lambda: torch.matmul(a, b)))})
+        ws = torch.randn((splits, m, n), generator=gen, device="cuda")
+
+        def reduce_plain():
+            acc = ws[0]
+            for s in range(1, splits):
+                acc = acc + ws[s]
+            return acc.to(torch.bfloat16)
+
+        def make_reduce():
+            stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+            return lambda: check_launch(lib.tl2_splitk_reduce(
+                ws.data_ptr(), out.data_ptr(), m, n, splits, 0, stream), "tl2_splitk_reduce")
+
+        make_reduce()()
+        reduce_err = (out.float() - reduce_plain().float()).abs().max().item()
+        kernels.append({
+            "name": f"tl2_splitk_reduce ({splits} x {m}x{n} f32 -> bf16, split order)",
+            "route": "cuda", "source": "tpul2_torch/csrc/tl2_wgmma.cu",
+            "replaces": "tpul2/ops/pipelined.py:39", "launches": launches["staged_split"],
+            "max_abs_err": reduce_err, "ms": host_time.alone_ms(torch, make_reduce),
+            "plain_ms": _time_ms(torch, reduce_plain),
+            "bound_ms": (splits * m * n * 4 + m * n * 2) / PEAK_BYTES * 1e3,
+            "bound_by": "bytes",
+            "library_ms": host_time.alone_ms(torch, lambda: (lambda: torch.sum(ws, 0)))})
+        if reduce_err != 0.0:
+            raise AssertionError(f"the reduction differs from the split-order sum by "
+                                 f"{reduce_err}")
         for row in kernels:
             print("  " + json.dumps(row))
         for (m, n, k), acc in SLICE_SHAPES:

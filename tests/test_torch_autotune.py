@@ -21,8 +21,8 @@ from tpul2_torch.autotune import __main__ as cli
 from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.autotune import search
 from tpul2_torch.autotune.transfer import _adapt, neighbor_seed_configs
-from tpul2_torch.config import (KSTEP, TILE_CHOICES, KernelConfig, candidate_configs,
-                                heuristic_config)
+from tpul2_torch.config import (KSTEP, TILE_CHOICES, WGMMA_TILES, KernelConfig,
+                                candidate_configs, heuristic_config)
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
@@ -77,7 +77,7 @@ def test_kstage_axis_where_jax_gates_it(acc):
     for c in deep:
         assert c.edge == "pad" and 64 % c.bm == 0 and 8192 % c.bn == 0
         assert 8192 % c.bk == 0 and 8192 // c.bk >= 3
-    # the staged kernel's ring slots are 32 deep whatever bk is, so no two staged
+    # the staged kernel's ring stages are 64 deep whatever bk is, so no two staged
     # candidates may differ in bk alone
     fields = [dataclasses.replace(c, bk=0) for c in deep]
     assert len(fields) == len(set(fields))
@@ -85,6 +85,24 @@ def test_kstage_axis_where_jax_gates_it(acc):
     assert not [c for c in candidate_configs(4096, 4096, 4096, acc) if c.pipeline_depth]
     # streaming, but K too short (k < 2048)
     assert not [c for c in candidate_configs(64, 8192, 1024, acc) if c.pipeline_depth]
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 8192, 8192), (64, 64, 12288)])
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_staged_candidates_are_ring_tiles(m, n, k, acc):
+    """The kStage axis draws its picks from the top 4 by the prior among the ring tiles,
+    whatever ``max_candidates`` kept: at 8 (chip_smoke.py's tune phase) the plain space's
+    picks at these shapes are all 32-edge tiles, which the prior's fill term favours."""
+    for max_candidates in (64, 8):
+        cands = candidate_configs(m, n, k, acc, max_candidates=max_candidates)
+        deep = [c for c in cands if c.pipeline_depth]
+        assert len(deep) == 8 and {c.pipeline_depth for c in deep} == {2, 4}
+        assert all(c.bm in WGMMA_TILES and c.bn in WGMMA_TILES for c in deep)
+        assert all(c.edge == "pad" and m % c.bm == n % c.bn == k % c.bk == 0
+                   and k // c.bk >= 3 for c in deep)
+    plain = [c for c in cands if not c.use_vendor and not c.pipeline_depth]
+    assert len(plain) == 8 and not any(c.bm in WGMMA_TILES and c.bn in WGMMA_TILES
+                                       for c in plain)
 
 
 def test_prior_puts_the_heuristic_tiling_first_on_square_shapes():

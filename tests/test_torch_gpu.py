@@ -209,33 +209,121 @@ def test_wgmma_smem_model_matches_the_kernel(cuda):
     lib = load_library()
     for bm in mm.WGMMA_TILES:
         for bn in mm.WGMMA_TILES:
-            assert lib.tl2_wgmma_smem_bytes(bm, bn) == mm.wgmma_smem_bytes(bm, bn)
+            assert lib.tl2_wgmma_smem_bytes(bm, bn, 4) == mm.wgmma_smem_bytes(bm, bn)
+            for stages in (2, 3, 6, 8):
+                assert (lib.tl2_wgmma_smem_bytes(bm, bn, stages)
+                        == mm.wgmma_smem_bytes(bm, bn, stages))
+
+
+def _staged_counts() -> tuple:
+    return pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC, pl.LAUNCHES_STAGED_SPLIT
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("depth", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("tile", [(32, 64), (64, 128), (128, 128)])
 def test_staged_kernel_matches_plain(cuda, layout, depth, tile):
+    """Each route's staged body against its plain version with the same split count;
+    128 x 128 at depth 8 needs more than 227 KB on the ring, which validate refuses."""
     m, n, k = 256, 512, 2048
     cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=256, acc_dtype="bfloat16",
                        rhs_layout=layout, pipeline_depth=depth,
                        grid_order="nm" if depth % 2 else "mn")
     a = _01((m, k), 9).to(cuda)
     rhs = _01((n, k) if layout == "nk" else (k, n), 10).to(cuda)
-    before = pl.LAUNCHES_STAGED
+    if cfg.validate() is not None:
+        assert (tile, depth) == ((128, 128), 8)
+        with pytest.raises(ValueError, match="shared memory"):
+            pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=torch.float32)
+        return
+    route = pl.staged_route(cfg, a, rhs, m, n, k)
+    assert route == ("mma_sync" if 32 in tile else "ring")
+    splits = pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route == "ring" else 1
+    ring, mma_sync, split = _staged_counts()
     got = pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pl.LAUNCHES_STAGED == before + 1
-    assert torch.equal(got, pl.pipelined_reference(a, rhs, layout, torch.float32))
+    assert _staged_counts() == (ring + (route == "ring"), mma_sync + (route == "mma_sync"),
+                                split + (splits > 1))
+    assert torch.equal(got, pl.pipelined_reference(a, rhs, layout, torch.float32, splits))
 
 
 def test_staged_smem_model_matches_the_kernel(cuda):
+    """Each route's count: the ring tiles tl2_wgmma.cu's, the 32-edge tiles
+    tl2_staged.cu's."""
     lib = load_library()
     for bm in (32, 64, 128):
         for bn in (32, 64, 128):
             for depth in (2, 3, 4, 6, 8):
                 cfg = KernelConfig(bm=bm, bn=bn, pipeline_depth=depth)
-                assert lib.tl2_staged_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
+                if bm in mm.WGMMA_TILES and bn in mm.WGMMA_TILES:
+                    assert lib.tl2_wgmma_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
+                else:
+                    assert lib.tl2_staged_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
+
+
+def test_staged_route_matches_the_c_rule(cuda):
+    """ops.pipelined.staged_route against tl2_staged_route over tiles, layouts, shapes and
+    operand alignments (views 2, 8 and 16 bytes into one allocation)."""
+    lib = load_library()
+    buf = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    for off_a in (0, 1, 8):
+        for off_b in (0, 4):
+            a, b = buf[off_a:], buf[off_b:]
+            for m, n, k in ((64, 64, 12288), (64, 8192, 8192), (96, 160, 1004),
+                            (128, 100, 2048)):
+                for bm in (32, 64, 128):
+                    for bn in (32, 64, 128):
+                        for layout in ("kn", "nk"):
+                            cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
+                                               pipeline_depth=2)
+                            py = pl.staged_route(cfg, a, b, m, n, k) == "ring"
+                            assert py == bool(lib.tl2_staged_route(
+                                m, n, k, bm, bn, int(layout == "nk"), a.data_ptr(),
+                                b.data_ptr())), (m, n, k, cfg, off_a, off_b)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_split_launch_is_bit_identical(cuda, out_dtype):
+    """A split-K launch on normal inputs, twice: the partials are added in split order by
+    one thread per element, so the bits repeat; and it stays within the staged
+    tolerance of its plain version."""
+    m, n, k = 64, 64, 12288
+    cfg = KernelConfig(bm=64, bn=64, bk=1024, pipeline_depth=4)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    splits = pl.staged_splits(m, n, k, 64, 64, 4)
+    assert splits == 48
+    split = pl.LAUNCHES_STAGED_SPLIT
+    first = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=out_dtype)
+    second = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pl.LAUNCHES_STAGED_SPLIT == split + 2
+    assert torch.equal(first, second)
+    want = pl.pipelined_reference(a, b, "kn", out_dtype, splits)
+    tol = mm.allowed_error(a, b, k, "float32", "kn", out_dtype)
+    assert bool(((first.float() - want.float()).abs() <= tol).all())
+
+
+def test_split_reduce_adds_in_split_order(cuda):
+    """The reduction alone: the sum of the partials in split order, cast once."""
+    lib = load_library()
+    m, n, splits = 64, 128, 5
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(18)
+    ws = torch.randn((splits, m, n), generator=gen, device=cuda)
+    want = ws[0].clone()
+    for s in range(1, splits):
+        want = want + ws[s]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = torch.empty((m, n), dtype=out_dtype, device=cuda)
+        check_launch(lib.tl2_splitk_reduce(ws.data_ptr(), out.data_ptr(), m, n, splits,
+                                           int(out_dtype == torch.float32),
+                                           torch.cuda.current_stream().cuda_stream),
+                     "tl2_splitk_reduce")
+        torch.cuda.synchronize()
+        assert torch.equal(out, want.to(out_dtype))
 
 
 def test_staged_single_k_takes_the_single_k_kernel(cuda):
@@ -243,21 +331,25 @@ def test_staged_single_k_takes_the_single_k_kernel(cuda):
     aligned operands), not the staged ring."""
     cfg = KernelConfig(bm=64, bn=64, bk=512, pipeline_depth=4)
     a, b = _01((128, 512), 11).to(cuda), _01((512, 128), 12).to(cuda)
-    staged, single = pl.LAUNCHES_STAGED, mm.LAUNCHES_SINGLE_K_WGMMA
+    staged, single = _staged_counts(), mm.LAUNCHES_SINGLE_K_WGMMA
     got = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pl.LAUNCHES_STAGED == staged and mm.LAUNCHES_SINGLE_K_WGMMA == single + 1
+    assert _staged_counts() == staged and mm.LAUNCHES_SINGLE_K_WGMMA == single + 1
     assert torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32))
 
 
 def test_staged_refused_launch_raises(cuda):
-    """A tile the staged kernel has no instance for: the launcher refuses before any work
-    and the wrapper raises; a misaligned operand raises before the launch."""
-    a, b = _01((96, 256), 13).to(cuda), _01((256, 96), 14).to(cuda)
-    out = torch.empty((96, 96), dtype=torch.float32, device=cuda)
-    with pytest.raises(LaunchRefused, match="launch failed"):
-        pl.launch_staged(a, b, KernelConfig(bm=48, bn=48, pipeline_depth=2), out, 2,
-                         96, 96, 256)
+    """A tile the staged kernel has no instance for, a ring tile on the mma.sync body, a
+    32-edge tile on the ring, and a split count that leaves a split empty: the launchers
+    refuse before any work and the wrapper raises; a misaligned operand raises before the
+    launch."""
+    a, b = _01((192, 256), 13).to(cuda), _01((256, 192), 14).to(cuda)
+    out = torch.empty((192, 192), dtype=torch.float32, device=cuda)
+    for tile, route, splits in (((48, 48), "mma_sync", 1), ((64, 64), "mma_sync", 1),
+                                ((32, 64), "ring", 1), ((64, 64), "ring", 3)):
+        cfg = KernelConfig(bm=tile[0], bn=tile[1], pipeline_depth=2)
+        with pytest.raises(LaunchRefused, match="launch failed"):
+            pl.launch_staged(a, b, cfg, out, 2, 192, 192, 256, route, splits)
     buf = _01((64 * 256 + 8,), 15).to(cuda)
     a_off = buf[8:].view(64, 256)  # 16-byte rows, but a base 16 bytes past the allocation
     a_odd = buf[1:1 + 64 * 256].view(64, 256)  # base 2 bytes off: no 16-byte copies

@@ -2,9 +2,14 @@
 
 The JAX side runs in Pallas interpret mode, as tests/test_pipelined.py runs it.  Inputs
 are made once with numpy from a seed, rounded to bf16, and handed to both packages.
-Configs are shared through ``KernelConfig.from_jax``.  Tolerances, each with its reason:
-  0/1 inputs   exact equality: every sum is an integer below 2^24;
-  normal       1e-5·|C| + 1e-5·√K: both sides sum in f32 over all of K, in another order;
+Configs are shared through ``KernelConfig.from_jax``.  On the CPU the wrapper runs the
+plain version with the split count its launch would take, so a ring tile over few output
+tiles compares a split-K sum with the JAX kernel's one sum.  Tolerances, each with its
+reason:
+  0/1 inputs   exact equality: every sum (and every split's partial) is an integer below
+               2^24;
+  normal       1e-5·|C| + 1e-5·√K: both sides sum in f32 over all of K, in another order
+               (split partials added in split order are one more order);
                + 2^-7·|C| with bf16 output: the final cast can round the two f32 values
                to neighbouring bf16 values (ops.matmul.allowed_error with bk = K).
 """
@@ -22,7 +27,8 @@ import tpul2.config as jcfg
 from tpul2.dispatch import matmul as jax_matmul
 from tpul2.ops.pipelined import pallas_matmul_pipelined
 from tpul2_torch import dispatch
-from tpul2_torch.config import SMEM_LIMIT, TILE_CHOICES, KernelConfig
+from tpul2_torch.config import (NUM_SMS, SMEM_LIMIT, TILE_CHOICES, WGMMA_KSTAGE, WGMMA_TILES,
+                                KernelConfig, wgmma_smem_bytes)
 from tpul2_torch.ops import matmul as mm
 from tpul2_torch.ops import pipelined as pl
 
@@ -144,8 +150,8 @@ def test_staged_depth_clamps_to_gk(depth, gk, want):
 
 
 def test_depth_exceeds_gk_matches_jax():
-    m, n, k = 128, 128, 384  # gk = 3 < depth 8
-    jax_cfg, cfg = _configs(8, "kn", "float32", bm=128, bn=128)
+    m, n, k = 128, 128, 384  # gk = 3 < depth 8 (64 x 128: 128 x 128 at depth 8 is too large)
+    jax_cfg, cfg = _configs(8, "kn", "float32", bm=64, bn=128)
     a_np, b_np = _inputs(5, m, n, k, True)
     assert torch.equal(_ours(a_np, b_np, cfg, "float32"), _jax(a_np, b_np, jax_cfg, "float32"))
 
@@ -260,13 +266,165 @@ def test_batched_dispatch_ignores_depth():
 @pytest.mark.parametrize("bm", TILE_CHOICES)
 @pytest.mark.parametrize("bn", TILE_CHOICES)
 def test_smem_grows_with_depth(bm, bn):
+    """Each staged route's own count: the ring tiles tl2_wgmma.cu's ring of 64-deep stages
+    (1024 + depth·(bm + bn)·128 + 16·depth), the 32-edge tiles tl2_staged.cu's slices of
+    (bm + bn) rows of 32 + 8 bf16; validate refuses what exceeds 227 KB."""
     base = KernelConfig(bm=bm, bn=bn)
+    ring = bm in WGMMA_TILES and bn in WGMMA_TILES
     sizes = [dataclasses.replace(base, pipeline_depth=d).smem_bytes() for d in (2, 3, 4, 6, 8)]
     assert base.smem_bytes() < sizes[0] and sizes == sorted(sizes)
-    # depth slots of (bm + bn) rows of 32 + 8 bf16; even depth 8 at 128 x 128 fits
-    assert sizes[-1] == 8 * (bm + bn) * 40 * 2 <= SMEM_LIMIT
-    for d in (2, 3, 4, 6, 8):
-        assert dataclasses.replace(base, pipeline_depth=d).validate() is None
+    for d, size in zip((2, 3, 4, 6, 8), sizes):
+        want = (1024 + d * (bm + bn) * 128 + 16 * d) if ring else d * (bm + bn) * 40 * 2
+        assert size == want
+        assert size == (wgmma_smem_bytes(bm, bn, d) if ring else want)
+        err = dataclasses.replace(base, pipeline_depth=d).validate()
+        assert (err is None) == (size <= SMEM_LIMIT)
+    # only 128 x 128 at depth 8 (263,296 bytes) does not fit
+    assert (sizes[-1] > SMEM_LIMIT) == ((bm, bn) == (128, 128))
+
+
+def test_validate_refuses_a_ring_beyond_227kb():
+    err = KernelConfig(bm=128, bn=128, pipeline_depth=8).validate()
+    assert err is not None and "shared memory 263296" in err
+    assert KernelConfig(bm=128, bn=128, pipeline_depth=6).validate() is None
+    assert KernelConfig(bm=64, bn=128, pipeline_depth=8).validate() is None
+    # the carry launches keep the 4-stage ring: depth 0 is tl2_matmul.cu's model
+    assert KernelConfig(bm=128, bn=128).validate() is None
+
+
+# ---- the staged route and split K ----
+
+def _bf16(shape, offset=0):
+    """A bf16 tensor of ``shape`` whose base lies ``offset`` elements into its buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("bm", TILE_CHOICES)
+@pytest.mark.parametrize("bn", TILE_CHOICES)
+def test_staged_route_rule(bm, bn, layout):
+    """Ring tiles with operands TMA can read take the ring; 32-edge tiles tl2_staged.cu;
+    bk and the depth play no part."""
+    m, n, k = 128, 256, 1024
+    rhs_shape = (n, k) if layout == "nk" else (k, n)
+    want = "ring" if bm in WGMMA_TILES and bn in WGMMA_TILES else "mma_sync"
+    for bk, depth in ((128, 2), (256, 4), (512, 8)):
+        cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout, pipeline_depth=depth)
+        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape), m, n, k) == want
+        # a base 2 bytes off 16, or a row TMA cannot step (K % 8 != 0): off the ring
+        assert pl.staged_route(cfg, _bf16((m, k), 1), _bf16(rhs_shape), m, n, k) == "mma_sync"
+        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape, 4), m, n, k) == "mma_sync"
+        assert pl.staged_route(cfg, _bf16((m, 1020)), _bf16(rhs_shape), m, n,
+                               1020) == "mma_sync"
+
+
+@pytest.mark.parametrize("m,n,k,want", [(64, 64, 12288, 48), (64, 64, 4096, 16),
+                                        (128, 64, 4096, 16), (64, 256, 8192, 32),
+                                        (64, 4096, 4096, 2), (64, 8192, 8192, 1)])
+def test_split_rule_at_the_few_cta_shapes(m, n, k, want):
+    """max(1, min(NUM_SMS // tiles, cdiv(K, 64) // depth)) on the heuristic's 64 x 64 tile
+    at depth 4: the few-CTA streaming shapes split, the skinny one's 128 tiles do not."""
+    assert pl.staged_splits(m, n, k, 64, 64, 4) == want
+    tiles = (m // 64) * (n // 64)
+    assert want == max(1, min(NUM_SMS // tiles, -(-k // WGMMA_KSTAGE) // 4))
+
+
+@pytest.mark.parametrize("k,splits", [(12288, 48), (4096, 16), (8192, 1), (2080, 11),
+                                      (480, 4), (64, 1), (640, 5), (640, 3)])
+def test_split_bounds_fall_on_stages(k, splits):
+    bounds = pl.split_bounds(k, splits)
+    assert len(bounds) == splits
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    for (k0, k1), (nxt, _) in zip(bounds, bounds[1:] + [(k, None)]):
+        assert k0 % WGMMA_KSTAGE == 0 and k0 < k1 == nxt  # whole stages, none empty
+    # equal runs of stages but the last, which ends at K (its tail zero-filled on the card)
+    runs = {k1 - k0 for k0, k1 in bounds[:-1]}
+    assert len(runs) <= 1 and all(r % WGMMA_KSTAGE == 0 for r in runs)
+
+
+@pytest.mark.parametrize("k,splits", [(640, 6), (640, 7), (64, 2), (4096, 0)])
+def test_split_bounds_refuse_an_empty_split(k, splits):
+    with pytest.raises(ValueError, match="empty"):
+        pl.split_bounds(k, splits)
+
+
+def test_split_count_never_leaves_a_split_empty():
+    for k in (64, 96, 640, 2080, 4160, 12288):
+        for tiles_m in (1, 2, 3):
+            for depth in (2, 3, 4, 6, 8):
+                splits = pl.staged_splits(64 * tiles_m, 64, k, 64, 64, depth)
+                assert len(pl.split_bounds(k, splits)) == splits >= 1
+
+
+#: (m, n, k, port config, JAX config, the split rule's count): ring tiles over one or two
+#: output tiles; the K-tail case (K % 64 = 32) uses bk = 160 on the port's side, which the
+#: JAX package refuses (bk % 128), so its side runs its own legal config, bk = K.
+SPLIT_CASES = {
+    "64x64x512": (64, 64, 512, dict(bm=64, bn=64, bk=128, pipeline_depth=2),
+                  dict(bm=64, bn=64, bk=128, pipeline_depth=2), 4),
+    "64x128x1024": (64, 128, 1024, dict(bm=64, bn=128, bk=256, pipeline_depth=4),
+                    dict(bm=64, bn=128, bk=256, pipeline_depth=4), 4),
+    "128x64x480-ktail": (128, 64, 480, dict(bm=64, bn=64, bk=160, pipeline_depth=2),
+                         dict(bm=128, bn=64, bk=480, pipeline_depth=2), 4),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_split_plain_version_matches_jax(case, layout, acc):
+    """The plain split-K version with one split and with the rule's count, and the CPU
+    wrapper (which takes the rule's count), against pallas_matmul_pipelined in interpret
+    mode: exact on 0/1 inputs, within allowed_error(..., bk=K, 'float32') on normal ones."""
+    m, n, k, ours_kw, jax_kw, splits = SPLIT_CASES[case]
+    out_name = "float32" if layout == "kn" else "bfloat16"
+    cfg = KernelConfig(**ours_kw, acc_dtype=acc, rhs_layout=layout)
+    jax_cfg = jcfg.KernelConfig(**jax_kw, rhs_layout=layout)  # JAX's staged sum ignores acc
+    depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk)
+    assert pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth) == splits > 1
+    for seed, zero_one in ((20, True), (21, False)):
+        a_np, b_np = _inputs(seed, m, n, k, zero_one)
+        rhs_np = _rhs(b_np, layout)
+        theirs = _jax(a_np, rhs_np, jax_cfg, out_name)
+        a, rhs = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(rhs_np).bfloat16()
+        tol = _staged_tol(a_np, rhs_np, layout, out_name)
+        for ours in (pl.pipelined_reference(a, rhs, layout, getattr(torch, out_name), 1),
+                     pl.pipelined_reference(a, rhs, layout, getattr(torch, out_name), splits),
+                     _ours(a_np, rhs_np, cfg, out_name)):
+            assert ours.shape == (m, n) and ours.dtype == getattr(torch, out_name)
+            if zero_one:
+                assert torch.equal(ours.float(), theirs)
+            else:
+                assert bool(((ours.float() - theirs).abs() <= tol).all())
+
+
+def test_plain_split_sum_adds_partials_in_split_order():
+    a_np, b_np = _inputs(22, 64, 64, 2080, False)
+    a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()
+    want = None
+    for k0, k1 in pl.split_bounds(2080, 11):
+        part = a[:, k0:k1].float() @ b[k0:k1].float()
+        want = part if want is None else want + part
+    assert torch.equal(pl.pipelined_reference(a, b, "kn", torch.float32, 11), want)
+
+
+@pytest.mark.parametrize("tile,splits", [((64, 64), 4), ((128, 64), 4), ((32, 64), 1)])
+def test_cpu_path_takes_the_launch_split_count(tile, splits, monkeypatch):
+    """The CPU wrapper runs the plain version with the split count its launch would take:
+    the rule's on the ring, one on the mma.sync body; no kernel counter moves."""
+    seen = []
+    real = pl.pipelined_reference
+    monkeypatch.setattr(pl, "pipelined_reference",
+                        lambda *args: seen.append(args[-1]) or real(*args))
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, pipeline_depth=2)
+    a_np, b_np = _inputs(23, 128, 64, 512, True)
+    before = (pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC, pl.LAUNCHES_STAGED_SPLIT)
+    got = _ours(a_np, b_np, cfg, "float32")
+    assert seen == [splits]
+    assert torch.equal(got, torch.from_numpy(a_np @ b_np))
+    assert (pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC,
+            pl.LAUNCHES_STAGED_SPLIT) == before
 
 
 @pytest.mark.parametrize("depth", [1, 5, 7, 9, -2])

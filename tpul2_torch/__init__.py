@@ -12,8 +12,9 @@ stays the reference.  Module names mirror ``tpul2``'s:
                                     candidate entries
   tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_wgmma.cu and csrc/tl2_matmul.cu
                                     (the route picks one per launch) + plain versions
-  tpul2_torch.ops.pipelined         wrapper of csrc/tl2_staged.cu (the staged K ring)
-                                    + plain version
+  tpul2_torch.ops.pipelined         the staged K ring: csrc/tl2_wgmma.cu's ring with a
+                                    split K on the ring tiles, csrc/tl2_staged.cu on the
+                                    32-edge ones (the route picks one) + plain version
   tpul2_torch.ops.baselines         library GEMMs (torch.matmul, cuBLAS, cuBLASLt)
 
 This package imports torch and never jax.

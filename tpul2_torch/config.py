@@ -11,9 +11,10 @@ field names are the JAX package's, so a configuration carries across
                   warpgroup per 64 rows, a TMA ring of 64-deep K stages), for the K carry
                   and for the single interval (gk == 1) alike; the 32-edge tiles and
                   unaligned operands run tl2_matmul.cu (each warp a 32 x 32 sub-tile of
-                  m16n8k16 MMAs).  ``smem_bytes`` models tl2_matmul.cu; the wgmma ring
-                  (``ops.matmul.wgmma_smem_bytes``, 132 KB at 128 x 128) fits every tile, so
-                  ``validate`` needs no second model
+                  m16n8k16 MMAs).  ``smem_bytes`` models the body a config's launches take:
+                  tl2_matmul.cu for depth 0 (the wgmma ring's 4 stages,
+                  ``wgmma_smem_bytes``, 132 KB at 128 x 128, fit every tile), the staged
+                  route's body for depth >= 2
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
                   (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, the
                   kernel's shared-memory K step
@@ -22,9 +23,11 @@ field names are the JAX package's, so a configuration carries across
   rhs_layout      'kn' reads B (K, N); 'nk' reads B_t (N, K)
   edge            'pad' or 'mask': the same launch on Hopper, since the kernel predicates
                   its own loads and stores; kept so configurations carry across
-  pipeline_depth  0: the single-stage kernel (tl2_matmul.cu); 2..8: the staged kernel
-                  (tl2_staged.cu, the port of ``tpul2/ops/pipelined.py``) with a ring of
-                  this many K slices in shared memory, fed by cp.async
+  pipeline_depth  0: the carry and single-K bodies; 2..8: the staged kernel (the port of
+                  ``tpul2/ops/pipelined.py``) with a ring of this many K stages in shared
+                  memory: on a ring tile (WGMMA_TILES in both edges) tl2_wgmma.cu's ring of
+                  64-deep TMA stages, else tl2_staged.cu's ring of 32-deep cp.async
+                  slices (``ops.pipelined.staged_route``)
   use_vendor      sentinel: call the library GEMM ``vendor_variant`` (ops/baselines.py)
 
 The TPU's VMEM model is replaced by the CTA's shared-memory footprint (the reference's
@@ -45,6 +48,12 @@ from tpul2_torch.utils.padding import cdiv, round_up
 TILE_CHOICES = (32, 64, 128)
 #: Tile edges of the wgmma body (csrc/tl2_wgmma.cu): one consumer warpgroup per 64 rows.
 WGMMA_TILES = (64, 128)
+#: K depth of one stage of the wgmma body's TMA ring: one 128-byte row of bf16, so a K
+#: carry's bk must be a multiple.
+WGMMA_KSTAGE = 64
+#: Ring depth of the wgmma body's K-carry and single-K launches (a staged launch takes its
+#: config's pipeline_depth).
+WGMMA_STAGES = 4
 #: K depth of one shared-memory stage (tl2_matmul.cu KSTEP); every bk is a multiple.
 KSTEP = 32
 #: Row padding of the shared-memory tiles, in bf16 elements (tl2_matmul.cu KPAD).
@@ -67,6 +76,13 @@ SPACE_REV = 1
 
 #: TPU-only fields of ``tpul2.config.KernelConfig`` that have no Hopper meaning.
 _TPU_ONLY_FIELDS = ("vmem_limit_bytes", "parallel_mn")
+
+
+def wgmma_smem_bytes(bm: int, bn: int, stages: int = WGMMA_STAGES) -> int:
+    """Shared memory of one wgmma CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
+    ring to the swizzle period, ``stages`` stages of (bm + bn) rows of 128 bytes, and a
+    full and an empty mbarrier per stage."""
+    return 1024 + stages * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * stages * 8
 
 
 def _vendor_for_xla(variant: str) -> str:
@@ -122,8 +138,16 @@ class KernelConfig:
         return KernelConfig(**json.loads(s))
 
     def smem_bytes(self) -> int:
-        """Shared memory of one CTA, rows padded by KPAD: one stage of the A and B tiles,
-        or ``pipeline_depth`` of them for the staged kernel (``tl2_staged_smem_bytes``)."""
+        """Shared memory of one CTA of the body this config's launches take.
+
+        Depth 0: tl2_matmul.cu's one stage of the A and B tiles, rows padded by KPAD
+        (``tl2_smem_bytes``).  A staged config (depth >= 2) on a ring tile: tl2_wgmma.cu's
+        ring of ``pipeline_depth`` 64-deep stages (``wgmma_smem_bytes``); on a 32-edge
+        tile: tl2_staged.cu's ``pipeline_depth`` KPAD-padded slices
+        (``tl2_staged_smem_bytes``)."""
+        if (self.pipeline_depth >= 2 and self.bm in WGMMA_TILES
+                and self.bn in WGMMA_TILES):
+            return wgmma_smem_bytes(self.bm, self.bn, self.pipeline_depth)
         return max(1, self.pipeline_depth) * (self.bm + self.bn) * (KSTEP + KPAD) * 2
 
     def validate(self) -> Optional[str]:
@@ -226,12 +250,20 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
     MMAs on Hopper, so ties keep an untuned shape's rounding points), then 'mn' raster.
     The first ``max_candidates`` are kept.
 
-    Then the kStage axis exactly as the JAX package gates it (``tpul2/config.py:503``):
-    only on streaming shapes (min(m, n) <= 256 and k >= 2048), from the top 4 picks
-    whose blocks divide the problem with at least 3 K intervals, at depths 2 and 4.
-    tl2_staged.cu's ring slots are 32 deep whatever bk is, and the prior ranks all four
-    raster/layout variants of a (tile, bk) ahead of another bk for the same tile, so no
-    two staged candidates differ in bk alone.  Then every vendor variant, always, so the tuner can never do worse than the library.
+    Then the kStage axis as the JAX package gates it (``tpul2/config.py:503``): only on
+    streaming shapes (min(m, n) <= 256 and k >= 2048), at depths 2 and 4, from the top
+    4 picks by the prior among the ring tiles (WGMMA_TILES in both edges, whatever
+    ``max_candidates`` kept) whose blocks divide the problem with at least 3 K
+    intervals.  The ring tiles run the staged sum on tl2_wgmma.cu's TMA ring with a split
+    K (``ops.pipelined``); the prior's fill term would rank the 32-edge tiles first at the
+    streaming shapes, and their staged body (tl2_staged.cu, mma.sync) ran 2.7x behind
+    the heuristic's 64 x 64 wgmma tile at 64 x 8192 x 8192 on the H100 (PERF.md).  Where
+    the problem has no ring tile (a dimension of at most 32), the picks come from the kept
+    candidates, as in the JAX package, and run tl2_staged.cu.  Either ring's stages are
+    as deep whatever bk is, and the prior ranks all four raster/layout variants of a
+    (tile, bk) ahead of another bk for the same tile, so no two staged candidates differ
+    in bk alone.  Then every vendor variant, always, so the tuner can never do worse than
+    the library.
     """
     def tiles(dim: int) -> list:
         return [t for t in TILE_CHOICES if t <= round_up(dim, TILE_CHOICES[0])]
@@ -266,10 +298,11 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
                 0 if c.grid_order == "mn" else 1)
 
     out.sort(key=prior)
+    ring = [c for c in out if c.bm in WGMMA_TILES and c.bn in WGMMA_TILES]
     out = out[:max_candidates]
     if min(m, n) <= 256 and k >= 2048:
         deep = []
-        for c in out[:min(4, max_candidates // 2)]:
+        for c in (ring or out)[:min(4, max_candidates // 2)]:
             if c.edge == "mask" or m % c.bm or n % c.bn or k % c.bk or k // c.bk < 3:
                 continue
             for depth in (2, 4):

@@ -1,9 +1,12 @@
 // tl2_staged.cu — the staged (kStage) GEMM kernel of tpul2_torch, hand-written for Hopper
 // (sm_90a).
 //
-// Replaces the Pallas TPU kernel tpul2/ops/pipelined.py::_kernel: one output tile per CTA,
-// the K loop inside the CTA over a `depth`-slot circular buffer that asynchronous copies keep
-// filled ahead of the MMAs.
+// Replaces the Pallas TPU kernel tpul2/ops/pipelined.py::_kernel for the 32-edge tiles: one
+// output tile per CTA, the K loop inside the CTA over a `depth`-slot circular buffer that
+// asynchronous copies keep filled ahead of the MMAs. Route: tl2_staged_route (tl2_wgmma.cu,
+// mirrored by ops/pipelined.py::staged_route) sends the ring tiles (64 and 128 in both
+// edges) with TMA-readable operands to tl2_wgmma_staged, the same staged sum on the TMA +
+// wgmma ring with a split K; this kernel takes the rest and refuses a launch on that route.
 //
 // What it computes: C = A @ B (rhs_nk = 0, B is (K, N)) or C = A @ B_t^T (rhs_nk = 1, B_t is
 // (N, K)), bf16 inputs. The sum runs in f32 over the WHOLE K, whatever the config's acc_dtype
@@ -27,19 +30,24 @@
 // landed), synchronises the CTA (so every thread has finished reading the slot that slice
 // s-1 occupied), refills that slot with slice s + depth - 1, and runs the slice's MMAs. So
 // depth-1 slices are in flight during every step's MMAs. The depth is a runtime value (the
-// wait_group immediate comes from a switch), so 18 instances cover 9 tiles x 2 layouts.
+// wait_group immediate comes from a switch), so 10 instances cover the 5 tiles with a
+// 32 edge x 2 layouts.
 //
 // Precision: each slice's two k16 MMAs accumulate into a fresh register set, which is then
 // added to the f32 total with an ordinary rounded add. Chaining all K/16 MMAs through the
 // tensor cores' accumulator instead gives some 25x cuBLAS's f32 error at K = 8192 (max |err|
 // against an f64 product; chip_smoke.py phase 2b prints both), enough to break the f32
 // tolerance 1e-5 |C| + 1e-5 sqrt(K) on results near zero.
-// Left for later PRs: TMA + mbarriers, wgmma warpgroups, split-K or a persistent schedule
-// for the skinny grid.
+// The ring tiles moved to tl2_wgmma.cu (TMA + mbarriers, wgmma warpgroups, split K); a
+// 32-edge tile has no wgmma form (an m64 instruction), so it stays here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The staged route rule (tl2_wgmma.cu): 1 where tl2_wgmma_staged takes the launch.
+extern "C" int tl2_staged_route(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
+                                const void* b);
 
 namespace {
 
@@ -288,12 +296,13 @@ extern "C" {
 
 // C = A @ B (rhs_nk = 0) or A @ B_t^T (rhs_nk = 1) through the depth-slot ring, f32 over all
 // of K, written as f32 (out_f32 = 1) or bf16. Needs M % bm == 0, N % bn == 0, K % 32 == 0,
-// 2 <= depth <= 8 and 16-byte aligned pointers. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue, before any work, for what the kernel does not take).
+// 2 <= depth <= 8, 16-byte aligned pointers and a launch off the ring's route
+// (tl2_staged_route == 0). Returns the cudaError_t of the launch (cudaErrorInvalidValue,
+// before any work, for what the kernel does not take).
 int tl2_staged(const void* a, const void* b, void* c, int m, int n, int k, int bm, int bn,
                int depth, int rhs_nk, int raster_nm, int out_f32, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || m % bm || n % bn || k % KSTEP ||
-      depth < 2 || depth > MAX_DEPTH)
+      depth < 2 || depth > MAX_DEPTH || tl2_staged_route(m, n, k, bm, bn, rhs_nk, a, b))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c)) % 16)
@@ -308,8 +317,7 @@ int tl2_staged(const void* a, const void* b, void* c, int m, int n, int k, int b
 #define TL2_STAGED_TILE(BM_, BN_) \
   if (bm == BM_ && bn == BN_) return (int)launch_layout<BM_, BN_>(p, rhs_nk, s);
   TL2_STAGED_TILE(32, 32) TL2_STAGED_TILE(32, 64) TL2_STAGED_TILE(32, 128)
-  TL2_STAGED_TILE(64, 32) TL2_STAGED_TILE(64, 64) TL2_STAGED_TILE(64, 128)
-  TL2_STAGED_TILE(128, 32) TL2_STAGED_TILE(128, 64) TL2_STAGED_TILE(128, 128)
+  TL2_STAGED_TILE(64, 32) TL2_STAGED_TILE(128, 32)
 #undef TL2_STAGED_TILE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,18 +1,22 @@
 // tl2_wgmma.cu — the GEMM body of tpul2_torch redesigned for Hopper (sm_90a): a ring of K
 // slices filled by TMA and guarded by mbarriers, consumed by wgmma warpgroups.
 //
-// Replaces, on the route below, the Pallas TPU kernels
+// Replaces, on the routes below, the Pallas TPU kernels
 //   tpul2/ops/matmul.py::_kernel_multi_k       (K carry across grid steps, gk > 1)
 //   tpul2/ops/matmul.py::_kernel_single_k      (one block product over all of K, gk == 1)
 //   tpul2/ops/batched.py::_bmm_kernel          (batched, K carry; the batch index is blockIdx.z)
 //   tpul2/ops/batched.py::_bmm_kernel_single_k (batched, gk == 1)
+//   tpul2/ops/pipelined.py::_kernel            (the staged K ring: tl2_wgmma_staged)
 // Route (tl2_wgmma_route, mirrored by ops/matmul.py::launch_route): BM and BN in {64, 128},
 // operands TMA can read (16-byte aligned bases and rows of a multiple of 16 bytes: K % 8 for
 // A and B_t, N % 8 for B), and, where there is a K carry (gk > 1), bk a multiple of 64 so
 // that a ring stage never straddles a rounding point. A single interval (gk == 1) has no
 // rounding point inside K, so any bk >= K takes the route. Everything else runs
-// tl2_matmul.cu's mma.sync body. The route is chosen from the shape before the launch; a
-// launch outside it is refused, never redirected.
+// tl2_matmul.cu's mma.sync body. The staged route (tl2_staged_route, mirrored by
+// ops/pipelined.py::staged_route) is the same without bk, since a staged launch sums all of
+// K in f32: ring tiles with TMA-readable operands run here, 32-edge tiles run
+// tl2_staged.cu. Each route is chosen from the shape before the launch; a launch outside it
+// is refused, never redirected.
 //
 // What it computes, per output tile, exactly as tl2_matmul.cu does (and the JAX kernels,
 // matmul.py:116, :146 and batched.py:33, :42):
@@ -33,14 +37,14 @@
 //
 // What bounds it on the H100: at 4096^3 the product is 137 GFLOP against ~100 MB of
 // operands and output, 0.139 ms at 989 TFLOP/s against 0.03 ms at 3.35 TB/s: the tensor
-// cores. So the design keeps wgmma issuing: one producer thread keeps STAGES K slices in
+// cores. So the design keeps wgmma issuing: one producer thread keeps the ring's K slices in
 // flight with TMA (no thread spends registers or instructions on addresses), and BM / 64
 // consumer warpgroups run m64 x BN x k16 wgmmas on whichever stage has landed, each
 // releasing its stage through an mbarrier as soon as its wgmmas have read it. The skinny
 // (64 x 8192 x 8192) and thin-K (8192 x 128 x 64) shapes are bound by bytes instead: B, and
 // at thin K the f32 output's stores, which no design of the mainloop shortens.
 //
-// Shared memory: a ring of STAGES stages, each [BM][64] of A then 64 deep of B, rows of 128
+// Shared memory: a ring of `stages` stages, each [BM][64] of A then 64 deep of B, rows of 128
 // bytes with the 128-byte swizzle (the TMA boxes and the wgmma descriptors agree on it):
 //   A (M, K) and B_t (N, K) are K-major: one box [rows][64 K];
 //   B (K, N) is MN-major (TMA cannot transpose): BN / 64 boxes [64 K][64 N], read by wgmma
@@ -56,6 +60,15 @@
 // Short K (gk == 1 at K = 64, the thin bring-up shape): the producer issues only the stages K
 // needs, so the ring's unused slots cost shared memory, not copies or waits; the fixed cost
 // of a CTA is the barrier set-up, one stage's latency and the epilogue's stores.
+// Staged launches (tl2_wgmma_staged, the port of pipelined.py::_kernel): one f32 sum over
+// all of K through a ring of `depth` stages, then one cast, in both families (the f32-carry
+// instance). The depth is the config's pipeline_depth, a launch argument; the carry and
+// single-K launches keep CARRY_STAGES. The TPU kernel's grid runs in order on one core; on
+// this card a skinny problem's few output tiles leave most of the 132 SMs idle, so a staged
+// launch may split K (blockIdx.y): split s sums its run of whole 64-deep stages into an f32
+// partial in a workspace (splits x M x N, allocated by the wrapper; TMA zero-fills the last
+// split's K tail), and tl2_splitk_reduce_kernel then adds the partials of each element in
+// split order and casts once. No atomics: two runs on the same inputs give the same bits.
 // Left for later: a persistent schedule, a TMA store staged through shared memory, and
 // overlapping one stage's adds with the next stage's wgmmas.
 
@@ -70,9 +83,13 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int KSTAGE = 64;              // K depth of one ring stage: one 128-byte bf16 row
 constexpr int ROW_BYTES = KSTAGE * 2;   // the swizzle span
-// Ring depth, from the chip runs at 4096^3 (128 x 128, bk 1024): 3 stages ran 5% slower
-// than 4, and 5 or 6 no faster (PERF.md, the multi-K redesign's findings).
-constexpr int STAGES = 4;
+// Ring depth of the carry and single-K launches, from H100 runs at 4096^3 (128 x 128,
+// bk 1024): 3 stages ran 5% slower than 4, and 5 or 6 no faster (PERF.md, the multi-K
+// redesign's findings). A staged launch gives its own depth, 2..MAX_STAGES.
+constexpr int CARRY_STAGES = 4;
+constexpr int MAX_STAGES = 8;
+// Shared memory one block may use on the H100 (227 KB)
+constexpr int SMEM_LIMIT = 232448;
 // setmaxnreg with two consumer warpgroups: ptxas allocates 168 registers a thread at entry
 // (384 threads), so 4 producer warps at 40 and 8 consumer warps at 232 use the same total
 constexpr int PRODUCER_REGS = 40;
@@ -85,9 +102,12 @@ enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 
 
 struct WgParams {
   const float* bias;   // (N,) or null
-  void* c;             // (batch, M, N), row stride N
+  void* c;             // (batch, M, N), row stride N; a split launch: (splits, M, N) f32
   int m, n, k, bk;
   long long sc;        // batch stride of C in elements
+  long long ssplit;    // split stride of C in elements (0 without a split)
+  int stages;          // ring depth
+  int split_steps;     // 64-deep K stages per split (all of them without a split)
   int act, raster_nm, out_f32, vec_out;
 };
 
@@ -99,14 +119,13 @@ struct WgTile {
   static constexpr int THREADS = (CONSUMERS + 1) * 128;    // + the producer warpgroup
   static constexpr int A_BYTES = BM * ROW_BYTES;
   static constexpr int STAGE_BYTES = (BM + BN) * ROW_BYTES;
-  // 1024 bytes of slack to align the ring to the swizzle's 1024-byte period, the ring,
-  // then a full and an empty mbarrier per stage
-  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
   static constexpr int ACC = BN / 2;                    // f32 registers of an m64 x BN tile
 };
 
-int smem_bytes(int bm, int bn) {
-  return 1024 + STAGES * (bm + bn) * ROW_BYTES + 2 * STAGES * 8;
+// 1024 bytes of slack to align the ring to the swizzle's 1024-byte period, the ring, then a
+// full and an empty mbarrier per stage
+int smem_bytes(int bm, int bn, int stages) {
+  return 1024 + stages * (bm + bn) * ROW_BYTES + 2 * stages * 8;
 }
 
 __device__ __forceinline__ float act_fn(float x, int act) {
@@ -264,7 +283,7 @@ __device__ __forceinline__ void store_pair(bf16* p, float v0, float v1, bool bot
 template <typename OutT, int N>
 __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N], int row0,
                                          int col0) {
-  OutT* C = static_cast<OutT*>(p.c) + (long long)blockIdx.z * p.sc;
+  OutT* C = static_cast<OutT*>(p.c) + (long long)blockIdx.z * p.sc + blockIdx.y * p.ssplit;
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const int col = col0 + 8 * j;
@@ -291,21 +310,24 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
                      const __grid_constant__ CUtensorMap tma_b, WgParams p) {
   using T = WgTile<BM, BN>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int stages = p.stages;
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = ring + STAGES * T::STAGE_BYTES;
+  const uint32_t bars = ring + stages * T::STAGE_BYTES;
   auto full_bar = [&](int s) { return bars + 8 * s; };
-  auto empty_bar = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto empty_bar = [&](int s) { return bars + 8 * (stages + s); };
 
   const int tiles_m = cdiv(p.m, BM), tiles_n = cdiv(p.n, BN);
   const int tile = blockIdx.x;
   const int tm = p.raster_nm ? tile % tiles_m : tile / tiles_n;
   const int tn = p.raster_nm ? tile / tiles_m : tile % tiles_n;
   const int m0 = tm * BM, n0 = tn * BN;
-  const int steps = cdiv(p.k, KSTAGE);
+  // this CTA's run of 64-deep K stages: its split's (blockIdx.y), all of K without a split
+  const int first = blockIdx.y * p.split_steps;
+  const int steps = min(cdiv(p.k, KSTAGE) - first, p.split_steps);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(full_bar(s), 1);                     // the producer's expect_tx arrival
       mbar_init(empty_bar(s), T::CONSUMERS * 4);     // one arrival per consumer warp
     }
@@ -322,9 +344,9 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
       int s = 0;
       uint32_t phase = 0;
       for (int it = 0; it < steps; ++it) {
-        if (it >= STAGES) mbar_wait(empty_bar(s), phase ^ 1);  // the stage's last use is read
+        if (it >= stages) mbar_wait(empty_bar(s), phase ^ 1);  // the stage's last use is read
         const uint32_t a_dst = ring + s * T::STAGE_BYTES, b_dst = a_dst + T::A_BYTES;
-        const int k0 = it * KSTAGE;
+        const int k0 = (first + it) * KSTAGE;
         mbar_expect_tx(full_bar(s), T::STAGE_BYTES);
         tma_load(a_dst, &tma_a, full_bar(s), k0, m0, z);
         if (RHS_NK) {
@@ -334,7 +356,7 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
           for (int j = 0; j < BN / 64; ++j)
             tma_load(b_dst + j * 64 * ROW_BYTES, &tma_b, full_bar(s), n0 + 64 * j, k0, z);
         }
-        if (++s == STAGES) {
+        if (++s == stages) {
           s = 0;
           phase ^= 1;
         }
@@ -390,7 +412,7 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
         }
       }
       in_iv = iv_end ? 0 : in_iv + 1;
-      if (++s == STAGES) {
+      if (++s == stages) {
         s = 0;
         phase ^= 1;
       }
@@ -456,51 +478,90 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int batch
   return r == CUDA_SUCCESS;
 }
 
-int route_ok(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
-             const void* b) {
-  if (m <= 0 || n <= 0 || k <= 0 || bk <= 0) return 0;
+// The staged route: a ring tile and operands TMA can read. bk plays no part, since a staged
+// launch sums all of K in f32 and has no rounding point inside K.
+int staged_route_ok(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
+                    const void* b) {
+  if (m <= 0 || n <= 0 || k <= 0) return 0;
   if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128)) return 0;
-  if (cdiv(k, bk) > 1 && bk % KSTAGE) return 0;  // a stage would straddle a rounding point
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16) return 0;
   return k % 8 == 0 && (rhs_nk ? k : n) % 8 == 0;
 }
 
+int route_ok(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
+             const void* b) {
+  if (bk <= 0) return 0;
+  if (cdiv(k, bk) > 1 && bk % KSTAGE) return 0;  // a stage would straddle a rounding point
+  return staged_route_ok(m, n, k, bm, bn, rhs_nk, a, b);
+}
+
 template <int BM, int BN, bool RHS_NK, bool ACC_BF16>
 cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
-                        int batch, cudaStream_t stream) {
+                        int splits, int batch, cudaStream_t stream) {
   using T = WgTile<BM, BN>;
   const auto kernel = tl2_wgmma_kernel<BM, BN, RHS_NK, ACC_BF16>;
-  static int checked = 0;  // per instance: the attribute is set and the registers fit
-  if (!checked) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         T::SMEM);
+  static int regs_checked = 0;  // per instance: the registers fit
+  static int attr_bytes = 0;    // per instance: the dynamic shared memory the attribute allows
+  const int smem = smem_bytes(BM, BN, p.stages);
+  if (smem > attr_bytes) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
+    attr_bytes = smem;
+  }
+  if (!regs_checked) {
     if (T::CONSUMERS == 2) {
       // setmaxnreg.inc blocks until the registers are free: refuse a build whose
       // allocation at launch cannot cover the rebalanced counts, rather than hang
       cudaFuncAttributes attr;
-      e = cudaFuncGetAttributes(&attr, kernel);
+      const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
       if (e != cudaSuccess) return e;
       const int per_warp = (attr.numRegs + 7) / 8 * 8;
       const int want = T::CONSUMERS * 4 * CONSUMER_REGS + 4 * PRODUCER_REGS;
       if (want > (T::CONSUMERS + 1) * 4 * per_warp)
         return cudaErrorInvalidConfiguration;
     }
-    checked = 1;
+    regs_checked = 1;
   }
-  const dim3 grid(cdiv(p.m, BM) * cdiv(p.n, BN), 1, batch);
-  tl2_wgmma_kernel<BM, BN, RHS_NK, ACC_BF16><<<grid, T::THREADS, T::SMEM, stream>>>(ta, tb, p);
+  const dim3 grid(cdiv(p.m, BM) * cdiv(p.n, BN), splits, batch);
+  tl2_wgmma_kernel<BM, BN, RHS_NK, ACC_BF16><<<grid, T::THREADS, smem, stream>>>(ta, tb, p);
   return cudaGetLastError();
 }
 
 template <int BM, int BN>
 cudaError_t launch_variant(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
-                           int batch, int rhs_nk, int acc_bf16, cudaStream_t s) {
+                           int splits, int batch, int rhs_nk, int acc_bf16, cudaStream_t s) {
   if (rhs_nk)
-    return acc_bf16 ? launch_tile<BM, BN, true, true>(ta, tb, p, batch, s)
-                    : launch_tile<BM, BN, true, false>(ta, tb, p, batch, s);
-  return acc_bf16 ? launch_tile<BM, BN, false, true>(ta, tb, p, batch, s)
-                  : launch_tile<BM, BN, false, false>(ta, tb, p, batch, s);
+    return acc_bf16 ? launch_tile<BM, BN, true, true>(ta, tb, p, splits, batch, s)
+                    : launch_tile<BM, BN, true, false>(ta, tb, p, splits, batch, s);
+  return acc_bf16 ? launch_tile<BM, BN, false, true>(ta, tb, p, splits, batch, s)
+                  : launch_tile<BM, BN, false, false>(ta, tb, p, splits, batch, s);
+}
+
+// The TMA maps of A and of B or B_t; false if cuTensorMapEncodeTiled refuses them.
+bool make_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a, const void* b, int batch,
+               int m, int n, int k, long long sa, long long sb, int bm, int bn, int rhs_nk) {
+  return make_map(ta, a, k, m, batch, sa, bm) &&
+         (rhs_nk ? make_map(tb, b, k, n, batch, sb, bn) : make_map(tb, b, n, k, batch, sb, KSTAGE));
+}
+
+// Paired stores need every (row, even column) element of C aligned to two elements.
+int pairs_ok(const void* c, int n, int batch, long long sc, int elem_bytes) {
+  return n % 2 == 0 && (batch == 1 || sc % 2 == 0) &&
+         reinterpret_cast<uintptr_t>(c) % (2 * elem_bytes) == 0;
+}
+
+// Launch the instance of (bm, bn); cudaErrorInvalidValue for a tile it has none of.
+cudaError_t launch_tiles(int bm, int bn, const CUtensorMap& ta, const CUtensorMap& tb,
+                         const WgParams& p, int splits, int batch, int rhs_nk, int acc_bf16,
+                         cudaStream_t s) {
+#define TL2_WGMMA_TILE(BM_, BN_) \
+  if (bm == BM_ && bn == BN_)    \
+    return launch_variant<BM_, BN_>(ta, tb, p, splits, batch, rhs_nk, acc_bf16, s);
+  TL2_WGMMA_TILE(64, 64) TL2_WGMMA_TILE(64, 128)
+  TL2_WGMMA_TILE(128, 64) TL2_WGMMA_TILE(128, 128)
+#undef TL2_WGMMA_TILE
+  return cudaErrorInvalidValue;
 }
 
 template <typename OutT>
@@ -510,28 +571,108 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
   if (batch <= 0 || batch > 65535 || !route_ok(m, n, k, bm, bn, bk, rhs_nk, a, b))
     return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  const bool maps = make_map(&ta, a, k, m, batch, sa, bm) &&
-                    (rhs_nk ? make_map(&tb, b, k, n, batch, sb, bn)
-                            : make_map(&tb, b, n, k, batch, sb, KSTAGE));
-  if (!maps) return (int)cudaErrorInvalidValue;
+  if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, bm, bn, rhs_nk))
+    return (int)cudaErrorInvalidValue;
   if (cdiv(k, bk) == 1) acc_bf16 = 0;  // one interval: the f32 sum is never rounded
   WgParams p;
   p.bias = static_cast<const float*>(bias);
   p.c = c;
   p.m = m; p.n = n; p.k = k; p.bk = bk;
   p.sc = sc;
+  p.ssplit = 0;
+  p.stages = CARRY_STAGES;
+  p.split_steps = cdiv(k, KSTAGE);
   p.act = act; p.raster_nm = raster_nm; p.out_f32 = sizeof(OutT) == 4;
-  // paired stores need every (row, even column) element aligned to two elements
-  p.vec_out = n % 2 == 0 && (batch == 1 || sc % 2 == 0) &&
-              reinterpret_cast<uintptr_t>(c) % (2 * sizeof(OutT)) == 0;
+  p.vec_out = pairs_ok(c, n, batch, sc, sizeof(OutT));
+  return (int)launch_tiles(bm, bn, ta, tb, p, 1, batch, rhs_nk, acc_bf16,
+                           static_cast<cudaStream_t>(stream));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The split-K reduction: c[i] = cast(((ws[0][i] + ws[1][i]) + ws[2][i]) + ...), the
+// partials added in split order, four elements a thread. One thread owns each element, so
+// the order, and the bits, are the same on every run.
+template <typename OutT>
+__global__ void tl2_splitk_reduce_kernel(const float* __restrict__ ws, OutT* __restrict__ c,
+                                         long long mn, int splits) {
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= mn) return;
+  float4 acc = *reinterpret_cast<const float4*>(ws + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(ws + s * mn + i);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  store4(c + i, acc);
+}
+
+// What the reduction takes: whole float4s and 16-byte aligned buffers.
+int reduce_ok(const void* ws, const void* c, long long mn, int splits) {
+  return ws != nullptr && c != nullptr && splits >= 1 && mn > 0 && mn % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(ws) | reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+}
+
+cudaError_t launch_reduce(const float* ws, void* c, long long mn, int splits, int out_f32,
+                          cudaStream_t s) {
+  constexpr int THREADS = 256;
+  const dim3 grid((unsigned)((mn / 4 + THREADS - 1) / THREADS));
+  if (out_f32)
+    tl2_splitk_reduce_kernel<float><<<grid, THREADS, 0, s>>>(ws, static_cast<float*>(c), mn,
+                                                             splits);
+  else
+    tl2_splitk_reduce_kernel<bf16><<<grid, THREADS, 0, s>>>(ws, static_cast<bf16*>(c), mn,
+                                                            splits);
+  return cudaGetLastError();
+}
+
+// The split count a staged launch takes: 1..min(65535, K stages), and no split left empty.
+int splits_ok(int k, int splits) {
+  const int steps = cdiv(k, KSTAGE);
+  return splits >= 1 && splits <= 65535 && splits <= steps &&
+         cdiv(steps, cdiv(steps, splits)) == splits;
+}
+
+int staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k, int bm, int bn,
+           int depth, int splits, int rhs_nk, int raster_nm, int out_f32, void* stream) {
+  if (!staged_route_ok(m, n, k, bm, bn, rhs_nk, a, b) || depth < 2 || depth > MAX_STAGES ||
+      smem_bytes(bm, bn, depth) > SMEM_LIMIT || !splits_ok(k, splits) || c == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && !reduce_ok(ws, c, (long long)m * n, splits))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!make_maps(&ta, &tb, a, b, 1, m, n, k, (long long)m * k, (long long)n * k, bm, bn, rhs_nk))
+    return (int)cudaErrorInvalidValue;
+  WgParams p;
+  p.bias = nullptr;
+  p.c = splits > 1 ? ws : c;  // a split writes its f32 partial, the reduction casts
+  p.m = m; p.n = n; p.k = k;
+  p.bk = k;  // one interval: the f32-carry instance sums all of K, never rounded
+  p.sc = 0;
+  p.ssplit = splits > 1 ? (long long)m * n : 0;
+  p.stages = depth;
+  p.split_steps = cdiv(cdiv(k, KSTAGE), splits);
+  p.act = ACT_NONE; p.raster_nm = raster_nm;
+  p.out_f32 = splits > 1 ? 1 : out_f32;
+  p.vec_out = pairs_ok(p.c, n, 1, 0, p.out_f32 ? 4 : 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TL2_WGMMA_TILE(BM_, BN_) \
-  if (bm == BM_ && bn == BN_)    \
-    return (int)launch_variant<BM_, BN_>(ta, tb, p, batch, rhs_nk, acc_bf16, s);
-  TL2_WGMMA_TILE(64, 64) TL2_WGMMA_TILE(64, 128)
-  TL2_WGMMA_TILE(128, 64) TL2_WGMMA_TILE(128, 128)
-#undef TL2_WGMMA_TILE
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t e = launch_tiles(bm, bn, ta, tb, p, splits, 1, rhs_nk, 0, s);
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)launch_reduce(static_cast<const float*>(ws), c, (long long)m * n, splits,
+                            out_f32, s);
 }
 
 }  // namespace
@@ -564,14 +705,47 @@ int tl2_wgmma_f32out(const void* a, const void* b, const void* bias, void* c, in
                        act, raster_nm, stream);
 }
 
-// Shared memory of one CTA for a (bm, bn) tile; mirrors ops/matmul.py::wgmma_smem_bytes.
-int tl2_wgmma_smem_bytes(int bm, int bn) { return smem_bytes(bm, bn); }
+// C = A @ B (rhs_nk = 0) or A @ B_t^T (rhs_nk = 1) through a `depth`-stage ring, f32 over all
+// of K, cast once to f32 (out_f32 = 1) or bf16: the staged kernel (pipelined.py::_kernel) on
+// the staged route (tl2_staged_route). With splits > 1, split s sums its run of
+// cdiv(cdiv(K, 64), splits) stages into ws[s] (splits x M x N f32, 16-byte aligned), then
+// the reduction adds the partials in split order into c; with splits == 1, ws is unused.
+// Needs 2 <= depth <= 8 within 227 KB of shared memory, and no split left empty. Returns
+// the cudaError_t of the launches: cudaErrorInvalidValue, before any work, for what it
+// does not take.
+int tl2_wgmma_staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
+                     int bm, int bn, int depth, int splits, int rhs_nk, int raster_nm,
+                     int out_f32, void* stream) {
+  return staged(a, b, c, ws, m, n, k, bm, bn, depth, splits, rhs_nk, raster_nm, out_f32,
+                stream);
+}
+
+// The split-K reduction alone (what tl2_wgmma_staged launches after a split): c (M x N,
+// bf16 or f32) = the sum over s of ws[s] in split order, cast once.
+int tl2_splitk_reduce(const void* ws, void* c, int m, int n, int splits, int out_f32,
+                      void* stream) {
+  const long long mn = (long long)m * n;
+  if (m <= 0 || n <= 0 || !reduce_ok(ws, c, mn, splits)) return (int)cudaErrorInvalidValue;
+  return (int)launch_reduce(static_cast<const float*>(ws), c, mn, splits, out_f32,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory of one CTA for a (bm, bn) tile with a ring of `stages`; mirrors
+// config.wgmma_smem_bytes.
+int tl2_wgmma_smem_bytes(int bm, int bn, int stages) { return smem_bytes(bm, bn, stages); }
 
 // 1 where the launch takes this kernel, 0 where it takes tl2_matmul.cu's mma.sync body;
 // mirrors ops/matmul.py::launch_route.
 int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                     const void* b) {
   return route_ok(m, n, k, bm, bn, bk, rhs_nk, a, b);
+}
+
+// 1 where a staged launch takes this kernel (tl2_wgmma_staged), 0 where it takes
+// tl2_staged.cu's mma.sync body; mirrors ops/pipelined.py::staged_route.
+int tl2_staged_route(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
+                     const void* b) {
+  return staged_route_ok(m, n, k, bm, bn, rhs_nk, a, b);
 }
 
 }  // extern "C"

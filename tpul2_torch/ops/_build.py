@@ -34,6 +34,9 @@ _LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
 #: C signature of tl2_staged: a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm, out_f32,
 #: stream.
 _STAGED_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#: C signature of tl2_wgmma_staged: a, b, c, ws, m, n, k, bm, bn, depth, splits, rhs_nk,
+#: raster_nm, out_f32, stream.
+_RING_STAGED_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 #: cudaError_t codes of a launch refused before any work runs: invalid value (a shape,
 #: tile or alignment the launcher does not take, or more dynamic shared memory than the
@@ -125,15 +128,23 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tl2_staged.argtypes = _STAGED_ARGTYPES
     lib.tl2_staged.restype = ctypes.c_int
+    lib.tl2_wgmma_staged.argtypes = _RING_STAGED_ARGTYPES
+    lib.tl2_wgmma_staged.restype = ctypes.c_int
+    # ws, c, m, n, splits, out_f32, stream
+    lib.tl2_splitk_reduce.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    lib.tl2_splitk_reduce.restype = ctypes.c_int
     lib.tl2_smem_bytes.argtypes = [_I, _I]
     lib.tl2_smem_bytes.restype = ctypes.c_int
     lib.tl2_staged_smem_bytes.argtypes = [_I, _I, _I]
     lib.tl2_staged_smem_bytes.restype = ctypes.c_int
     lib.tl2_kstep.argtypes = []
     lib.tl2_kstep.restype = ctypes.c_int
-    lib.tl2_wgmma_smem_bytes.argtypes = [_I, _I]
+    lib.tl2_wgmma_smem_bytes.argtypes = [_I, _I, _I]
     lib.tl2_wgmma_smem_bytes.restype = ctypes.c_int
     # m, n, k, bm, bn, bk, rhs_nk, a, b
     lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P]
     lib.tl2_wgmma_route.restype = ctypes.c_int
+    # m, n, k, bm, bn, rhs_nk, a, b
+    lib.tl2_staged_route.argtypes = [_I, _I, _I, _I, _I, _I, _P, _P]
+    lib.tl2_staged_route.restype = ctypes.c_int
     return lib

@@ -22,7 +22,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from tpul2_torch.config import WGMMA_TILES, KernelConfig
+# the wgmma body's ring constants and shared-memory model, read through this module too
+from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
+                                KernelConfig, wgmma_smem_bytes)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.utils.padding import cdiv
 
@@ -47,12 +49,6 @@ LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_MMA_SYNC = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
 LAUNCHES_SINGLE_K_MMA_SYNC = 0
-
-#: The wgmma body (csrc/tl2_wgmma.cu): its tile edges are config.WGMMA_TILES; the K depth
-#: of one TMA ring stage (one 128-byte row of bf16, so a K carry's bk must be a multiple)
-#: and its ring depth.
-WGMMA_KSTAGE = 64
-WGMMA_STAGES = 4
 
 
 def matmul_reference(a: torch.Tensor, rhs: torch.Tensor, bk: int,
@@ -120,13 +116,6 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
         pre = acc if bias is None else acc + bias.float()
         tol = tol + 2.0 ** -7 * ACTIVATIONS[activation](pre).abs()
     return tol
-
-
-def wgmma_smem_bytes(bm: int, bn: int) -> int:
-    """Shared memory of one wgmma CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
-    ring to the swizzle period, WGMMA_STAGES stages of (bm + bn) rows of 128 bytes, and a
-    full and an empty mbarrier per stage."""
-    return 1024 + WGMMA_STAGES * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * WGMMA_STAGES * 8
 
 
 def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
