@@ -52,9 +52,13 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      mma.sync
   tune  `python -m tpul2_torch.autotune` (its main()) for each tuning shape (64x8192x8192,
      64x64x12288) f32 into runs/chip_smoke/tunedb_h100.json, with few candidates and
-     rounds: every candidate must launch, at least two staged candidates must be timed,
-     every staged candidate must be a ring tile and launch on the ring (never mma.sync),
-     64x64x12288's must split K, and the entry must be on disk
+     rounds, ranked by device time (GraphTimer): each candidate's device and end-to-end
+     time per call is printed; every candidate must launch and capture, at least two
+     staged candidates must be timed, every staged candidate must be a ring tile and
+     launch on the ring (never mma.sync), 64x64x12288's must split K, the winner must be
+     torch_matmul or beat it by more than 10%, torch_matmul and cublas_nn (one library
+     call) must time within 10% of each other over 10 rounds in turns, and the entry must
+     be on disk with timing_rev 2
   tuned dispatch  a DB holding each tuning shape's fastest staged candidate for both
      families (runs/chip_smoke/tunedb_staged.json, via TPUL2_TORCH_TUNEDB), then
      eval_one_shape_torch's main() for both: every gate must pass with 0 guard hits, and
@@ -74,6 +78,23 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      against the 32x64 mma.sync tile it used to pick and the 64x128 wgmma tile at
      64x8192x8192, through the wrapper in turns and alone; and for each bring-up shape
      the entry point's time back to back and its host time per call
+  lt-autotune  the cuBLASLt auto-tuning baseline's search (csrc/tl2_lt_autotune.cu) at
+     4096^3 and 64x8192x8192 per layout: the algos kept and skipped, the winner, its time
+     alone beside torch.matmul's; exact on 0/1 inputs against torch.mm, the winner and
+     every algo kept
+  sentinel  the dispatch sentinel's f32 output and bias + gelu at 4096^3, the old path (f32
+     copies, an f32 GEMM) against the new one (one bf16-in, f32-out library GEMM), timed
+     in turns; exact on 0/1 inputs, the old against the new
+  server slice  eval_one_shape_torch's main() with --mode server --target_qps 100 at two
+     shapes in both families, through the heuristic (an empty DB): every gate must pass,
+     each result JSON must carry p50/p99 and target_qps, and the launch counters (zeroed
+     just before) must show the wgmma ring ran
+  committed-DB slice  scripts/run_suite_torch.py's main() over a few DEFAULT_SHAPES
+     through tpul2_torch/data/tunedb_h100.json (both families, offline): the CSV rows are
+     printed, with how many of the 20 shapes resolve to the sentinel in each family and
+     mode, and how many stored kernel configs the card refuses (resolved to the sentinel)
+Phases 2 to 5 and the server slice measure the heuristic: they run with
+TPUL2_TORCH_TUNEDB naming an empty file, so the committed DB does not steer them.
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -437,6 +458,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json_out", default=None, help="also write the detailed record here")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on the card", file=sys.stderr)
@@ -449,6 +471,7 @@ def main(argv=None) -> int:
     from tpul2_torch.config import (PIPELINE_DEPTHS, SMEM_LIMIT, KernelConfig,
                                     candidate_configs, heuristic_config)
     from tpul2_torch.dispatch import candidate_fn, resolve_config
+    from tpul2_torch.harness import bench_utils as bu
     from tpul2_torch.ops import baselines
     from tpul2_torch.ops import batched as bmm
     from tpul2_torch.ops import matmul as mm
@@ -521,6 +544,16 @@ def main(argv=None) -> int:
         record["ptxas"] = regs
 
     max_err = {key: 0.0 for key in counters()}
+
+    def pin_empty_db():
+        """Resolve through the heuristic: TPUL2_TORCH_TUNEDB names a file that is not
+        there, so the committed DB does not steer the phases that measure the heuristic."""
+        path = repo / "runs" / "chip_smoke" / "tunedb_empty.json"
+        path.unlink(missing_ok=True)
+        os.environ[db_mod.ENV_VAR] = str(path)
+        db_mod.reset_default_db()
+
+    pin_empty_db()
 
     with phase("2 kernel vs plain"):
         gen = torch.Generator(device="cuda")
@@ -734,14 +767,39 @@ def main(argv=None) -> int:
             if rc != 0:
                 raise AssertionError(f"the tuner exited {rc} at {tm}x{tn}x{tk}")
             res = json.loads(printed.getvalue())
-            print(f"  {tm}x{tn}x{tk}:")
+            print(f"  {tm}x{tn}x{tk} (device ms by CUDA graphs, then end to end):")
             for d in res["medians_ms"]:
                 c = d["config"]
                 name = (f"vendor {c['vendor_variant']}" if c["use_vendor"] else
                         f"{c['bm']}x{c['bn']} bk={c['bk']} {c['grid_order']} "
                         f"{c['rhs_layout']} depth={c['pipeline_depth']}")
-                print(f"    {name}: stage1 {d['stage1_ms']:.5f} ms, stage2 "
-                      + ("-" if d["stage2_ms"] is None else f"{d['stage2_ms']:.5f} ms"))
+                print(f"    {name}: device stage1 {d['stage1_ms']:.5f} ms, stage2 "
+                      + ("-" if d["stage2_ms"] is None else f"{d['stage2_ms']:.5f} ms")
+                      + f"; end to end {d['e2e_ms']:.5f} ms")
+            if res["clock"] != "cuda_graph" or res["refused"]:
+                raise AssertionError(f"clock {res['clock']}, refused {res['refused']}")
+            best = KernelConfig(**res["best"])
+            if not (best.use_vendor and best.vendor_variant == "torch_matmul") \
+                    and res["speedup"] <= 1.10:
+                raise AssertionError(f"{best} stored within the 10% margin of torch_matmul")
+            # torch_matmul and cublas_nn are one library call: their device times, in turns
+            # over fresh inputs, must agree within the tuner's 10% margin
+            data = bu.fresh_inputs(np.random.default_rng(7), tm, tn, tk)
+            same = {v: bu.GraphTimer(lambda a, b, b_t, v=v: baselines.vendor_product(
+                v, a, b, b_t, torch.bfloat16), data, bu.bound_ms(tm, tn, tk))
+                for v in ("torch_matmul", "cublas_nn")}
+            same_ms = {v: [] for v in same}
+            for r in range(10):
+                bu.load_inputs(data, bu.fresh_inputs(np.random.default_rng(r), tm, tn, tk))
+                for v in (("torch_matmul", "cublas_nn") if r % 2 else
+                          ("cublas_nn", "torch_matmul")):
+                    same_ms[v].append(same[v].time_ms())
+            ratio = float(np.median(same_ms["cublas_nn"]) / np.median(same_ms["torch_matmul"]))
+            print(f"    cublas_nn / torch_matmul device time {ratio:.4f} over 10 rounds in "
+                  "turns (one library call: must be within 10%)")
+            if abs(ratio - 1.0) > 0.10:
+                raise AssertionError("two timings of one library call differ by > 10%")
+            del data, same
             print(f"    winner: {json.dumps(res['best'])}, {res['best_tflops']:.2f} TFLOP/s, "
                   f"{res['speedup']:.4f}x vs torch_matmul "
                   f"({res['torch_matmul_tflops']:.2f} TFLOP/s); launches "
@@ -760,9 +818,15 @@ def main(argv=None) -> int:
             if ((tm, tn, tk) != TUNE_SHAPE) != (tune_launches["staged_split"] > 0):
                 raise AssertionError(f"split launches {tune_launches['staged_split']} at "
                                      f"{tm}x{tn}x{tk}")
-            stored = db_mod.TuneDB(path=db_path).load().get(tm, tn, tk, "float32")
-            if stored != KernelConfig(**res["best"]):
-                raise AssertionError(f"the winner is not on disk: {stored}")
+            entry = db_mod.TuneDB(path=db_path).load().get_entry(tm, tn, tk, "float32")
+            if entry is None or KernelConfig(**entry["config"]) != KernelConfig(**res["best"]):
+                raise AssertionError(f"the winner is not on disk: {entry}")
+            if entry["timing_rev"] != 2 or set(entry["e2e_ms"]) != {"best", "torch_matmul"}:
+                raise AssertionError(f"the entry lacks timing_rev 2 or its end-to-end "
+                                     f"times: {entry}")
+            print(f"    stored: timing_rev {entry['timing_rev']}, device ms "
+                  f"{json.dumps(entry['device_ms'])}, end-to-end ms "
+                  f"{json.dumps(entry['e2e_ms'])}, {entry['nvidia_smi']}")
             tuned[tm, tn, tk] = res
             record["tune"].append({**res, "launches": tune_launches})
 
@@ -807,8 +871,7 @@ def main(argv=None) -> int:
                 raise AssertionError("the tuned dispatch path did not launch the staged ring"
                                      + (" with a split" if split else " without a split"))
             record["tuned_dispatch_launches"][f"{tm}x{tn}x{tk}"] = path_launches
-        os.environ.pop(db_mod.ENV_VAR)
-        db_mod.reset_default_db()  # phase 5 and later resolve without a DB again
+        pin_empty_db()  # phase 5 and later resolve through the heuristic again
     # the launches of each staged body on its main paths: the staged entry points of
     # phase 3 and the tuned dispatch path
     for key in ("staged_ring", "staged_mma_sync", "staged_split"):
@@ -1124,6 +1187,154 @@ def main(argv=None) -> int:
             print(f"  {m}x{n}x{k} {acc} cfg {cfg.bm}x{cfg.bn} bk={cfg.bk}: " + json.dumps(t))
             record["shapes"].append({"mnk": [m, n, k], "acc": acc, **t})
     record["kernels"] = kernels
+
+    with phase("lt-autotune"):
+        from tpul2_torch.ops import lt_autotune
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(6)
+        record["lt_autotune"] = []
+        for m, n, k in ((4096, 4096, 4096), TUNE_SHAPE):
+            a, b = _inputs(torch, gen, (m, k), True), _inputs(torch, gen, (k, n), True)
+            b_t = b.t().contiguous()
+            want = torch.mm(a, b)
+            for layout, rhs in (("nn", b), ("tn", b_t)):
+                found = lt_autotune.search(m, n, k, layout)
+                for algo in [-1] + list(range(found.n_algos)):
+                    got = lt_autotune.lt_matmul(a, rhs, layout, algo=algo)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"cuBLASLt algo {algo} at {m}x{n}x{k} {layout} "
+                                             "is not exact on 0/1 inputs")
+                row = {"mnk": [m, n, k], "layout": layout, "n_algos": found.n_algos,
+                       "n_skipped": found.n_skipped, "best": found.best,
+                       "best_median_ms": found.medians_ms[found.best],
+                       "medians_ms": found.medians_ms, "search_s": found.seconds,
+                       "alone_ms": host_time.alone_ms(torch, lambda rhs=rhs, layout=layout: (
+                           lambda: lt_autotune.lt_matmul(a, rhs, layout))),
+                       "torch_matmul_alone_ms": host_time.alone_ms(
+                           torch, lambda: (lambda: torch.matmul(a, b)))}
+                record["lt_autotune"].append(row)
+                print(f"  {m}x{n}x{k} {layout}: {found.n_algos} algos kept, {found.n_skipped} "
+                      f"skipped, winner {found.best} ({row['best_median_ms']:.5f} ms in the "
+                      f"search; alone {row['alone_ms']:.5f} ms, torch.matmul alone "
+                      f"{row['torch_matmul_alone_ms']:.5f}); every algo exact on 0/1 inputs")
+
+    with phase("sentinel"):
+        m = n = k = 4096
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        b_t = b.t().contiguous()
+        bias = torch.randn((n,), generator=gen, device="cuda")
+        gelu = mm.ACTIVATIONS["gelu"]
+
+        def old_f32():  # the sentinel before this change: f32 copies, an f32 GEMM
+            return torch.matmul(a.float(), b.float())
+
+        paths = {
+            "f32_out": {"old": old_f32,
+                        "new": lambda: baselines.vendor_product("torch_matmul", a, b, b_t,
+                                                                torch.float32)},
+            "bias_gelu": {"old": lambda: gelu(old_f32() + bias),
+                          "new": lambda: dispatch.matmul(
+                              a, b, config=KernelConfig.vendor(), bias=bias,
+                              activation="gelu", out_dtype=torch.float32)}}
+        record["sentinel"] = {}
+        for name, fns in paths.items():
+            turns = [_time_ms(torch, fns[key], reps=10) for key in ("old", "new", "new", "old")]
+            record["sentinel"][name] = {"turns_ms": turns, "old_ms": (turns[0] + turns[3]) / 2,
+                                        "new_ms": (turns[1] + turns[2]) / 2}
+            print(f"  {name} at 4096^3 in turns (old, new, new, old) ms: {json.dumps(turns)}")
+        za, zb = _inputs(torch, gen, (m, k), True), _inputs(torch, gen, (k, n), True)
+        zbias = torch.randint(0, 2, (n,), generator=gen, device="cuda").float()
+        old = torch.relu(za.float() @ zb.float() + zbias)
+        new = dispatch.matmul(za, zb, config=KernelConfig.vendor(), bias=zbias,
+                              activation="relu", out_dtype=torch.float32)
+        if not torch.equal(old, new) or not torch.equal(
+                baselines.vendor_product("cublas_tn", za, zb, zb.t().contiguous(),
+                                         torch.float32), za.float() @ zb.float()):
+            raise AssertionError("the bf16-in, f32-out sentinel is not exact on 0/1 inputs")
+        print("  new path exact on 0/1 inputs against the old (f32 out, bias + relu)")
+        del a, b, b_t, za, zb, old, new
+
+    with phase("server slice"):
+        record["server_slice"] = []
+        zero_counters()
+        for (m, n, k) in ((64, 8192, 8192), (1000, 1000, 1000)):
+            for acc in ("float32", "bfloat16"):
+                base = repo / "runs" / "chip_smoke" / f"server_{m}x{n}x{k}_{acc}"
+                rc = eval_mod.main(["--mnk", str(m), str(n), str(k), "--acc", acc,
+                                    "--mode", "server", "--target_qps", "100",
+                                    "--warmup_seconds", "0.5", "--benchmark_seconds", "1.5",
+                                    "--correctness_seconds", "20", "--correctness_iters",
+                                    "3", "--base_dir", str(base)])
+                gate = json.loads((base / "zero_one_correctness_check_result.json").read_text())
+                res = json.loads((base / "benchmark_result_torch_matmul.json").read_text())
+                if rc != 0 or not gate["pass"] or gate["mode"] != "server":
+                    raise AssertionError(f"server slice failed at {m}x{n}x{k} {acc}")
+                if res["mode"] != "server" or res["target_qps"] != 100.0 or not all(
+                        key in res[pf] for pf in ("torch_matmul", "tpul2_torch")
+                        for key in ("p50_ms", "p99_ms")):
+                    raise AssertionError(f"server result lacks p50/p99 or target_qps: {res}")
+                row = json.loads((base / "speedup_row.json").read_text())
+                record["server_slice"].append({
+                    "mnk": [m, n, k], "acc": acc, "speedups": row,
+                    "candidate_p50_p99_ms": [res["tpul2_torch"]["p50_ms"],
+                                             res["tpul2_torch"]["p99_ms"]],
+                    "torch_matmul_p50_p99_ms": [res["torch_matmul"]["p50_ms"],
+                                                res["torch_matmul"]["p99_ms"]],
+                    "iters": res["tpul2_torch"]["iters"]})
+                print(f"  {m}x{n}x{k} {acc} server: " + json.dumps(record["server_slice"][-1]))
+        server_launches = counters()
+        print("  launches " + json.dumps(server_launches))
+        record["server_slice_launches"] = server_launches
+        if server_launches["multi_k_wgmma"] <= 0 or server_launches["single_k_wgmma"] <= 0:
+            raise AssertionError("the server slice did not run the wgmma ring")
+
+    with phase("committed-DB slice"):
+        committed = repo / "tpul2_torch" / "data" / "tunedb_h100.json"
+        if not committed.exists():
+            raise AssertionError(f"{committed} is missing")
+        os.environ.pop(db_mod.ENV_VAR)
+        db_mod.reset_default_db()
+        db = db_mod.default_db()
+        if db.path != committed:
+            raise AssertionError(f"the default DB is {db.path}, not the committed one")
+        from tpul2_torch.harness.suite import DEFAULT_SHAPES
+        summary = {}
+        for acc in ("float32", "bfloat16"):
+            for mode in ("offline", "server"):
+                cfgs = [resolve_config(*sh, acc, mode=mode) for sh in DEFAULT_SHAPES]
+                entries = [db.get_entry(*sh, acc) for sh in DEFAULT_SHAPES]
+                stored = [None if e is None else KernelConfig(**(
+                    e.get("server", e) if mode == "server" else e)["config"])
+                    for e in entries]
+                summary[f"{acc}/{mode}"] = {
+                    "entries": sum(e is not None for e in entries),
+                    "server_entries": sum(e is not None and "server" in e for e in entries),
+                    "sentinel": sum(c.use_vendor for c in cfgs),
+                    "refused_by_card": sum(c.use_vendor and x is not None and not x.use_vendor
+                                           for c, x in zip(cfgs, stored))}
+        print("  of the 20 DEFAULT_SHAPES (resolved to the sentinel; stored kernel configs the "
+              "card refuses): " + json.dumps(summary))
+        record["committed_db"] = summary
+        if any(v["entries"] != len(DEFAULT_SHAPES) for v in summary.values()):
+            raise AssertionError("the committed DB does not cover DEFAULT_SHAPES")
+        suite_mod = _script(repo, "run_suite_torch")
+        out_dir = repo / "runs" / "chip_smoke" / "suite"
+        for f in out_dir.glob("*"):
+            f.unlink()
+        shapes = "64,8192,8192;64,64,12288;8192,128,64"
+        zero_counters()
+        for acc in ("float32", "bfloat16"):
+            rc = suite_mod.main(["eval", "--acc", acc, "--shapes", shapes, "--out_dir",
+                                 str(out_dir), "--warmup_seconds", "0.5",
+                                 "--benchmark_seconds", "1", "--correctness_iters", "2"])
+            if rc != 0:
+                raise AssertionError(f"run_suite_torch failed ({acc})")
+            text = (out_dir / f"tpul2_torch_h100_{acc}_speedup_offline.csv").read_text()
+            print("  " + text.replace("\n", "\n  ").rstrip())
+            record[f"committed_db_csv_{acc}"] = text
+        record["committed_db_launches"] = counters()
+        print("  launches " + json.dumps(record["committed_db_launches"]))
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported on the port's path")
     if args.json_out:

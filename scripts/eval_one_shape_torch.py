@@ -4,10 +4,13 @@
 The reference driver eval_one_file.sh on torch: wipe stale results, run the 0/1 gate and
 stop on failure, benchmark the candidate against every torch baseline in one shuffled
 loop, then write summary.md and speedup_row.json.  The gate runs first, as in the
-reference.
+reference.  ``--mode server`` runs the Poisson-arrival bench (``--target_qps`` required)
+on the candidate's server twin, which dispatches each shape's server-regime winner; its
+gate checks that twin.
 
 Usage:
   python scripts/eval_one_shape_torch.py --mnk 4096 4096 4096 --acc float32
+  python scripts/eval_one_shape_torch.py --mnk 64 8192 8192 --mode server --target_qps 100
   python scripts/eval_one_shape_torch.py --device cpu --mnk 96 160 200 --base_dir /tmp/e
 """
 
@@ -40,7 +43,14 @@ def parse_args(argv=None):
     ap.add_argument("--perf_funcs", nargs="*", default=None,
                     help="subset of baselines (default: all)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    return ap.parse_args(argv)
+    ap.add_argument("--mode", choices=["offline", "server"], default="offline")
+    ap.add_argument("--target_qps", type=float, default=None,
+                    help="mean request rate of the server mode's Poisson arrivals "
+                         "(required there, > 0)")
+    args = ap.parse_args(argv)
+    if args.mode == "server" and (args.target_qps is None or args.target_qps <= 0):
+        ap.error("--mode server needs --target_qps > 0")
+    return args
 
 
 def main(argv=None) -> int:
@@ -48,6 +58,7 @@ def main(argv=None) -> int:
     import torch
 
     from tpul2_torch.harness.bench_offline import benchmark_offline_all
+    from tpul2_torch.harness.bench_server import benchmark_server_all
     from tpul2_torch.harness.correctness import CANDIDATE, run_correctness_check
     from tpul2_torch.harness.summarize import speedup_row, summarize_results
     from tpul2_torch.ops.baselines import BASELINES
@@ -56,7 +67,7 @@ def main(argv=None) -> int:
         print("no CUDA device (pass --device cpu to run the plain versions)", file=sys.stderr)
         return 1
     m, n, k = args.mnk
-    base = Path(args.base_dir or REPO / "runs" / f"eval_{m}x{n}x{k}_{args.acc}")
+    base = Path(args.base_dir or REPO / "runs" / f"eval_{m}x{n}x{k}_{args.acc}_{args.mode}")
     base.mkdir(parents=True, exist_ok=True)
     for f in base.glob("benchmark_result_*.json"):  # stale results (ref :69)
         f.unlink()
@@ -65,7 +76,7 @@ def main(argv=None) -> int:
         res = run_correctness_check(
             m, n, k, acc=args.acc, iterations=args.correctness_iters,
             time_cap_s=args.correctness_seconds, seed=args.seed, device=args.device,
-            result_path=str(base / "zero_one_correctness_check_result.json"))
+            mode=args.mode, result_path=str(base / "zero_one_correctness_check_result.json"))
         if not res["pass"]:
             print(f"correctness check FAILED: {res.get('failure')}", file=sys.stderr)
             return 1
@@ -75,10 +86,13 @@ def main(argv=None) -> int:
 
     perf_funcs = args.perf_funcs or list(BASELINES)
     random.Random(args.seed).shuffle(perf_funcs)
-    results = benchmark_offline_all(
-        m, n, k, perf_funcs=perf_funcs, acc=args.acc,
-        warmup_seconds=args.warmup_seconds, benchmark_seconds=args.benchmark_seconds,
-        base_dir=str(base), seed=args.seed, device=args.device)
+    bench = dict(perf_funcs=perf_funcs, acc=args.acc, warmup_seconds=args.warmup_seconds,
+                 benchmark_seconds=args.benchmark_seconds, base_dir=str(base),
+                 seed=args.seed, device=args.device)
+    if args.mode == "server":
+        results = benchmark_server_all(m, n, k, args.target_qps, **bench)
+    else:
+        results = benchmark_offline_all(m, n, k, **bench)
     for func in perf_funcs:
         r = results[func]
         print(f"{func}: speedup {r['speedup']:.4f}x ({r[CANDIDATE]['tflops_median']:.2f} vs "

@@ -2,7 +2,7 @@
 
 The DB is held against the JAX package's (key format, neighbour pool) on the same file.
 The tuner runs the plain versions here (``device='cpu'``), with at most 4 tile candidates,
-one round and one call per candidate, into temporary DBs; ``tmp_default_db`` points the
+one round and timers of one and two calls per candidate, into temporary DBs; ``tmp_default_db`` points the
 default DB at a temporary file and drops it afterwards, so no test leaks a DB into another.
 """
 
@@ -30,7 +30,8 @@ torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 REPO = Path(__file__).resolve().parent.parent
 SHAPES = [(64, 8192, 8192), (4096, 4096, 4096), (8192, 128, 64), (1000, 1000, 1000),
           (32, 128, 4096), (1, 1, 1), (200, 300, 203)]
-TUNE = dict(max_candidates=4, stage1_rounds=1, stage2_rounds=1, finalists=2, calls=1)
+TUNE = dict(max_candidates=4, stage1_rounds=1, stage2_rounds=1, finalists=2,
+            calls=(1, 2))
 
 
 @pytest.fixture
@@ -337,12 +338,26 @@ def test_launch_screen_drops_only_refusals(tmp_path):
     db = db_mod.TuneDB(path=tmp_path / "db.json")
     # a staged seed on dims its blocks do not divide: the wrapper refuses it
     bad = KernelConfig(bm=64, bn=128, bk=128, pipeline_depth=2)
-    st = search._ShapeTuning(32, 128, 512, "float32", torch.bfloat16, "cpu", 4, 1, 1, 2, 1,
-                             0, [bad], False)
+    st = search._ShapeTuning(32, 128, 512, "float32", torch.bfloat16, "cpu", 4, 1, 1, 2,
+                             (1, 2), 0, [bad], False)
     assert [c for c, _ in st.refused] == [bad] and "divisible" in st.refused[0][1]
     assert len(st.launched) == st.n_candidates - 1
     st.finish(db, save=True)
     assert len(db) == 1
+
+
+def test_a_rival_must_beat_the_sentinel_by_the_margin():
+    """Within the 10% noise margin the torch_matmul sentinel stays the winner, so noise
+    never picks one library call, or a kernel, over it; beyond it the rival wins."""
+    st = search._ShapeTuning(32, 128, 256, "float32", torch.bfloat16, "cpu", **TUNE)
+    rival = next(i for i, (c, _, _) in enumerate(st.launched) if not c.use_vendor)
+    st.med2 = {st.ref_i: 1.0, rival: 1.0 / 1.05}
+    res = st.finish(None, save=False)
+    assert res.best == st.launched[st.ref_i][0] and res.speedup == 1.0
+    st.med2 = {st.ref_i: 1.0, rival: 1.0 / 1.2}
+    res = st.finish(None, save=False)
+    assert res.best == st.launched[rival][0] and res.speedup == pytest.approx(1.2)
+    assert set(res.device_ms) == set(res.e2e_ms) == {"best", "torch_matmul"}
 
 
 def test_tune_many_skips_tuned_shapes(tmp_path):

@@ -15,6 +15,7 @@ import torch
 import tpul2.config as jcfg
 from tpul2.ops.batched import pallas_batched_matmul
 from tpul2_torch import dispatch
+from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops import batched as bmm
 from tpul2_torch.ops.matmul import allowed_error
@@ -22,6 +23,16 @@ from tpul2_torch.ops.matmul import allowed_error
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
 BATCH = 3
+
+
+@pytest.fixture(autouse=True)
+def empty_tunedb(tmp_path, monkeypatch):
+    """These tests hold the heuristic: TPUL2_TORCH_TUNEDB names a file that is not there,
+    so no DB, the committed one included, steers their resolution."""
+    monkeypatch.setenv(db_mod.ENV_VAR, str(tmp_path / "empty_tunedb.json"))
+    db_mod.reset_default_db()
+    yield
+    db_mod.reset_default_db()
 
 
 def _inputs(seed, shape_a, shape_b, zero_one):

@@ -19,12 +19,23 @@ import torch
 import tpul2
 import tpul2.config as jcfg
 from tpul2_torch import dispatch
+from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops.baselines import BASELINES, VENDOR_VARIANTS
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def empty_tunedb(tmp_path, monkeypatch):
+    """These tests hold the heuristic: TPUL2_TORCH_TUNEDB names a file that is not there,
+    so no DB, the committed one included, steers their resolution."""
+    monkeypatch.setenv(db_mod.ENV_VAR, str(tmp_path / "empty_tunedb.json"))
+    db_mod.reset_default_db()
+    yield
+    db_mod.reset_default_db()
 
 
 def _01(seed, m, n, k):
@@ -135,8 +146,9 @@ def test_port_imports_no_jax():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import tpul2_torch, "
             "tpul2_torch.dispatch, tpul2_torch.ops.matmul, tpul2_torch.ops.batched, "
             "tpul2_torch.ops.pipelined, tpul2_torch.ops._build, "
-            "tpul2_torch.harness.correctness, "
+            "tpul2_torch.harness.correctness, tpul2_torch.harness.bench_server, "
             "tpul2_torch.harness.bench_offline, tpul2_torch.harness.summarize, "
+            "tpul2_torch.harness.suite, tpul2_torch.ops.lt_autotune, "
             "tpul2_torch.autotune, tpul2_torch.autotune.db, tpul2_torch.autotune.search, "
             "tpul2_torch.autotune.transfer, tpul2_torch.autotune.__main__, "
             "tpul2_torch.utils.platform; print('jax' in sys.modules)")
@@ -146,9 +158,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    for path in list((REPO / "tpul2_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                               REPO / "scripts" /
-                                                               "eval_one_shape_torch.py"]:
+    for path in list((REPO / "tpul2_torch").rglob("*.py")) + [
+            REPO / "chip_smoke.py", REPO / "scripts" / "eval_one_shape_torch.py",
+            REPO / "scripts" / "run_suite_torch.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from tpul2." not in text and "import tpul2\n" not in text, path

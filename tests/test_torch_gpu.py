@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.harness import correctness as corr
 from tpul2_torch.ops import batched as bmm
@@ -24,6 +25,16 @@ torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 pytestmark = pytest.mark.gpu
 
 M, N, K = 100, 200, 300
+
+
+@pytest.fixture(autouse=True)
+def empty_tunedb(tmp_path, monkeypatch):
+    """These tests hold the heuristic: TPUL2_TORCH_TUNEDB names a file that is not there,
+    so no DB, the committed one included, steers their resolution."""
+    monkeypatch.setenv(db_mod.ENV_VAR, str(tmp_path / "empty_tunedb.json"))
+    db_mod.reset_default_db()
+    yield
+    db_mod.reset_default_db()
 
 
 @pytest.fixture
@@ -375,3 +386,46 @@ def test_cpu_and_cuda_tensors_do_not_mix(cuda):
     a = _01((64, 64), 7).to(cuda)
     with pytest.raises(ValueError, match="one device"):
         mm.cuda_matmul(a, _01((64, 64), 8), KernelConfig(bm=32, bn=32, bk=64))
+
+
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cublaslt_search_is_exact_on_01(cuda, layout, out_dtype):
+    """Every algo the cuBLASLt search keeps, and its winner, against torch.mm on 0/1
+    inputs (sums of up to 1024 ones: exact in f32, and at most 256 where bf16 rounds)."""
+    from tpul2_torch.ops import lt_autotune
+    m, n, k = 192, 320, 1024 if out_dtype == torch.float32 else 256
+    a, b = _01((m, k), 31).to(cuda), _01((k, n), 32).to(cuda)
+    rhs = b.t().contiguous() if layout == "tn" else b
+    found = lt_autotune.search(m, n, k, layout, out_dtype)
+    assert found.n_algos >= 1 and 0 <= found.best < found.n_algos
+    assert len(found.medians_ms) == found.n_algos and min(found.medians_ms) > 0
+    want = torch.mm(a.float(), b.float()).to(out_dtype)
+    for algo in [-1] + list(range(found.n_algos)):
+        got = lt_autotune.lt_matmul(a, rhs, layout, out_dtype, algo=algo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), algo
+
+
+def test_graph_timer_agrees_with_a_graph_of_direct_calls(cuda):
+    """The GraphTimer's per-call time at a host-bound shape against the device time of a
+    CUDA graph of 20 calls (scripts/host_time_torch.py's alone_ms): within 25%, and not
+    below the bound it is clamped at."""
+    import importlib.util
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpul2_torch.harness import bench_utils as bu
+    spec = importlib.util.spec_from_file_location(
+        "host_time_torch", Path(__file__).resolve().parent.parent / "scripts" /
+        "host_time_torch.py")
+    host_time = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(host_time)
+    m, n, k = 64, 64, 4096
+    data = bu.fresh_inputs(np.random.default_rng(0), m, n, k)
+    timer = bu.GraphTimer(lambda a, b, b_t: torch.matmul(a, b), data, bu.bound_ms(m, n, k))
+    graph_ms = float(np.median([timer.time_ms() for _ in range(9)]))
+    alone = host_time.alone_ms(torch, lambda: (lambda: torch.matmul(data[0], data[1])))
+    assert abs(graph_ms / alone - 1.0) < 0.25, (graph_ms, alone)
+    assert graph_ms >= bu.bound_ms(m, n, k)

@@ -11,6 +11,7 @@ import torch
 
 import tpul2.harness.correctness as jcorr
 import tpul2.utils.padding as jpad
+from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.harness import bench_utils as bu
 from tpul2_torch.harness import correctness as corr
 from tpul2_torch.harness.bench_offline import benchmark_offline_all
@@ -20,6 +21,16 @@ from tpul2_torch.utils import padding, platform
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def empty_tunedb(tmp_path, monkeypatch):
+    """These tests hold the heuristic: TPUL2_TORCH_TUNEDB names a file that is not there,
+    so no DB, the committed one included, steers their resolution."""
+    monkeypatch.setenv(db_mod.ENV_VAR, str(tmp_path / "empty_tunedb.json"))
+    db_mod.reset_default_db()
+    yield
+    db_mod.reset_default_db()
 
 
 def _load_eval():
@@ -46,7 +57,8 @@ def test_eval_one_shape_end_to_end_on_cpu(tmp_path, acc):
     row = json.loads((tmp_path / "speedup_row.json").read_text())
     assert row["mnk"] == "96x160x200"
     assert row["cuBLAS-max"] == min(row["cuBLAS-nn"], row["cuBLAS-tn"])
-    assert len(list(tmp_path.glob("benchmark_result_*.json"))) == 5
+    assert "| cuBLASLt-auto-tuning-max |" in summary
+    assert len(list(tmp_path.glob("benchmark_result_*.json"))) == 7
 
 
 def test_eval_refuses_cuda_without_a_card(tmp_path):
@@ -96,7 +108,9 @@ def test_gate_passes_a_correct_candidate_and_checks_baselines():
                                      device="cpu")
     assert res["pass"], res.get("failure")
     assert set(res["stats"]["avg_max_diff"]) == {"torch_matmul", "cublas_nn", "cublas_tn",
-                                                 "cublaslt_nn", "cublaslt_tn", corr.CANDIDATE}
+                                                 "cublaslt_nn", "cublaslt_tn",
+                                                 "cublaslt_autotuned_nn",
+                                                 "cublaslt_autotuned_tn", corr.CANDIDATE}
     assert res["variants"]["guard_hits"] == 0
 
 

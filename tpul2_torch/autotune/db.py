@@ -139,14 +139,49 @@ class TuneDB:
 
     def put(self, m: int, n: int, k: int, config: KernelConfig, tflops: float,
             acc: str = "float32", in_dtype="bfloat16", extra: Optional[dict] = None) -> None:
+        """Store the shape's (offline) winner.  A ``server`` sub-entry already stored for
+        the shape is kept: the two regimes are measured apart and never clobber each
+        other."""
         self._ensure()
         entry = {"config": dataclasses.asdict(config), "tflops": float(tflops)}
         if extra:
             entry.update(extra)
+        key = _key(m, n, k, acc, in_dtype)
         with self._lock:
-            self._entries[_key(m, n, k, acc, in_dtype)] = entry
+            old = self._entries.get(key)
+            if old is not None and "server" in old:
+                entry["server"] = old["server"]
+            self._entries[key] = entry
             self._octave_index = None
             self.version += 1
+
+    def put_server(self, m: int, n: int, k: int, config: KernelConfig,
+                   acc: str = "float32", in_dtype="bfloat16",
+                   extra: Optional[dict] = None) -> None:
+        """Store the shape's server-regime (Poisson-arrival) winner as the ``server``
+        sub-entry of its entry, the layout of ``tpul2/autotune/db.py:put_server``.
+
+        ``dispatch.resolve_config(mode='server')`` prefers it; everything else reads the
+        entry's own config.  A shape with no entry gets one that holds the server config
+        with ``"measured": false`` and ``"scope": "server_only"``, so that no offline
+        number is made up for it."""
+        self._ensure()
+        sub = {"config": dataclasses.asdict(config)}
+        if extra:
+            sub.update(extra)
+        with self._lock:
+            entry = self._entries.setdefault(
+                _key(m, n, k, acc, in_dtype),
+                {"config": dict(sub["config"]), "tflops": 0.0, "measured": False,
+                 "scope": "server_only"})
+            entry["server"] = sub
+            self._octave_index = None
+            self.version += 1
+
+    def get_server_entry(self, m: int, n: int, k: int, acc: str = "float32",
+                         in_dtype="bfloat16") -> Optional[dict]:
+        e = self.get_entry(m, n, k, acc, in_dtype)
+        return e.get("server") if e else None
 
     def __len__(self) -> int:
         self._ensure()

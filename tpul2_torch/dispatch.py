@@ -3,7 +3,9 @@
 Counterpart of ``tpul2/dispatch.py``.  ``matmul`` is the public call; the candidate
 entries ``cuda_l2_h100_f32`` / ``cuda_l2_h100_bf16`` keep the harness ABI
 ``(a, b, b_t)`` of the reference's ``cuda_l2_<dev>_<acc>`` symbols, plus ``out=`` so the
-correctness gate can hand the kernel caller memory framed by guard bands.
+correctness gate can hand the kernel caller memory framed by guard bands.  Their server
+twins ``cuda_l2_h100_{f32,bf16}_server`` dispatch each shape's server-regime winner
+(``mode='server'``); the server bench measures those.
 
 Eager torch has no trace cache, so the JAX side's jit/epoch machinery has no counterpart.
 A call resolves its config against the DB as it stands, through a memo of the decision per
@@ -30,9 +32,16 @@ from tpul2_torch.ops.pipelined import cuda_matmul_pipelined
 MEMO_LIMIT = 1 << 16
 
 
+MODES = ("offline", "server")
+
+
 def resolve_config(m: int, n: int, k: int, acc: str = "float32",
-                   in_dtype="bfloat16") -> KernelConfig:
+                   in_dtype="bfloat16", mode: str = "offline") -> KernelConfig:
     """Tuning DB -> nearest tuned neighbour -> heuristic (never fails).
+
+    ``mode='server'`` prefers the shape's server-regime winner (the ``server`` sub-entry,
+    ``TuneDB.put_server``), as ``tpul2/dispatch.py`` does: the offline and the
+    Poisson-arrival regimes can pick different winners.
 
     The DB is the H100's (``autotune.db.default_db``: ``TPUL2_TORCH_TUNEDB`` or
     ``tpul2_torch/data/tunedb_h100.json``); the JAX package's ``tunedb_v5e.json`` is TPU
@@ -43,14 +52,23 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
 
     The decision is kept in the DB's memo with the DB's version: a put or a load of the
     DB, ``reset_default_db()`` or a change of ``TPUL2_TORCH_TUNEDB`` (a new default DB)
-    makes it stale, so it is never served from entries that have changed."""
+    makes it stale, so it is never served from entries that have changed.  The memo keys
+    on the mode as well."""
     db = default_db()
-    key = (m, n, k, acc, in_dtype)
+    key = (m, n, k, acc, in_dtype, mode)
     version = db.version
     hit = db.memo.get(key)
     if hit is not None and hit[0] == version:
         return hit[1]
-    cfg = db.get(m, n, k, acc, in_dtype)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    cfg = None
+    if mode == "server":
+        sub = db.get_server_entry(m, n, k, acc, in_dtype)
+        if sub is not None:
+            cfg = KernelConfig(**sub["config"])
+    if cfg is None:
+        cfg = db.get(m, n, k, acc, in_dtype)
     if cfg is None:
         cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
     if cfg is None:
@@ -68,7 +86,8 @@ def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2
     """The nearest tuned neighbour's config adapted to (m, n, k), or None.
 
     Neighbours lie within ``max_ratio`` on every dimension; the nearest in log space
-    wins.  A sentinel winner carries over as it is; a kernel winner whose stored speedup
+    wins, every measured entry ahead of those stored with ``"measured": false`` (a
+    server-only shape carries no offline measurement), as in ``tpul2/dispatch.py``.  A sentinel winner carries over as it is; a kernel winner whose stored speedup
     over torch_matmul is below ``min_speedup`` (within noise) gives way to its family's
     sentinel; a kernel winner that does not re-fit onto the new shape
     (``transfer._adapt`` returns None when ``validate`` fails) gives way to the sentinel
@@ -77,8 +96,9 @@ def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2
     for (em, en, ek), entry in db.entries_near(m, n, k, acc, in_dtype, max_ratio=max_ratio):
         dist = sum(abs(math.log(max(e, q) / min(e, q)))
                    for e, q in ((em, m), (en, n), (ek, k)))
-        if best is None or dist < best[0]:
-            best = (dist, (em, en, ek), entry)
+        rank = (not entry.get("measured", True), dist)
+        if best is None or rank < best[0]:
+            best = (rank, (em, en, ek), entry)
     if best is None:
         return None
     _, src, entry = best
@@ -114,12 +134,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            bias: Optional[torch.Tensor] = None,
            activation: Optional[str] = None,
            b_t: Optional[torch.Tensor] = None,
-           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+           out: Optional[torch.Tensor] = None,
+           mode: str = "offline") -> torch.Tensor:
     """Tuned C = act(A @ B + bias).  a (M, K) and b (K, N) bf16, bias f32 (N,) or None.
 
     acc: 'float32' or 'bfloat16' accumulator family.  ``config`` overrides resolution.
     b_t: optional (N, K) RHS, read with no copy when the config's rhs_layout is 'nk'.
-    out: optional caller tensor the result is written into."""
+    out: optional caller tensor the result is written into.
+    mode: 'offline' or 'server', which regime's tuned winner to dispatch."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)} "
                          "(expected (M, K) @ (K, N))")
@@ -127,7 +149,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     n = b.shape[1]
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     if config is None:
-        config = resolve_config(m, n, k, acc)
+        config = resolve_config(m, n, k, acc, mode=mode)
     if config.use_vendor:
         return _vendor(a, b, b_t, config, bias, activation, out_dtype, out)
     if config.pipeline_depth >= 2:
@@ -162,9 +184,7 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if config is None:
         config = resolve_config(m, n, k, acc)
     if config.use_vendor:
-        baselines.pin_precision()  # the f32 sum, cast once (as vendor_product)
-        res = torch.matmul(a, b) if out_dtype == a.dtype else \
-            torch.matmul(a.float(), b.float()).to(out_dtype)
+        res = baselines.vendor_bmm(a, b, out_dtype)
         return res if out is None else out.copy_(res)
     config = dataclasses.replace(config, pipeline_depth=0)  # the batched kernel has no stages
     return cuda_batched_matmul(a, b, config=config, out_dtype=out_dtype, out=out)
@@ -180,8 +200,21 @@ def cuda_l2_h100_bf16(a, b, b_t, out=None):
     return matmul(a, b, acc="bfloat16", b_t=b_t, out=out)
 
 
-_CANDIDATES = {"float32": cuda_l2_h100_f32, "bfloat16": cuda_l2_h100_bf16}
+def cuda_l2_h100_f32_server(a, b, b_t, out=None):
+    """Server twin of ``cuda_l2_h100_f32``: each shape's server-regime winner."""
+    return matmul(a, b, acc="float32", b_t=b_t, out=out, mode="server")
 
 
-def candidate_fn(acc: str = "float32"):
-    return _CANDIDATES[acc]
+def cuda_l2_h100_bf16_server(a, b, b_t, out=None):
+    """Server twin of ``cuda_l2_h100_bf16``."""
+    return matmul(a, b, acc="bfloat16", b_t=b_t, out=out, mode="server")
+
+
+_CANDIDATES = {("float32", "offline"): cuda_l2_h100_f32,
+               ("bfloat16", "offline"): cuda_l2_h100_bf16,
+               ("float32", "server"): cuda_l2_h100_f32_server,
+               ("bfloat16", "server"): cuda_l2_h100_bf16_server}
+
+
+def candidate_fn(acc: str = "float32", mode: str = "offline"):
+    return _CANDIDATES[(acc, mode)]

@@ -88,17 +88,19 @@ def compare_with_cpu_f32(m: int, n: int, k: int,
                          time_cap_s: float = 60.0,
                          seed: int = 0,
                          funcs: Optional[dict] = None,
-                         device: str = "cuda") -> dict:
+                         device: str = "cuda",
+                         mode: str = "offline") -> dict:
     """Run candidate + baselines against the CPU f32 truth; return per-function stats.
 
     ``funcs`` maps names to ``f(a, b, b_t, out=None)``-style callables; the entry named
-    ``CANDIDATE`` writes through ``out=`` into a guarded buffer, the others return."""
+    ``CANDIDATE`` writes through ``out=`` into a guarded buffer, the others return.  The
+    default candidate is ``candidate_fn(acc, mode)``: in server mode, the server twin."""
     bound = EXACT_BOUND[_name(out_dtype)] if acc == "float32" else \
         min(EXACT_BOUND[_name(out_dtype)], EXACT_BOUND[acc])
     p = zero_one_density(k, out_dtype if acc == "float32" else acc)
     if funcs is None:
         funcs = dict(BASELINES)
-        funcs[CANDIDATE] = candidate_fn(acc)
+        funcs[CANDIDATE] = candidate_fn(acc, mode)
 
     rng = np.random.default_rng(seed)
     diffs = {name: [] for name in funcs}
@@ -148,14 +150,15 @@ def gate_kernel_variants(m: int, n: int, k: int,
                          acc: str = "float32",
                          seed: int = 0,
                          batch: int = 2,
-                         device: str = "cuda") -> dict:
+                         device: str = "cuda",
+                         mode: str = "offline") -> dict:
     """Exactness over every kernel entry point: plain NN, TN (b_t read directly), fused
     bias + relu (integer-exact on 0/1 inputs) and batched, each against the CPU f32 truth,
     each writing into a guarded buffer."""
     from tpul2_torch.ops.batched import cuda_batched_matmul
     from tpul2_torch.ops.matmul import cuda_matmul, cuda_matmul_fused, cuda_matmul_tn
 
-    cfg = config or resolve_config(m, n, k, acc)
+    cfg = config or resolve_config(m, n, k, acc, mode=mode)
     if cfg.use_vendor:
         return {"pass": True, "skipped": "vendor sentinel config"}
     rng = np.random.default_rng(seed)
@@ -201,7 +204,8 @@ def run_correctness_check(m: int, n: int, k: int,
                           seed: int = 0,
                           result_path: Optional[str] = None,
                           device: str = "cuda",
-                          funcs: Optional[dict] = None) -> dict:
+                          funcs: Optional[dict] = None,
+                          mode: str = "offline") -> dict:
     """Full gate: exactness + guard bands for the candidate, cross-checks of the
     baselines, and every kernel variant.
 
@@ -210,14 +214,15 @@ def run_correctness_check(m: int, n: int, k: int,
     Baselines are reported, not gated on."""
     stats = compare_with_cpu_f32(m, n, k, acc, iterations=iterations,
                                  time_cap_s=time_cap_s, seed=seed, funcs=funcs,
-                                 device=device)
-    variants = gate_kernel_variants(m, n, k, acc=acc, seed=seed, device=device)
+                                 device=device, mode=mode)
+    variants = gate_kernel_variants(m, n, k, acc=acc, seed=seed, device=device, mode=mode)
     cand_diff = stats["avg_max_diff"][CANDIDATE]
     cand_ok = cand_diff == 0.0 and not stats["nan_or_inf"][CANDIDATE]
     guard_ok = stats["guard_hits"] == 0 and variants.get("guard_hits", 0) == 0
     result = {
         "mnk": [m, n, k],
         "acc": acc,
+        "mode": mode,
         "in_dtype": "bfloat16",
         "device": device_name(device),
         "pass": bool(cand_ok and guard_ok and variants["pass"]),

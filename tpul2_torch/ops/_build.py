@@ -2,7 +2,8 @@
 
 The role of ``tpul2/native/build.py``.  Every ``csrc/*.cu`` of the package is compiled
 for ``sm_90a`` into an object of its own, all nvcc processes started together, then linked
-into ``tpul2_torch/_build/libtl2_kernels.so`` at first use and loaded with ctypes.  The
+into ``tpul2_torch/_build/libtl2_kernels.so`` at first use (with the toolkit's cuBLASLt,
+``LINK_FLAGS``, for the auto-tuning baseline's search) and loaded with ctypes.  The
 build is redone whenever a source or the flags change (a sha256 stamp beside the
 library).  Only sources in the repository are compiled; nothing is fetched.
 """
@@ -25,6 +26,8 @@ BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libtl2_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: csrc/tl2_lt_autotune.cu calls cuBLASLt (host code only; the card's toolkit has it).
+LINK_FLAGS = ["-lcublasLt"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each tl2_matmul and tl2_wgmma launcher: a, b, bias, c, batch, m, n, k,
@@ -37,6 +40,8 @@ _STAGED_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 #: C signature of tl2_wgmma_staged: a, b, c, ws, m, n, k, bm, bn, depth, splits, rhs_nk,
 #: raster_nm, out_f32, stream.
 _RING_STAGED_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#: The cuBLASLt search's shape key: m, n, k, rhs_nk, out_f32.
+_LT_KEY = [_I, _I, _I, _I, _I]
 
 #: cudaError_t codes of a launch refused before any work runs: invalid value (a shape,
 #: tile or alignment the launcher does not take, or more dynamic shared memory than the
@@ -61,7 +66,7 @@ def _sources() -> list:
 
 
 def _digest(sources: list) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -96,7 +101,7 @@ def _compile(sources: list, digest: str) -> tuple:
     t0 = time.perf_counter()
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                     for src, obj in zip(sources, objs)])
-    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs), *LINK_FLAGS]])
     seconds = time.perf_counter() - t0
     for obj in objs:
         obj.unlink()
@@ -147,4 +152,16 @@ def load_library() -> ctypes.CDLL:
     # m, n, k, bm, bn, rhs_nk, a, b
     lib.tl2_staged_route.argtypes = [_I, _I, _I, _I, _I, _I, _P, _P]
     lib.tl2_staged_route.restype = ctypes.c_int
+    _P_I, _P_F = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+    # key, ws_bytes, max_algos, *n_algos, *n_skipped
+    lib.tl2_lt_prepare.argtypes = _LT_KEY + [_LL, _I, _P_I, _P_I]
+    # key, a, b, c, ws, ws_bytes, order, n_order, ms, stream
+    lib.tl2_lt_time_round.argtypes = _LT_KEY + [_P, _P, _P, _P, _LL, _P_I, _I, _P_F, _P]
+    lib.tl2_lt_select.argtypes = _LT_KEY + [_I]
+    lib.tl2_lt_selected.argtypes = _LT_KEY
+    # key, algo, a, b, c, ws, ws_bytes, stream
+    lib.tl2_lt_matmul.argtypes = _LT_KEY + [_I, _P, _P, _P, _P, _LL, _P]
+    for name in ("tl2_lt_prepare", "tl2_lt_time_round", "tl2_lt_select", "tl2_lt_selected",
+                 "tl2_lt_matmul"):
+        getattr(lib, name).restype = ctypes.c_int
     return lib

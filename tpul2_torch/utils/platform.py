@@ -76,6 +76,15 @@ def device_name(device: str) -> str:
     return torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
 
 
+def check_device(device: str, what: str) -> None:
+    """Raise unless ``device`` is 'cuda' with a card present, or 'cpu' (asked for)."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device: {what}; pass device='cpu' (--device cpu) to "
+                           "run the plain versions on the host clock")
+
+
 def require_hopper() -> None:
     """Raise unless a CUDA card of capability 9.0 is present."""
     if not torch.cuda.is_available():
