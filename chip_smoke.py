@@ -93,6 +93,21 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      through tpul2_torch/data/tunedb_h100.json (both families, offline): the CSV rows are
      printed, with how many of the 20 shapes resolve to the sentinel in each family and
      mode, and how many stored kernel configs the card refuses (resolved to the sentinel)
+  model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
+     8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
+     block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
+     train_steps (1024 x 4096, batch 512); the block's output, loss and grads held
+     against the same block on a CPU copy (every GEMM on its plain version, the same
+     configs) and against the vendor config on the card (output rtol = atol = 0.05, loss
+     rtol 1e-3, each grad within 0.02 relative L2); the forward again through the
+     heuristic (an empty DB); the counters (zeroed before each counted part) must show
+     the 2-D wgmma single-K and multi-K bodies under the committed DB and the batched
+     single-K wgmma body under the heuristic; then forward and train-step ms under the
+     committed DB, the heuristic and the vendor config in turns, the model FLOPs' share
+     of peak (harness.profiling's table), one profiled forward and train step (device
+     busy time, idle share, top device ops) and a profiled train step through the
+     heuristic and the vendor config, and profile_shape at FFN-1's shape with a trace;
+     each kernel row's launches add the model path's
 Phases 2 to 5 and the server slice measure the heuristic: they run with
 TPUL2_TORCH_TUNEDB naming an empty file, so the committed DB does not steer them.
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
@@ -450,6 +465,226 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _model_flops(seq: int, d: int, d_ff: int, heads: int) -> float:
+    """FLOPs of the block's six products in one forward: QKV, the scores, the context,
+    the output projection and the two FFN products (2 per multiply-add)."""
+    hd = d // heads
+    return 2.0 * seq * (3 * d * d + d * d + 2 * d * d_ff) + 2 * 2.0 * heads * seq * seq * hd
+
+
+def _model_phase(torch, counters, zero_counters, use_db) -> tuple:
+    """Phase model: the flagship block (``tpul2_torch.models.entry``, d_model 1024, d_ff
+    4096, seq 512, 8 heads) served, trained and held against its plain versions; the FFN
+    trained.  ``use_db('committed' | 'heuristic')`` picks the DB the dispatch resolves
+    through.  Returns (record, launches of the model path's counted parts)."""
+    import numpy as np
+
+    from tpul2_torch.config import KernelConfig
+    from tpul2_torch.harness import profiling
+    from tpul2_torch.models import (BlockParams, block_forward, block_train_step,
+                                    block_value_and_grad, init_ffn)
+    from tpul2_torch.models import train_step as ffn_train_step
+    from tpul2_torch.models.entry import D_FF, D_MODEL, N_HEADS, SEQ, entry
+
+    lr = 5e-2
+    out_tol, grad_tol, loss_tol = 0.05, 0.02, 1e-3
+    rec = {"tolerances": {"output_rtol_atol": out_tol, "grad_rel_l2_per_tensor": grad_tol,
+                          "loss_rtol": loss_tol}}
+    launches = {key: 0 for key in counters()}
+
+    def count(fn):
+        """Run fn with the counters zeroed just before; add what it launched."""
+        zero_counters()
+        res = fn()
+        torch.cuda.synchronize()
+        got = counters()
+        for key, v in got.items():
+            launches[key] += v
+        return res, got
+
+    def finite(t, what):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"non-finite {what}")
+
+    # does the card's torch differentiate aten::mm.dtype (the sentinel's f32 output)?
+    probe = torch.ones((2, 2), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    try:
+        torch.mm(probe, probe.detach(), out_dtype=torch.float32).sum().backward()
+        rec["mm_dtype_has_derivative"] = True
+    except (RuntimeError, NotImplementedError) as e:
+        rec["mm_dtype_has_derivative"] = False
+        rec["mm_dtype_derivative_error"] = str(e).splitlines()[0]
+    print(f"  aten::mm.dtype derivative in torch {torch.__version__}: "
+          f"{rec['mm_dtype_has_derivative']} (the sentinel goes through GemmVjp either way)")
+
+    # (a) the committed DB: serve 8 forward requests, one at a time
+    use_db("committed")
+    fn, (params, x) = entry()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    y = torch.randn((SEQ, D_MODEL), generator=gen, device="cuda").to(torch.bfloat16)
+    fn(params, x)
+    torch.cuda.synchronize()
+
+    def serve():
+        times, out = [], None
+        for _ in range(8):
+            t0 = time.perf_counter()
+            out = fn(params, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+
+    (out, req_ms), served = count(serve)
+    if out.shape != (SEQ, D_MODEL) or out.dtype != torch.bfloat16:
+        raise AssertionError(f"forward gave {tuple(out.shape)} {out.dtype}")
+    finite(out, "forward output")
+    rec["serve"] = {"requests": 8, "ms": req_ms, "p50_ms": float(np.percentile(req_ms, 50)),
+                    "p99_ms": float(np.percentile(req_ms, 99)), "launches": served,
+                    "launches_per_forward": {k: v / 8 for k, v in served.items() if v}}
+    print(f"  (a) committed DB, 8 requests one at a time: p50 {rec['serve']['p50_ms']:.4f} ms, "
+          f"p99 {rec['serve']['p99_ms']:.4f} ms (host clock to the card's end); launches "
+          f"per forward {json.dumps(rec['serve']['launches_per_forward'])}")
+    if served["single_k_wgmma"] <= 0 or served["multi_k_wgmma"] <= 0:
+        raise AssertionError("the committed DB's forward did not run the 2-D wgmma single-K "
+                             f"and multi-K bodies: {served}")
+
+    # (b) training: 5 block steps on the fixed (x, y), then 3 FFN steps
+    def train_block():
+        p, losses = params, []
+        for _ in range(5):
+            p, loss = block_train_step(p, x, y, N_HEADS, lr=lr)
+            losses.append(float(loss))
+        return losses
+
+    losses, trained = count(train_block)
+    if not all(math.isfinite(v) for v in losses) or not losses[4] < losses[0]:
+        raise AssertionError(f"block loss not finite and falling: {losses}")
+    fgen = torch.Generator(device="cuda")
+    fgen.manual_seed(8)
+    ffn = init_ffn(fgen, D_MODEL, D_FF)
+    fx, fy = (torch.randn((512, D_MODEL), generator=fgen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+
+    def train_ffn():
+        p, fl = ffn, []
+        for _ in range(3):
+            p, loss = ffn_train_step(p, fx, fy, lr=lr)
+            fl.append(float(loss))
+        return fl
+
+    ffn_losses, ffn_trained = count(train_ffn)
+    if not all(math.isfinite(v) for v in ffn_losses):
+        raise AssertionError(f"FFN loss not finite: {ffn_losses}")
+    rec["train"] = {"lr": lr, "block_losses": losses, "block_launches": trained,
+                    "launches_per_block_step": {k: v / 5 for k, v in trained.items() if v},
+                    "ffn_losses": ffn_losses, "ffn_launches": ffn_trained}
+    print(f"  (b) 5 block steps (lr {lr}) loss {json.dumps(losses)}; launches per step "
+          f"{json.dumps(rec['train']['launches_per_block_step'])}; 3 FFN steps (1024 x 4096, "
+          f"batch 512) loss {json.dumps(ffn_losses)}")
+
+    # (c) held against the plain versions (a CPU copy: the same configs resolve there, and
+    # every wrapper runs its plain version) and against the vendor config on the card
+    def run(p, xx, yy, config=None):
+        out = block_forward(p, xx, N_HEADS, config=config)
+        loss, grads = block_value_and_grad(p, xx, yy, N_HEADS, config=config)
+        return out.float().cpu(), float(loss), [g.float().cpu() for g in grads]
+
+    card = run(params, x, y)
+    plain = run(BlockParams(*(p.cpu() for p in params)), x.cpu(), y.cpu())
+    vendor = run(params, x, y, KernelConfig.vendor())
+    rec["held"] = {}
+    for name, ref in (("plain", plain), ("vendor", vendor)):
+        out_err = (card[0] - ref[0]).abs()
+        bad = int((out_err > out_tol + out_tol * ref[0].abs()).sum())
+        rel = {f: ((g - r).norm() / r.norm()).item()
+               for f, g, r in zip(BlockParams._fields, card[2], ref[2])}
+        loss_rel = abs(card[1] - ref[1]) / abs(ref[1])
+        rec["held"][name] = {"output_max_abs_diff": out_err.max().item(),
+                             "output_beyond_tol": bad, "loss": [card[1], ref[1]],
+                             "loss_rel_diff": loss_rel, "grad_rel_l2": rel}
+        print(f"  (c) vs {name}: output max |diff| {out_err.max().item():.4g} ({bad} beyond "
+              f"rtol = atol = {out_tol}), loss {card[1]:.6f} vs {ref[1]:.6f}, grad relative L2 "
+              f"per tensor (<= {grad_tol}) {json.dumps({k: round(v, 6) for k, v in rel.items()})}")
+        if bad or loss_rel > loss_tol or max(rel.values()) > grad_tol:
+            raise AssertionError(f"the block on the card differs from the {name} version")
+        for g in card[2]:
+            finite(g, "grad")
+
+    # (d) the heuristic (an empty DB): the attention products on the batched kernel
+    use_db("heuristic")
+    heur_out, heur = count(lambda: fn(params, x))
+    heur_err = (heur_out.float().cpu() - plain[0]).abs()
+    rec["heuristic"] = {"launches_per_forward": {k: v for k, v in heur.items() if v},
+                        "output_max_abs_diff_vs_plain": heur_err.max().item()}
+    print(f"  (d) heuristic forward: launches {json.dumps(rec['heuristic']['launches_per_forward'])}"
+          f", output max |diff| vs plain {heur_err.max().item():.4g}")
+    if heur["batched_single_k_wgmma"] <= 0:
+        raise AssertionError(f"the heuristic's forward did not run the batched single-K wgmma "
+                             f"body: {heur}")
+    if int((heur_err > out_tol + out_tol * plain[0].abs()).sum()):
+        raise AssertionError("the heuristic's forward differs from the plain version")
+
+    # (f) forward and train-step ms under the committed DB, the heuristic and the vendor
+    # config, in turns (CUDA events over back-to-back calls); the model FLOPs' share of peak
+    fwd_flops = _model_flops(SEQ, D_MODEL, D_FF, N_HEADS)
+    kinds = ("committed", "heuristic", "vendor")
+    times = {k: {"forward_ms": [], "train_step_ms": []} for k in kinds}
+    for kind in kinds + kinds[::-1]:
+        use_db("heuristic" if kind == "heuristic" else "committed")
+        config = KernelConfig.vendor() if kind == "vendor" else None
+        times[kind]["forward_ms"].append(_time_ms(
+            torch, lambda: block_forward(params, x, N_HEADS, config=config), reps=10))
+        times[kind]["train_step_ms"].append(_time_ms(
+            torch, lambda: block_train_step(params, x, y, N_HEADS, lr=lr, config=config),
+            reps=5))
+    name = torch.cuda.get_device_name(0)
+    rec["times"] = {}
+    for kind, t in times.items():
+        fwd, step = float(np.mean(t["forward_ms"])), float(np.mean(t["train_step_ms"]))
+        rec["times"][kind] = {**t, "forward_mean_ms": fwd, "train_step_mean_ms": step,
+                              "forward_flops_share": profiling.flops_share(fwd_flops, fwd, name),
+                              "train_flops_share": profiling.flops_share(3 * fwd_flops, step,
+                                                                         name)}
+        print(f"  (f) {kind}: forward {json.dumps(t['forward_ms'])} ms, train step "
+              f"{json.dumps(t['train_step_ms'])} ms (in turns); model FLOPs share of peak "
+              f"{rec['times'][kind]['forward_flops_share']} forward, "
+              f"{rec['times'][kind]['train_flops_share']} train step")
+    rec["model_flops"] = {"forward": fwd_flops, "train_step": 3 * fwd_flops}
+    print(f"  model FLOPs: {fwd_flops / 1e9:.3f} GFLOP forward, {3 * fwd_flops / 1e9:.3f} "
+          "GFLOP train step (the six products; the backward's two per product)")
+
+    # one profiled forward and train step through the committed DB, and a train step
+    # through the heuristic and the vendor config: device busy time, idle share, top ops
+    steps = [("forward", "committed", None), ("train_step", "committed", None),
+             ("train_step", "heuristic", None), ("train_step", "vendor", KernelConfig.vendor())]
+    for what, kind, config in steps:
+        use_db("heuristic" if kind == "heuristic" else "committed")
+        prof = profiling.profile_step(
+            (lambda c=config: block_forward(params, x, N_HEADS, config=c)) if what == "forward"
+            else (lambda c=config: block_train_step(params, x, y, N_HEADS, lr=lr, config=c)))
+        rec[f"profile_{what}_{kind}"] = prof
+        print(f"  profiled {what} ({kind}): {prof['device_events']} device events, busy "
+              f"{prof['device_busy_ms']} ms of {prof['wall_ms']:.4f} ms wall (unprofiled "
+              f"{prof['wall_ms_unprofiled']:.4f}), idle share {prof['idle_share']}; top device "
+              f"ops {json.dumps(prof['top_device_ops'][:6])}; top host ops "
+              f"{json.dumps(prof['top_host_ops'][:6])}")
+    use_db("committed")
+    # profile_shape at the block's widest product (FFN-1, 512 x 4096 x 1024), its
+    # candidate's timing traced
+    trace_dir = Path(__file__).resolve().parent / "runs" / "chip_smoke" / "trace_ffn1"
+    for f in trace_dir.glob("*.json"):
+        f.unlink()
+    rec["profile_shape_ffn1"] = profiling.profile_shape(SEQ, D_FF, D_MODEL, trials=3,
+                                                        trace_dir=str(trace_dir))
+    traces = list(trace_dir.glob("*.json"))
+    print(f"  profile_shape {SEQ}x{D_FF}x{D_MODEL}: {json.dumps(rec['profile_shape_ffn1'])}; "
+          f"{len(traces)} trace file(s)")
+    if not traces:
+        raise AssertionError("maybe_trace wrote no trace")
+    return rec, launches
 
 
 def main(argv=None) -> int:
@@ -880,6 +1115,7 @@ def main(argv=None) -> int:
     # Representative main-path call of each kernel body, timed against its plain version:
     # both routes of each multi-K body on the same tile and inputs, then the single-K ones.
     kernels = []
+    kernel_keys = []  # the launch counter of each row
     record["shapes"] = []
     with phase("5 timing"):
         gen = torch.Generator(device="cuda")
@@ -927,6 +1163,7 @@ def main(argv=None) -> int:
                     "launches": launches[key], "max_abs_err": max_err[key], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms})
+                kernel_keys.append(key)
         del a, b, out
         # the single-K bodies alone on both routes, in turns (wgmma, mma.sync, mma.sync,
         # wgmma): CUDA graphs of direct launches, since the entry point's host time exceeds
@@ -988,6 +1225,7 @@ def main(argv=None) -> int:
                     "ms": row[f"{route}_ms"], "plain_ms": row["plain_ms"],
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": row["torch_alone_ms"]})
+                kernel_keys.append(key)
         del a, b, out
         # the staged kernel alone at the tuning shape: the ring on the config the tuned path
         # dispatched against tl2_staged.cu's 32x64 at depth 4, in turns (CUDA graphs of
@@ -1026,6 +1264,7 @@ def main(argv=None) -> int:
                 "launches": launches[f"staged_{route}"],
                 "max_abs_err": max_err[f"staged_{route}"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+            kernel_keys.append(f"staged_{route}")
         # every depth on both routes (same inputs, alone): the 64x64 ring, 32x64 mma.sync
         sweep = {}
         for depth in PIPELINE_DEPTHS[1:]:
@@ -1137,6 +1376,7 @@ def main(argv=None) -> int:
                 a, rhs, split_cfg.rhs_layout, torch.bfloat16, splits)),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": host_time.alone_ms(torch, lambda: (lambda: torch.matmul(a, b)))})
+        kernel_keys.append("staged_split")
         ws = torch.randn((splits, m, n), generator=gen, device="cuda")
 
         def reduce_plain():
@@ -1161,6 +1401,7 @@ def main(argv=None) -> int:
             "bound_ms": (splits * m * n * 4 + m * n * 2) / PEAK_BYTES * 1e3,
             "bound_by": "bytes",
             "library_ms": host_time.alone_ms(torch, lambda: (lambda: torch.sum(ws, 0)))})
+        kernel_keys.append("staged_split")
         if reduce_err != 0.0:
             raise AssertionError(f"the reduction differs from the split-order sum by "
                                  f"{reduce_err}")
@@ -1334,6 +1575,19 @@ def main(argv=None) -> int:
             record[f"committed_db_csv_{acc}"] = text
         record["committed_db_launches"] = counters()
         print("  launches " + json.dumps(record["committed_db_launches"]))
+
+    def use_db(kind: str) -> None:
+        if kind == "heuristic":
+            pin_empty_db()
+        else:  # the committed tpul2_torch/data/tunedb_h100.json
+            os.environ.pop(db_mod.ENV_VAR, None)
+            db_mod.reset_default_db()
+
+    with phase("model"):
+        record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
+    # each kernel row's launches: its main paths' and the model path's
+    for row, key in zip(kernels, kernel_keys):
+        row["launches"] += model_launches[key]
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported on the port's path")

@@ -429,3 +429,61 @@ def test_graph_timer_agrees_with_a_graph_of_direct_calls(cuda):
     alone = host_time.alone_ms(torch, lambda: (lambda: torch.matmul(data[0], data[1])))
     assert abs(graph_ms / alone - 1.0) < 0.25, (graph_ms, alone)
     assert graph_ms >= bu.bound_ms(m, n, k)
+
+
+def _normal(shape, seed, device):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device)
+
+
+@pytest.mark.parametrize("path", ["kernel_kn", "kernel_nk", "fused_gelu", "sentinel",
+                                  "sentinel_gelu", "batched", "batched_sentinel"])
+def test_grads_on_card_match_the_cpu(cuda, path):
+    """The backward on the card (bf16-in, f32-out library GEMMs for a bf16 cotangent, f32
+    GEMMs with TF32 off for an f32 one) against the same call on the CPU (f32 copies):
+    within one bf16 ulp plus the f32 reorder of the sums (test_torch_autograd.py's terms)."""
+    from tpul2_torch import dispatch
+    batched = path.startswith("batched")
+    lead = (3,) if batched else ()
+    cfg = (KernelConfig.vendor() if "sentinel" in path else
+           KernelConfig(bm=64, bn=64, bk=128, rhs_layout="nk" if path == "kernel_nk" else "kn"))
+    act = "gelu" if path.endswith("gelu") else None
+    out_dtype = torch.float32 if path in ("fused_gelu", "batched") else torch.bfloat16
+    a = _normal((*lead, M, 384), 21, "cpu").bfloat16()
+    b = _normal((*lead, 384, 192), 22, "cpu").bfloat16()
+    bias = _normal((192,), 23, "cpu") if act else None
+    ct = _normal((*lead, M, 192), 24, "cpu").to(out_dtype)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        ins = [t.to(device).requires_grad_() for t in (a, b) + ((bias,) if act else ())]
+        if batched:
+            res = dispatch.batched_matmul(*ins, config=cfg, out_dtype=out_dtype)
+        else:
+            res = dispatch.matmul(ins[0], ins[1], config=cfg, bias=ins[2] if act else None,
+                                  activation=act, out_dtype=out_dtype)
+        grads[device] = [g.float().cpu() for g in torch.autograd.grad(res, ins, ct.to(device))]
+    for got, want, length in zip(grads["cuda"], grads["cpu"], (192, M, M)):
+        tol = 2.0 ** -7 * want.abs() + 1e-5 * length ** 0.5
+        assert bool(((got - want).abs() <= tol).all())
+
+
+def test_block_on_card_matches_the_cpu(cuda, empty_tunedb):
+    """A small block (d_model 128, 4 heads) forward and grads through the heuristic on the
+    card against the same block on the CPU (the plain versions)."""
+    from tpul2_torch.models import BlockParams, block_forward, block_value_and_grad, init_block
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = init_block(gen, 128, 256, device="cpu")
+    x = torch.randn((64, 128), generator=gen).bfloat16()
+    y = torch.randn((64, 128), generator=gen).bfloat16()
+    res = {}
+    for device in ("cpu", "cuda"):
+        p = BlockParams(*(t.to(device) for t in params))
+        out = block_forward(p, x.to(device), 4)
+        loss, grads = block_value_and_grad(p, x.to(device), y.to(device), 4)
+        res[device] = (out.float().cpu(), float(loss), [g.float().cpu() for g in grads])
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=0.02, atol=0.02)
+    assert res["cuda"][1] == pytest.approx(res["cpu"][1], rel=1e-3)
+    for got, want in zip(res["cuda"][2], res["cpu"][2]):
+        assert ((got - want).norm() / want.norm()).item() <= 0.02

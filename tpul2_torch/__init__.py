@@ -20,6 +20,11 @@ stays the reference.  Module names mirror ``tpul2``'s:
                                     32-edge ones (the route picks one) + plain version
   tpul2_torch.ops.baselines         library GEMMs (torch.matmul, cuBLAS, cuBLASLt, and
                                     the cuBLASLt auto-tuning search of ops.lt_autotune)
+  tpul2_torch.models                the transformer block and the FFN on the tuned GEMMs,
+                                    trained through their autograd (ops.matmul.GemmVjp);
+                                    models.entry is __graft_entry__.entry's counterpart
+  tpul2_torch.harness.profiling     roofline from the card's peaks by device name,
+                                    torch.profiler traces, a step's idle share
 
 This package imports torch and never jax.
 """

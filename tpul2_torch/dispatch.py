@@ -11,11 +11,16 @@ Eager torch has no trace cache, so the JAX side's jit/epoch machinery has no cou
 A call resolves its config against the DB as it stands, through a memo of the decision per
 shape that the DB's version keys (``resolve_config``): the resolution took more host time
 than the kernel's launch at the small bring-up shapes (PERF.md).
+
+``matmul`` and ``batched_matmul`` are differentiable on every path the JAX ones are: the
+kernels and the sentinel through ``ops.matmul.GemmVjp``; a staged config with more than one
+K interval raises in the backward, as ``jax.grad`` does there (``ops.pipelined``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -24,7 +29,8 @@ import torch
 from tpul2_torch.autotune.db import default_db
 from tpul2_torch.config import KernelConfig, heuristic_config
 from tpul2_torch.ops import baselines
-from tpul2_torch.ops.matmul import ACTIVATIONS, cuda_matmul_fused
+from tpul2_torch.ops.matmul import (ACTIVATIONS, GemmVjp, cuda_matmul_fused, records_grad,
+                                    refuse_out_under_grad)
 from tpul2_torch.ops.pipelined import cuda_matmul_pipelined
 
 #: Most shapes the resolve memo holds; past it the memo starts empty again, so a caller
@@ -113,17 +119,30 @@ def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2
     return adapted if adapted is not None else sentinel
 
 
-def _vendor(a, b, b_t, cfg: KernelConfig, bias, activation, out_dtype, out):
-    """The sentinel: a library GEMM, then the epilogue on the f32 sum like the kernel's."""
-    if cfg.vendor_variant.endswith("_tn") and b_t is None:
-        b_t = b.t()
+def _vendor_product(variant: str, activation, out_dtype, a, rhs, bias):
+    """The sentinel's output: a library GEMM of a and rhs (b, or b_t for a '*_tn' variant),
+    then the epilogue on the f32 sum like the kernel's."""
+    b, b_t = (rhs.t(), rhs) if variant.endswith("_tn") else (rhs, None)
     if bias is None and activation is None:
-        res = baselines.vendor_product(cfg.vendor_variant, a, b, b_t, out_dtype)
-    else:
-        res = baselines.vendor_product(cfg.vendor_variant, a, b, b_t, torch.float32)
-        if bias is not None:
-            res = res + bias.float()
-        res = ACTIVATIONS[activation](res).to(out_dtype)
+        return baselines.vendor_product(variant, a, b, b_t, out_dtype)
+    res = baselines.vendor_product(variant, a, b, b_t, torch.float32)
+    if bias is not None:
+        res = res + bias.float()
+    return ACTIVATIONS[activation](res).to(out_dtype)
+
+
+def _vendor(a, b, b_t, cfg: KernelConfig, bias, activation, out_dtype, out):
+    """The sentinel.  Under autograd it goes through ``GemmVjp`` like the kernels: the
+    JAX package's sentinel is differentiated by XLA, and ``aten::mm.dtype`` (its f32 output
+    here) has no derivative in torch."""
+    tn = cfg.vendor_variant.endswith("_tn")
+    rhs = (b_t if b_t is not None else b.t()) if tn else b
+    if records_grad(a, rhs, bias):
+        refuse_out_under_grad(out, "matmul")
+        forward = functools.partial(_vendor_product, cfg.vendor_variant, activation,
+                                    out_dtype)
+        return GemmVjp.apply(a, rhs, bias, forward, "nk" if tn else "kn", activation)
+    res = _vendor_product(cfg.vendor_variant, activation, out_dtype, a, rhs, bias)
     return res if out is None else out.copy_(res)
 
 
@@ -184,6 +203,10 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if config is None:
         config = resolve_config(m, n, k, acc)
     if config.use_vendor:
+        if records_grad(a, b):
+            refuse_out_under_grad(out, "batched_matmul")
+            return GemmVjp.apply(a, b, None, lambda a_, b_, _: baselines.vendor_bmm(
+                a_, b_, out_dtype), "kn", None)
         res = baselines.vendor_bmm(a, b, out_dtype)
         return res if out is None else out.copy_(res)
     config = dataclasses.replace(config, pipeline_depth=0)  # the batched kernel has no stages

@@ -26,15 +26,18 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpul2_torch.harness.profiling import H100
+
 VERSION_STAMP = "tpul2_torch-0.1"
 #: Timing-methodology revision, stamped into TuneDB entries.  1 = medians of per-call
 #: CUDA-event windows over 5 back-to-back calls (host-bound wherever the enqueue is longer
 #: than the kernel); 2 = device time per call from ``GraphTimer``.
 TIMING_REV = 2
-#: Published H100 SXM peaks (NVIDIA data sheet, 700 W): dense bf16 tensor-core rate and
-#: HBM rate.  The bound of a product is the larger of its bytes and its FLOPs over these.
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+#: The H100 SXM's published peaks (``profiling.DEVICE_PEAKS``, the one table of them):
+#: dense bf16 tensor-core rate and HBM rate.  The bound of a product is the larger of its
+#: bytes and its FLOPs over these.
+PEAK_FLOPS = H100.flops
+PEAK_BYTES = H100.bytes
 #: Calls in the two graphs of a ``GraphTimer``: a difference of 100 calls keeps the
 #: replays' jitter (a few microseconds) to a few percent of a 2-microsecond kernel; at
 #: 16 calls it moved two timings of one library call 30% apart at 1024x128x64.

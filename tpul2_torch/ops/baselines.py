@@ -127,6 +127,18 @@ def vendor_product(variant: str, a, b, b_t, out_dtype: torch.dtype):
     return res if out_dtype == torch.float32 else res.to(out_dtype)
 
 
+def f32_product(x, y):
+    """x @ y (2-D, or 3-D batched; any strides) summed in f32, as an f32 tensor: the library
+    product of the backward passes, the role of the JAX package's f32 XLA dots there
+    (``tpul2/ops/matmul.py:375-384``).  Two bf16 operands on the card take one bf16-in,
+    f32-out GEMM (``aten::mm.dtype`` / ``bmm.dtype``; bf16 products are exact in f32);
+    anything else, an f32 operand or the CPU, takes f32 copies and an f32 GEMM, TF32 off."""
+    pin_precision()
+    if x.is_cuda and x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16:
+        return (torch.bmm if x.ndim == 3 else torch.mm)(x, y, out_dtype=torch.float32)
+    return torch.matmul(x.float(), y.float())
+
+
 def vendor_bmm(a, b, out_dtype: torch.dtype):
     """The batched sentinel: ``torch.bmm`` with the f32 sum, cast once (``aten::bmm.dtype``
     on the card, f32 copies on the CPU, as ``vendor_product``)."""

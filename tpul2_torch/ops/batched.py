@@ -7,7 +7,8 @@ single interval alike where it takes the tile and the operands, else the mma.syn
 with the same bk rounding points.  As in the JAX kernel there is no bias, no activation
 and no 'nk' layout.  For a CUDA tensor
 the wrapper launches a kernel or raises; for a CPU tensor it runs
-``batched_matmul_reference``.
+``batched_matmul_reference``.  Under autograd the call goes through ``ops.matmul.GemmVjp``
+(the JAX package's ``_bmm_bwd``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ from typing import Optional
 import torch
 
 from tpul2_torch.config import KernelConfig
-from tpul2_torch.ops.matmul import (_with_layout, check_operands, launch_kernel,
-                                    matmul_reference)
+from tpul2_torch.ops.matmul import (GemmVjp, _with_layout, check_operands, launch_kernel,
+                                    matmul_reference, records_grad, refuse_out_under_grad)
 from tpul2_torch.utils.padding import cdiv
 
 #: Launches of the batched kernels with more than one bk interval (``_bmm_kernel``) and
@@ -45,6 +46,10 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
     global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC
     global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_MMA_SYNC
     cfg = _with_layout(config, "kn")
+    if records_grad(a, b):
+        refuse_out_under_grad(out, "batched_matmul")
+        return GemmVjp.apply(a, b, None, lambda a_, b_, _: cuda_batched_matmul(
+            a_, b_, cfg, out_dtype), "kn", None)
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     batch, m, n, k = check_operands(a, b, cfg, out_dtype, None, None, out, batched=True)
     if batch > 65535:

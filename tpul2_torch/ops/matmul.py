@@ -12,6 +12,10 @@ semantics.  Nothing falls back from a kernel to another kernel or to the plain v
 The kernel predicates its own edges, so ``edge='pad'`` and ``edge='mask'`` are the same
 launch: no padding copy, no output slice, and with ``out=`` the kernel writes straight
 into caller memory.  Inputs are bf16, the bias f32, the output bf16 or f32.
+
+The wrappers are differentiable where the JAX ones are: under autograd a call goes through
+``GemmVjp``, whose forward is the same wrapper call and whose backward is the JAX
+package's (library products in f32, not the kernel).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
                                 KernelConfig, wgmma_smem_bytes)
 from tpul2_torch.ops._build import check_launch, load_library
+from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
 
 #: Fused epilogues, applied in f32 after the bias and before the output cast.
@@ -49,6 +54,64 @@ LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_MMA_SYNC = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
 LAUNCHES_SINGLE_K_MMA_SYNC = 0
+
+
+def records_grad(a: torch.Tensor, rhs: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> bool:
+    """Whether autograd records a call on these operands: grad mode on and one of them
+    requires grad.  Written out, since every entry-point call asks."""
+    return torch.is_grad_enabled() and (a.requires_grad or rhs.requires_grad or (
+        bias is not None and bias.requires_grad))
+
+
+def refuse_out_under_grad(out: Optional[torch.Tensor], name: str) -> None:
+    """Raise as torch's own ``out=`` does where autograd would record the call."""
+    if out is not None:
+        raise RuntimeError(f"{name}(): functions with out=... arguments don't support "
+                           "automatic differentiation, but one of the arguments requires "
+                           "grad.")
+
+
+class GemmVjp(torch.autograd.Function):
+    """act(A @ B + bias) whose backward is the JAX package's ``_matmul_bwd``,
+    ``_matmul_tn_bwd``, ``_fused_bwd`` and ``_bmm_bwd`` (``tpul2/ops/matmul.py:286-411``,
+    ``tpul2/ops/batched.py:45-64``) in one.
+
+    ``forward(a, rhs, bias)`` computes the output: a wrapper of this package (the kernel on
+    the card, the plain version on the CPU) or the dispatch sentinel's library GEMM.  rhs is
+    (..., K, N), or (N, K) where ``rhs_layout`` is 'nk'; bias is f32 (N,) or None (2-D
+    only).  The backward takes the cotangent to f32 and every product in f32
+    (``baselines.f32_product``), cast once to its input's dtype.  With an activation it
+    recomputes the f32 pre-activation a @ b + bias and differentiates
+    ``ACTIVATIONS[activation]`` there (``_fused_ref_f32``).  The rhs cotangent comes in
+    rhs's own layout, as ``_matmul_tn_bwd``'s does for b_t."""
+
+    @staticmethod
+    def forward(ctx, a, rhs, bias, forward, rhs_layout, activation):
+        ctx.save_for_backward(a, rhs, bias)
+        ctx.nk, ctx.activation = rhs_layout == "nk", activation
+        return forward(a, rhs, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, rhs, bias = ctx.saved_tensors
+        b = rhs.transpose(-1, -2) if ctx.nk else rhs
+        if ctx.activation is not None:
+            h = f32_product(a, b)
+            if bias is not None:
+                h = h + bias.float()
+            with torch.enable_grad():
+                h.requires_grad_()
+                g, = torch.autograd.grad(ACTIVATIONS[ctx.activation](h), h, g.float())
+        da = db = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = f32_product(g, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = (f32_product(g.transpose(-1, -2), a) if ctx.nk
+                  else f32_product(a.transpose(-1, -2), g)).to(rhs.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = g.float().sum(0).to(bias.dtype)
+        return da, db, dbias, None, None, None
 
 
 def matmul_reference(a: torch.Tensor, rhs: torch.Tensor, bk: int,
@@ -234,6 +297,10 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
     global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC
     global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_MMA_SYNC
+    if records_grad(a, rhs, bias):
+        refuse_out_under_grad(out, "matmul")
+        return GemmVjp.apply(a, rhs, bias, lambda a_, rhs_, bias_: _matmul(
+            a_, rhs_, cfg, out_dtype, None, bias_, activation), cfg.rhs_layout, activation)
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     batch, m, n, k = check_operands(a, rhs, cfg, out_dtype, bias, activation, out)
     if a.is_cpu:

@@ -37,6 +37,11 @@ is clamped to gk = K // bk, and gk == 1 goes to the single-K kernel.  For a CUDA
 the wrapper launches the kernel or raises; for a CPU tensor it runs
 ``pipelined_reference`` with the split count the launch would take.  Nothing falls back
 from a kernel to another kernel or to the plain version.
+
+No gradient, as in the JAX package: ``pallas_matmul_pipelined`` has no ``custom_vjp``, and
+``jax.grad`` through a staged config with gk > 1 raises (pallas_call's JVP rule fails on
+the manual DMA ring).  Under autograd the forward runs and the backward raises
+(``StagedNoVjp``); gk == 1 goes to the single-K wrapper, which is differentiable in both.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch
 
 from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, WGMMA_TILES, KernelConfig
 from tpul2_torch.ops._build import check_launch, load_library
-from tpul2_torch.ops.matmul import _vector_ok, check_operands, cuda_matmul, cuda_matmul_tn
+from tpul2_torch.ops.matmul import (_vector_ok, check_operands, cuda_matmul, cuda_matmul_tn,
+                                    records_grad, refuse_out_under_grad)
 from tpul2_torch.utils.padding import cdiv
 
 #: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the TMA +
@@ -58,6 +64,22 @@ from tpul2_torch.utils.padding import cdiv
 LAUNCHES_STAGED_RING = 0
 LAUNCHES_STAGED_MMA_SYNC = 0
 LAUNCHES_STAGED_SPLIT = 0
+
+
+class StagedNoVjp(torch.autograd.Function):
+    """The staged kernel's output under autograd: ``forward(a, rhs)`` runs, and the backward
+    raises, as ``jax.grad`` through ``pallas_matmul_pipelined`` does."""
+
+    @staticmethod
+    def forward(ctx, a, rhs, forward):
+        return forward(a, rhs)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the staged kernel (pipeline_depth >= 2 with more than one K interval) has no "
+            "gradient, as in the JAX package; differentiate through a config with "
+            "pipeline_depth=0")
 
 
 def split_bounds(k: int, splits: int) -> list:
@@ -171,6 +193,10 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
         plain = dataclasses.replace(cfg, pipeline_depth=0)
         wrapper = cuda_matmul_tn if cfg.rhs_layout == "nk" else cuda_matmul
         return wrapper(a, b_or_bt, plain, out_dtype=out_dtype, out=out)
+    if records_grad(a, b_or_bt):
+        refuse_out_under_grad(out, "matmul_pipelined")
+        return StagedNoVjp.apply(a, b_or_bt, lambda a_, rhs_: cuda_matmul_pipelined(
+            a_, rhs_, cfg, out_dtype))
     route = staged_route(cfg, a, b_or_bt, m, n, k)
     splits = staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route == "ring" else 1
     if a.device.type == "cpu":
