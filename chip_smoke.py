@@ -93,6 +93,24 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      through tpul2_torch/data/tunedb_h100.json (both families, offline): the CSV rows are
      printed, with how many of the 20 shapes resolve to the sentinel in each family and
      mode, and how many stored kernel configs the card refuses (resolved to the sentinel)
+  campaign  the integrity and campaign layer: harness.defense.run_all_defenses on the
+     honest candidate, 3 runs each, in both families at 4096^3 and 512x4096x1024 through
+     the heuristic and at 64x8192x8192 through the committed DB, once at 4096^3 with a
+     side stream as the current stream, and the stream check's honest spread at four
+     host-bound suite shapes, all passing; five cheats flagged (a product at 8192^3 on a
+     side stream returned with no wait, a helper thread left running, a Tensor subclass
+     and a meta output, an fp16 output, a patched torch.cuda.Event.elapsed_time), with
+     each run's event and sync ms, ratio and floor; each `python -m tpul2_torch.harness`
+     subcommand as a subprocess at 1000^3 (exit 0, JSON out); the lean engine
+     (harness.campaign) over the stratified grid's first 24 shapes plus 4096^3 and
+     16384^3 through the committed DB, both families offline, the first 4 at 100 qps,
+     with the seconds per shape, and at 4096^3 through the heuristic the median of 3
+     lean speedups against torch.matmul within 10% of the median of 3 _run_mode ones,
+     read in turns (ABBA), with each engine's spread; the heal at 512x4096x1024 on a DB
+     copy with no entry for it (the row before launches a wgmma body and loses, the heal
+     stores a screened vendor config, the re-measured row launches no kernel and is
+     faster, the repair journal holds the shape once); and demote_uncompilable_entries'
+     launch probe of a stored staged config, which must keep it
   model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
      8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
      block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
@@ -684,6 +702,352 @@ def _model_phase(torch, counters, zero_counters, use_db) -> tuple:
           f"{len(traces)} trace file(s)")
     if not traces:
         raise AssertionError("maybe_trace wrote no trace")
+    return rec, launches
+
+
+#: Phase campaign's shapes: the heuristic's multi-K (4096^3) and single-K (FFN-1's
+#: 512x4096x1024) wgmma routes, and the skinny serving shape through the committed DB.
+CAMPAIGN_HEURISTIC_SHAPES = [(4096, 4096, 4096), (512, 4096, 1024)]
+CAMPAIGN_DB_SHAPE = (64, 8192, 8192)
+#: Host-bound suite shapes (bench.py's DEFAULT_SHAPES) where the stream check's honest
+#: spread is read, through the committed DB.
+SPREAD_SHAPES = [(8192, 128, 64), (64, 64, 4096), (1024, 64, 64), (256, 256, 256)]
+#: The heal's shape: FFN-1's product, where the heuristic's single-K tile runs at 0.35x
+#: torch.matmul by device time (PERF.md), on a DB copy with no entry for it.
+HEAL_SHAPE = (512, 4096, 1024)
+#: Lean rows of phase campaign: the stratified grid's first shapes, and the big squares.
+LEAN_PREFIX = 24
+LEAN_EXTRA = [(4096, 4096, 4096), (16384, 16384, 16384)]
+#: The order of the lean and _run_mode reads at 4096^3 (ABBA: neither engine always first).
+LEAN_VS_RUN_MODE_TURNS = ("lean", "run_mode", "run_mode", "lean", "lean", "run_mode")
+
+
+def _stream_numbers(res: dict) -> dict:
+    d = next(d for d in res["defenses"] if d["name"] == "stream_injection")
+    return {key: d[key] for key in ("event_ms", "sync_ms", "ratio", "floor_ms",
+                                    "runs_flagged")}
+
+
+def _heal_demo(campaign, out: Path, db_path: Path, shape: tuple) -> dict:
+    """A lean row of ``shape`` through a DB with no entry for it, then two heal runs: the
+    first drops the losing row (the repair journal), measures it again, stores a screened
+    vendor config and publishes the re-measured row; the second finds the journal's
+    budget spent.  Returns the rows before and after, the entries and the journal."""
+    import json
+
+    mnk = "x".join(map(str, shape))
+    sidecar = campaign.sidecar_path(out, "offline")
+
+    def last() -> dict:
+        return json.loads(sidecar.read_text().splitlines()[-1])
+
+    campaign.run_campaign([shape], out, db_path=db_path)
+    before = last()
+    campaign.run_campaign([shape], out, db_path=db_path, heal=True)
+    after = last()
+    campaign.run_campaign([shape], out, db_path=db_path, heal=True)
+    db = json.loads(db_path.read_text())["entries"]
+    journals = {acc: json.loads(Path(str(campaign.suite.csv_path(out, acc, "offline"))
+                                     + ".repairs.json").read_text())
+                for acc in ("float32", "bfloat16")}
+    return {"mnk": mnk, "before": {key: before[key] for key in ("speedups", "configs",
+                                                                "launches")},
+            "after": {key: after[key] for key in ("speedups", "configs", "launches",
+                                                  "healed", "remeasured_after_heal")},
+            "entries": {acc: db.get(f"{shape[0]}_{shape[1]}_{shape[2]}/{acc}/bfloat16")
+                        for acc in ("float32", "bfloat16")},
+            "journals": journals}
+
+
+def _campaign_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple:
+    """Phase campaign: the integrity defenses on the honest candidate and on five cheats,
+    each CLI subcommand as a subprocess, the lean engine over a prefix of the stratified
+    grid (and its agreement with ``_run_mode`` at 4096^3), and the heal at FFN-1's shape.
+    Returns (record, the launches of the phase)."""
+    import json
+    import shutil
+    import subprocess
+    import threading
+
+    import numpy as np
+
+    from tpul2_torch.autotune.db import TuneDB
+    from tpul2_torch.dispatch import candidate_fn
+    from tpul2_torch.harness import bench_suite, campaign, defense, suite
+    from tpul2_torch.harness.bench_offline import benchmark_offline_all
+    from tpul2_torch.harness.bench_utils import fresh_inputs
+
+    work = repo / "runs" / "chip_smoke" / "campaign"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rec = {"defense": {"honest": [], "cheats": {}}}
+    zero_counters()
+
+    # ---- 1. defenses: the honest candidate passes every run, each cheat is flagged ----
+    def honest(shape, acc, label, runs=3):
+        data = fresh_inputs(np.random.default_rng(0), *shape)
+        for r in range(runs):
+            res = defense.run_all_defenses(candidate_fn(acc), data)
+            row = {"mnk": list(shape), "acc": acc, "db": label, "run": r,
+                   "pass": res["pass"], "failed": [d["name"] for d in res["defenses"]
+                                                   if not d["pass"]],
+                   **_stream_numbers(res)}
+            rec["defense"]["honest"].append(row)
+            print("  honest " + json.dumps(row))
+            if not res["pass"]:
+                raise AssertionError(f"the honest candidate failed a defense: {res}")
+
+    use_db("heuristic")
+    for shape in CAMPAIGN_HEURISTIC_SHAPES:
+        for acc in ("float32", "bfloat16"):
+            honest(shape, acc, "heuristic")
+    use_db("committed")
+    for acc in ("float32", "bfloat16"):
+        honest(CAMPAIGN_DB_SHAPE, acc, "committed")
+    # the stream check's honest spread at the host-bound suite shapes (the floor's reason)
+    spread = []
+    for shape in SPREAD_SHAPES:
+        res = defense.defend_against_stream_injection(
+            candidate_fn("float32"), fresh_inputs(np.random.default_rng(0), *shape), runs=5)
+        spread.append({"mnk": list(shape), "pass": res["pass"],
+                       "hidden_ms": [r["hidden_ms"] for r in res["runs"]],
+                       "event_ms": res["event_ms"], "sync_ms": res["sync_ms"],
+                       "sync_cost_ms": [r["sync_cost_ms"] for r in res["runs"]]})
+        print("  honest spread " + json.dumps(spread[-1]))
+        if not res["pass"]:
+            raise AssertionError(f"the honest candidate failed the stream check: {res}")
+    rec["defense"]["honest_spread"] = spread
+    rec["defense"]["honest_max_hidden_ms"] = max(
+        max(r["hidden_ms"]) for r in spread + [{"hidden_ms": [0.0]}])
+    use_db("heuristic")
+    data = fresh_inputs(np.random.default_rng(0), 4096, 4096, 4096)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        res = defense.run_all_defenses(candidate_fn("float32"), data)
+    torch.cuda.synchronize()
+    row = {"mnk": [4096] * 3, "acc": "float32", "stream": "side", "pass": res["pass"],
+           **_stream_numbers(res)}
+    rec["defense"]["honest_side_stream"] = row
+    print("  honest on a side stream " + json.dumps(row))
+    if not res["pass"]:
+        raise AssertionError(f"the honest candidate failed a defense on a side stream: {res}")
+
+    cheat_stream = torch.cuda.Stream()
+
+    def stream_cheat(a, b, b_t):  # the product on a side stream, returned with no wait
+        cheat_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(cheat_stream):
+            return torch.matmul(a, b)
+
+    def thread_cheat(a, b, b_t):  # leaves a helper thread running
+        threading.Thread(target=time.sleep, args=(3.0,), daemon=True).start()
+        return torch.matmul(a, b)
+
+    class Lazy(torch.Tensor):
+        pass
+
+    def subclass_cheat(a, b, b_t):
+        return torch.matmul(a, b).as_subclass(Lazy)
+
+    def meta_cheat(a, b, b_t):
+        return torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device="meta")
+
+    def fp16_cheat(a, b, b_t):
+        return torch.matmul(a, b).half()
+
+    big = fresh_inputs(np.random.default_rng(1), 8192, 8192, 8192)
+    cheats = [("stream_injection", "side-stream GEMM at 8192^3", stream_cheat, big),
+              ("thread_injection", "helper thread", thread_cheat, data),
+              ("lazy_evaluation", "Tensor subclass", subclass_cheat, data),
+              ("lazy_evaluation", "meta output", meta_cheat, data),
+              ("precision_downgrade", "fp16 output", fp16_cheat, data)]
+    for check, label, fn, args in cheats:
+        res = defense.run_all_defenses(fn, args)
+        flagged = [d["name"] for d in res["defenses"] if not d["pass"]]
+        row = {"check": check, "flagged_by": flagged, **_stream_numbers(res)}
+        rec["defense"]["cheats"][label] = row
+        print(f"  cheat {label}: " + json.dumps(row))
+        if res["pass"] or check not in flagged:
+            raise AssertionError(f"the {label} cheat was not flagged by {check}: {res}")
+    # where the floor bites: the same cheat at smaller products (reported, not required)
+    rec["defense"]["stream_cheat_sizes"] = []
+    for size in (1024, 2048, 4096):
+        res = defense.defend_against_stream_injection(
+            stream_cheat, fresh_inputs(np.random.default_rng(2), size, size, size))
+        row = {"mnk": [size] * 3, "flagged": not res["pass"],
+               **{key: res[key] for key in ("event_ms", "sync_ms", "ratio", "runs_flagged")}}
+        rec["defense"]["stream_cheat_sizes"].append(row)
+        print("  stream cheat at a smaller product " + json.dumps(row))
+    original = torch.cuda.Event.elapsed_time
+    torch.cuda.Event.elapsed_time = lambda self, end: 1e-3
+    try:
+        res = defense.run_all_defenses(candidate_fn("float32"), data)
+    finally:
+        torch.cuda.Event.elapsed_time = original
+    flagged = [d["name"] for d in res["defenses"] if not d["pass"]]
+    rec["defense"]["cheats"]["patched Event.elapsed_time"] = {
+        "check": "monkey_patching", "flagged_by": flagged, **_stream_numbers(res)}
+    print("  cheat patched Event.elapsed_time: flagged by " + json.dumps(flagged))
+    if res["pass"] or "monkey_patching" not in flagged or \
+            not defense.defend_against_monkey_patching()["pass"]:
+        raise AssertionError(f"the patched elapsed_time was not flagged or not restored: {res}")
+    del big
+
+    # ---- 2. the CLI: each subcommand once at 1000^3, as a subprocess ----
+    shape = ["--mnk", "1000", "1000", "1000"]
+    base = work / "cli"
+    cmds = {
+        "correctness": ["correctness", *shape, "--iterations", "3", "--seconds", "30"],
+        "offline": ["offline", *shape, "--perf_func", "torch_matmul", "--warmup_seconds",
+                    "0.2", "--benchmark_seconds", "0.5", "--base_dir", str(base)],
+        "server": ["server", *shape, "--perf_func", "cublaslt_autotuned_nn", "--target_qps",
+                   "100", "--warmup_seconds", "0.2", "--benchmark_seconds", "0.5",
+                   "--base_dir", str(base / "server")],
+        "profile": ["profile", *shape, "--trials", "3"],
+        "summarize": ["summarize", "--base_dir", str(base)],
+        "defend": ["defend", *shape],
+    }
+    rec["cli"] = {}
+    t0 = time.perf_counter()
+    for name, argv in cmds.items():
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpul2_torch.harness", *argv], cwd=repo,
+                              capture_output=True, text=True, timeout=300)
+        try:
+            out = json.loads(proc.stdout)
+        except json.JSONDecodeError:
+            out = None
+        rec["cli"][name] = {"rc": proc.returncode, "json": out is not None,
+                            "seconds": time.perf_counter() - t1}
+        print(f"  cli {name}: rc {proc.returncode}, JSON {out is not None}, "
+              f"{rec['cli'][name]['seconds']:.1f} s")
+        if proc.returncode != 0 or out is None:
+            raise AssertionError(f"python -m tpul2_torch.harness {name} failed:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    rec["cli_seconds"] = time.perf_counter() - t0
+
+    # ---- 3. the lean engine ----
+    shapes = suite.grid(suite.REFERENCE_DIMS, order="stratified")[:LEAN_PREFIX] + LEAN_EXTRA
+    lean_dir = work / "lean"
+    rec["lean"] = {}
+    for mode, todo in (("offline", shapes), ("server", shapes[:4])):
+        summary = campaign.run_campaign(todo, lean_dir, mode=mode, target_qps=100.0,
+                                        db_path=campaign.COMMITTED_DB)
+        times = summary["shape_seconds"]
+        if summary["rows"] != len(todo) or summary["failed"]:
+            raise AssertionError(f"lean {mode}: {summary}")
+        rows = {acc: suite.done_shapes(suite.csv_path(lean_dir, acc, mode))
+                for acc in ("float32", "bfloat16")}
+        if any(len(r) != len(todo) for r in rows.values()):
+            raise AssertionError(f"lean {mode}: rows missing {rows}")
+        rec["lean"][mode] = {"rows": summary["rows"], "seconds": summary["seconds"],
+                             "seconds_per_shape": sum(times.values()) / len(times),
+                             "shape_seconds": times}
+        print(f"  lean {mode}: {summary['rows']} shapes x 2 families in "
+              f"{summary['seconds']:.1f} s ({rec['lean'][mode]['seconds_per_shape']:.2f} s "
+              "per shape): " + json.dumps({k: round(v, 2) for k, v in times.items()}))
+        for acc in ("float32", "bfloat16"):
+            text = suite.csv_path(lean_dir, acc, mode).read_text()
+            rec["lean"][mode][f"csv_{acc}"] = text
+    use_db("heuristic")
+    # the pair is read in turns (ABBA), each loop with every baseline, so that the two
+    # loops interleave the same calls and the check's margin is a measured spread
+    reads = {"lean": [], "run_mode": []}
+    for turn in LEAN_VS_RUN_MODE_TURNS:
+        if turn == "lean":
+            lean = bench_suite.eval_shape_lean(4096, 4096, 4096, accs=("float32",))
+            reads["lean"].append(lean["speedups"]["float32"]["torch_matmul"])
+        else:
+            run_mode = benchmark_offline_all(4096, 4096, 4096, warmup_seconds=0.5,
+                                             benchmark_seconds=3.0)
+            reads["run_mode"].append(run_mode["torch_matmul"]["speedup"])
+    sp_lean = float(np.median(reads["lean"]))
+    sp_rm = float(np.median(reads["run_mode"]))
+    rec["lean_vs_run_mode_4096"] = {
+        "turns": list(LEAN_VS_RUN_MODE_TURNS), "reads": reads,
+        "lean_speedup": sp_lean, "run_mode_speedup": sp_rm,
+        "apart": abs(sp_lean / sp_rm - 1.0),
+        # (max - min) / median of each engine's reads
+        "spread": {name: (max(v) - min(v)) / float(np.median(v)) for name, v in reads.items()},
+        "lean_ms": {k: lean["per_func"][k]["ms"] for k in ("torch_matmul",
+                                                           "tpul2_torch_float32")},
+        "run_mode_ms": {"torch_matmul": run_mode["torch_matmul"]["torch_matmul"]["per_call_ms"],
+                        "tpul2_torch": run_mode["torch_matmul"]["tpul2_torch"]["per_call_ms"]},
+        "lean_launches": lean["launches"]}
+    print("  4096^3 through the heuristic, speedup vs torch.matmul (median of "
+          f"{len(reads['lean'])} reads in turns): lean {sp_lean:.4f}, _run_mode {sp_rm:.4f} "
+          + json.dumps(rec["lean_vs_run_mode_4096"]))
+    if abs(sp_lean / sp_rm - 1.0) > 0.10:
+        raise AssertionError("the lean engine and _run_mode disagree by more than 10% at "
+                             "4096^3")
+
+    # ---- 4. the heal, on a DB copy with no entry for the shape ----
+    heal_db = work / "tunedb_heal.json"
+    shutil.copy(campaign.COMMITTED_DB, heal_db)
+    entries = json.loads(heal_db.read_text())
+    for acc in ("float32", "bfloat16"):
+        entries["entries"].pop(f"{HEAL_SHAPE[0]}_{HEAL_SHAPE[1]}_{HEAL_SHAPE[2]}/{acc}/"
+                               "bfloat16", None)
+    heal_db.write_text(json.dumps(entries, indent=1, sort_keys=True))
+    demo = _heal_demo(campaign, work / "heal", heal_db, HEAL_SHAPE)
+    if any(demo["before"]["speedups"][acc]["torch_matmul"] >= 0.97
+           for acc in ("float32", "bfloat16")):
+        # the shape did not lose: heal the kernel-route lean row that loses the most
+        lean_rows = [json.loads(ln) for ln in campaign.sidecar_path(
+            lean_dir, "offline").read_text().splitlines()]
+        worst = min((r for r in lean_rows if r["launches"]),
+                    key=lambda r: max(r["speedups"][a]["torch_matmul"]
+                                      for a in ("float32", "bfloat16")))
+        print(f"  {demo['mnk']} did not lose ({demo['before']['speedups']}); healing "
+              f"{worst['mnk']} instead")
+        rec["heal_first_choice"] = demo
+        demo = _heal_demo(campaign, work / "heal_fallback", heal_db,
+                          tuple(int(x) for x in worst["mnk"].split("x")))
+    rec["heal"] = demo
+    for acc in ("float32", "bfloat16"):
+        b = demo["before"]["speedups"][acc]["torch_matmul"]
+        a = demo["after"]["speedups"][acc]["torch_matmul"]
+        entry = demo["entries"][acc]
+        print(f"  heal {demo['mnk']} {acc}: torch.matmul speedup {b:.4f} -> {a:.4f}; row "
+              f"before " + json.dumps(demo["before"]["speedups"][acc]) + " after "
+              + json.dumps(demo["after"]["speedups"][acc]) + f"; entry {entry['config']}")
+        if not any(k.startswith("single_k") or k.startswith("multi_k")
+                   for k in demo["before"]["launches"]):
+            raise AssertionError(f"the row before the heal launched no kernel: {demo}")
+        if b >= 0.97:
+            raise AssertionError(f"the row before the heal does not lose ({acc}): {demo}")
+        if not entry["config"]["use_vendor"] or entry["scope"] != "heal_demote":
+            raise AssertionError(f"the heal stored no screened vendor config ({acc}): {entry}")
+        if demo["after"]["launches"] or not demo["after"]["remeasured_after_heal"]:
+            raise AssertionError(f"the re-measured row launched a kernel: {demo['after']}")
+        if a <= b:
+            raise AssertionError(f"the healed row is not faster ({acc}): {b} -> {a}")
+        journal = demo["journals"][acc]
+        if list(journal) != [demo["mnk"]] or journal[demo["mnk"]]["loss"] != 1:
+            raise AssertionError(f"the repair journal does not hold the shape once: {journal}")
+
+    # the uncompilable-entry probe launches a stored staged config, and keeps it
+    from tpul2_torch.config import candidate_configs
+    staged = next(c for c in candidate_configs(*TUNE_SHAPE, max_candidates=8)
+                  if c.pipeline_depth >= 2)
+    probe_db = TuneDB(path=work / "tunedb_probe.json")
+    for acc in ("float32", "bfloat16"):
+        probe_db.put(*TUNE_SHAPE, dataclasses.replace(staged, acc_dtype=acc), 0.0, acc=acc)
+    demoted = bench_suite.demote_uncompilable_entries(probe_db, *TUNE_SHAPE,
+                                                      ["float32", "bfloat16"])
+    rec["uncompilable_probe"] = {"mnk": list(TUNE_SHAPE), "config": dataclasses.asdict(staged),
+                                 "demoted": demoted}
+    print(f"  stored staged config {staged} at {TUNE_SHAPE} probed on the card: demoted "
+          f"{demoted}")
+    if demoted:
+        raise AssertionError("the probe demoted a staged config that runs")
+    launches = counters()
+    rec["launches"] = launches
+    print("  launches " + json.dumps(launches))
+    for key in ("multi_k_wgmma", "single_k_wgmma", "staged_ring"):
+        if launches[key] <= 0:
+            raise AssertionError(f"phase campaign launched no {key}")
     return rec, launches
 
 
@@ -1583,11 +1947,14 @@ def main(argv=None) -> int:
             os.environ.pop(db_mod.ENV_VAR, None)
             db_mod.reset_default_db()
 
+    with phase("campaign"):
+        record["campaign"], campaign_launches = _campaign_phase(torch, repo, counters,
+                                                                zero_counters, use_db)
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
-    # each kernel row's launches: its main paths' and the model path's
+    # each kernel row's launches: its main paths', the campaign's and the model path's
     for row, key in zip(kernels, kernel_keys):
-        row["launches"] += model_launches[key]
+        row["launches"] += campaign_launches[key] + model_launches[key]
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported on the port's path")

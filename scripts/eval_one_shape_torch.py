@@ -6,7 +6,9 @@ stop on failure, benchmark the candidate against every torch baseline in one shu
 loop, then write summary.md and speedup_row.json.  The gate runs first, as in the
 reference.  ``--mode server`` runs the Poisson-arrival bench (``--target_qps`` required)
 on the candidate's server twin, which dispatches each shape's server-regime winner; its
-gate checks that twin.
+gate checks that twin.  ``--defend`` then runs the integrity defenses
+(``harness.defense.run_all_defenses``) on the candidate and writes
+``defense_result.json``; a failed defense fails the run.
 
 Usage:
   python scripts/eval_one_shape_torch.py --mnk 4096 4096 4096 --acc float32
@@ -47,6 +49,9 @@ def parse_args(argv=None):
     ap.add_argument("--target_qps", type=float, default=None,
                     help="mean request rate of the server mode's Poisson arrivals "
                          "(required there, > 0)")
+    ap.add_argument("--defend", action="store_true",
+                    help="run the benchmark-integrity defenses on the candidate before "
+                         "summarizing (SURVEY.md C8)")
     args = ap.parse_args(argv)
     if args.mode == "server" and (args.target_qps is None or args.target_qps <= 0):
         ap.error("--mode server needs --target_qps > 0")
@@ -97,6 +102,23 @@ def main(argv=None) -> int:
         r = results[func]
         print(f"{func}: speedup {r['speedup']:.4f}x ({r[CANDIDATE]['tflops_median']:.2f} vs "
               f"{r[func]['tflops_median']:.2f} TFLOPS, {r['device']})")
+
+    if args.defend:
+        import numpy as np
+
+        from tpul2_torch.dispatch import candidate_fn
+        from tpul2_torch.harness.bench_utils import fresh_inputs
+        from tpul2_torch.harness.defense import run_all_defenses
+        data = fresh_inputs(np.random.default_rng(args.seed), m, n, k, device=args.device)
+        dres = run_all_defenses(candidate_fn(args.acc, args.mode), data)
+        (base / "defense_result.json").write_text(json.dumps(dres, indent=1, default=str))
+        if not dres["pass"]:
+            print("defense checks FAILED:", file=sys.stderr)
+            for r in dres["defenses"]:
+                if not r["pass"]:
+                    print(f"  {r['name']}: {r}", file=sys.stderr)
+            return 1
+        print(f"defense checks passed ({len(dres['defenses'])} defenses)")
 
     md = summarize_results(str(base), write_path=str(base / "summary.md"))
     print()

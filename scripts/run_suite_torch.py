@@ -1,28 +1,46 @@
 #!/usr/bin/env python
-"""Shape-suite runner of tpul2_torch: the 0/1 gate, then the offline or server bench, for
-each shape of a list, one CSV row per shape in CUDA-L2's schema.
+"""Shape-suite runner of tpul2_torch: one CSV row per shape and family in CUDA-L2's schema,
+through the DB named by ``--db`` (default ``tpul2_torch/data/tunedb_h100.json``).
 
-  eval  for each shape not yet in the CSV: the gate (stop the shape if it fails), then
-        the bench against every baseline through the DB as it stands
-        (``TPUL2_TORCH_TUNEDB`` or ``tpul2_torch/data/tunedb_h100.json``); append the row
-        to ``<out_dir>/tpul2_torch_h100_<acc>_speedup_<mode>.csv`` and the shape's record
-        (each function's median, p99 and IQR, the dispatched config, the device) to the
-        ``.jsonl`` beside it.  Resumable: shapes already in the CSV are skipped.
+  eval --engine run_mode (the default)
+        for each shape not yet in the CSV: the gate (stop the shape if it fails), then
+        the bench against every baseline (``bench_offline._run_mode``, time-boxed);
+        append the row to ``<out_dir>/tpul2_torch_h100_<acc>_speedup_<mode>.csv`` and the
+        shape's record (each function's median, p99 and IQR, the dispatched config, the
+        device) to the ``.jsonl`` beside it.  A shape whose gate fails gets no row; its
+        failure goes to the sidecar and the run exits 1 after the other shapes.
+  eval --engine lean
+        the grid campaign (``harness.campaign``): both families from one set of baseline
+        measurements with fixed counts (``harness.bench_suite``), a row per family and a
+        record per shape in ``tpul2_torch_h100_all_speedup_<mode>.jsonl``.  ``--heal``
+        repairs the DB named by ``--db`` (a copy, never the committed file): tainted rows
+        are dropped within their journaled budgets and measured again, a losing entry is
+        demoted to the fastest screened vendor variant and its row measured again.
+        ``--defend`` runs the integrity defenses on each candidate; a row that fails one
+        is not written and the run exits 1.  An eval that raises (a kernel config that
+        does not build or launch) is recorded in the ``.failures`` file and the sidecar
+        and ends the run; no row stands in for it.
 
-The default list is ``harness.suite.DEFAULT_SHAPES``, the JAX harness's 20-shape sample
-of the reference's grid.  A shape whose gate fails gets no row; its failure goes to the
-sidecar and the run exits 1 after the other shapes.
+Both engines resume: a shape already in the CSV is skipped.  The shape list is
+``--shapes`` ('default' = ``harness.suite.DEFAULT_SHAPES``, the JAX harness's 20-shape
+sample of the reference's grid, or 'm,n,k;m,n,k;...') or ``--grid reference``, the
+reference's 1000-shape grid in ``--order`` (default stratified: every prefix keeps the
+grid's band mix) cut at ``--max_shapes``.
 
 Usage:
   python scripts/run_suite_torch.py eval --acc float32 --mode offline
   python scripts/run_suite_torch.py eval --acc bfloat16 --mode server --target_qps 100
   python scripts/run_suite_torch.py eval --device cpu --shapes "96,160,200" --out_dir /tmp/s
+  cp tpul2_torch/data/tunedb_h100.json runs/db.json
+  python scripts/run_suite_torch.py eval --engine lean --grid reference --order stratified \
+      --max_shapes 300 --heal --defend --db runs/db.json --out_dir eval_results/grid
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from pathlib import Path
@@ -56,10 +74,50 @@ def parse_args(argv=None):
     ev.add_argument("--correctness_seconds", type=float, default=30.0)
     ev.add_argument("--seed", type=int, default=0)
     ev.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ev.add_argument("--engine", choices=["run_mode", "lean"], default="run_mode",
+                    help="run_mode: gate + time-boxed bench per shape and family; lean: "
+                         "the grid campaign, both families per measurement")
+    ev.add_argument("--grid", choices=["reference"], default=None,
+                    help="the reference's 1000-shape grid instead of --shapes")
+    ev.add_argument("--order", choices=["lex", "cost", "stratified"], default="stratified")
+    ev.add_argument("--max_shapes", type=int, default=None)
+    ev.add_argument("--db", default=None,
+                    help="the TuneDB dispatch reads (default: the committed "
+                         "tpul2_torch/data/tunedb_h100.json)")
+    ev.add_argument("--heal", action="store_true",
+                    help="lean: repair tainted rows and losing DB entries (needs --db)")
+    ev.add_argument("--defend", action="store_true",
+                    help="lean: run the integrity defenses on each row's candidates")
+    ev.add_argument("--trials", type=int, default=None,
+                    help="lean: publication iterations per shape (requests in server mode)")
     args = ap.parse_args(argv)
     if args.mode == "server" and (args.target_qps is None or args.target_qps <= 0):
         ap.error("--mode server needs --target_qps > 0")
+    if args.engine == "run_mode" and (args.heal or args.defend or args.trials):
+        ap.error("--heal, --defend and --trials belong to --engine lean")
     return args
+
+
+def shape_list(args) -> list:
+    from tpul2_torch.harness.suite import REFERENCE_DIMS, grid
+    if args.grid == "reference":
+        return grid(REFERENCE_DIMS, max_shapes=args.max_shapes, order=args.order)
+    return parse_shapes(args.shapes)[:args.max_shapes]
+
+
+def cmd_eval_lean(args) -> int:
+    from tpul2_torch.harness.campaign import COMMITTED_DB, run_campaign
+    summary = run_campaign(shape_list(args), args.out_dir, mode=args.mode,
+                           db_path=args.db or COMMITTED_DB, heal=args.heal,
+                           defend=args.defend, trials=args.trials,
+                           target_qps=args.target_qps or 100.0, seed=args.seed,
+                           device=args.device)
+    times = list(summary["shape_seconds"].values())
+    print(f"{summary['rows']} rows in {summary['seconds']:.1f} s"
+          + (f" ({sum(times) / len(times):.2f} s per shape)" if times else "")
+          + f"; failed {summary['failed']}, healed {len(summary['healed'])} shapes, "
+          f"defense failed {summary['defense_failed']}", flush=True)
+    return 1 if summary["failed"] or summary["defense_failed"] else 0
 
 
 def cmd_eval(args) -> int:
@@ -75,12 +133,18 @@ def cmd_eval(args) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (pass --device cpu to run the plain versions)", file=sys.stderr)
         return 1
+    if args.engine == "lean":
+        return cmd_eval_lean(args)
+    if args.db:
+        from tpul2_torch.autotune import db as db_mod
+        os.environ[db_mod.ENV_VAR] = str(args.db)
+        db_mod.reset_default_db()
     info = device_info()
     device = info["nvidia_smi"] if args.device == "cuda" else "cpu"
     out = suite.csv_path(args.out_dir, args.acc, args.mode)
     sidecar = out.with_suffix(".jsonl")
     done = suite.done_shapes(out)
-    shapes = [s for s in parse_shapes(args.shapes) if suite.mnk_name(*s) not in done]
+    shapes = [s for s in shape_list(args) if suite.mnk_name(*s) not in done]
     print(f"{len(shapes)} shapes to evaluate into {out} ({len(done)} done)", file=sys.stderr)
     failed = []
     for m, n, k in shapes:

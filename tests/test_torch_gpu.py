@@ -487,3 +487,30 @@ def test_block_on_card_matches_the_cpu(cuda, empty_tunedb):
     assert res["cuda"][1] == pytest.approx(res["cpu"][1], rel=1e-3)
     for got, want in zip(res["cuda"][2], res["cpu"][2]):
         assert ((got - want).norm() / want.norm()).item() <= 0.02
+
+
+def test_stream_defense_flags_a_side_stream_cheat_and_passes_the_candidate(cuda):
+    """The side-stream cheat (the product on another stream, returned with no wait) is
+    flagged; the honest candidate passes with a side stream as the current stream, since
+    every launcher follows the caller's stream."""
+    from tpul2_torch.dispatch import candidate_fn
+    from tpul2_torch.harness import defense
+    from tpul2_torch.harness.bench_utils import fresh_inputs
+
+    data = fresh_inputs(np.random.default_rng(0), 4096, 4096, 4096)
+    side = torch.cuda.Stream()
+
+    def cheat(a, b, b_t):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            return torch.matmul(a, b)
+
+    res = defense.defend_against_stream_injection(cheat, data)
+    assert not res["pass"] and res["runs_flagged"] >= 2, res
+    assert res["authoritative_ms"] > res["event_ms"]
+    current = torch.cuda.Stream()
+    current.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(current):
+        honest = defense.run_all_defenses(candidate_fn("float32"), data)
+    torch.cuda.synchronize()
+    assert honest["pass"], honest

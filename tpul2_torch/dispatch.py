@@ -87,17 +87,11 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     return cfg
 
 
-def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2.0,
-                     min_speedup: float = 1.05) -> Optional[KernelConfig]:
-    """The nearest tuned neighbour's config adapted to (m, n, k), or None.
-
-    Neighbours lie within ``max_ratio`` on every dimension; the nearest in log space
-    wins, every measured entry ahead of those stored with ``"measured": false`` (a
-    server-only shape carries no offline measurement), as in ``tpul2/dispatch.py``.  A sentinel winner carries over as it is; a kernel winner whose stored speedup
-    over torch_matmul is below ``min_speedup`` (within noise) gives way to its family's
-    sentinel; a kernel winner that does not re-fit onto the new shape
-    (``transfer._adapt`` returns None when ``validate`` fails) gives way to the sentinel
-    too."""
+def _nearest_entry(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2.0):
+    """(shape, entry) of the nearest tuned neighbour, or None: within ``max_ratio`` on
+    every dimension, nearest in log space, every measured entry ahead of those stored
+    with ``"measured": false`` (a server-only shape carries no offline measurement), as
+    in ``tpul2/dispatch.py``."""
     best = None
     for (em, en, ek), entry in db.entries_near(m, n, k, acc, in_dtype, max_ratio=max_ratio):
         dist = sum(abs(math.log(max(e, q) / min(e, q)))
@@ -105,9 +99,21 @@ def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2
         rank = (not entry.get("measured", True), dist)
         if best is None or rank < best[0]:
             best = (rank, (em, en, ek), entry)
-    if best is None:
+    return None if best is None else best[1:]
+
+
+def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16",
+                     min_speedup: float = 1.05) -> Optional[KernelConfig]:
+    """The nearest tuned neighbour's config (``_nearest_entry``) adapted to (m, n, k), or
+    None.  A sentinel winner carries over as it is; a kernel winner whose stored speedup
+    over torch_matmul is below ``min_speedup`` (within noise) gives way to its family's
+    sentinel; a kernel winner that does not re-fit onto the new shape
+    (``transfer._adapt`` returns None when ``validate`` fails) gives way to the sentinel
+    too."""
+    near = _nearest_entry(db, m, n, k, acc, in_dtype)
+    if near is None:
         return None
-    _, src, entry = best
+    src, entry = near
     cfg = KernelConfig(**entry["config"])
     if cfg.use_vendor:
         return cfg
@@ -117,6 +123,24 @@ def _neighbor_config(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2
     from tpul2_torch.autotune.transfer import _adapt
     adapted = _adapt(cfg, src, (m, n, k))
     return adapted if adapted is not None else sentinel
+
+
+def config_source(m: int, n: int, k: int, acc: str = "float32", in_dtype="bfloat16",
+                  mode: str = "offline") -> dict:
+    """Where ``resolve_config``'s decision for the shape comes from, in its order:
+    ``{"source": "server_entry" | "entry" | "neighbour" | "heuristic"}``, with the
+    entry's ``scope`` (e.g. ``heal_demote``) and, for a neighbour, the shape it was
+    transferred from.  Not memoized: a record of the decision, off the call path."""
+    db = default_db()
+    if mode == "server" and db.get_server_entry(m, n, k, acc, in_dtype) is not None:
+        return {"source": "server_entry"}
+    entry = db.get_entry(m, n, k, acc, in_dtype)
+    if entry is not None:
+        return {"source": "entry", "scope": entry.get("scope")}
+    near = _nearest_entry(db, m, n, k, acc, in_dtype)
+    if near is not None:
+        return {"source": "neighbour", "from": list(near[0]), "scope": near[1].get("scope")}
+    return {"source": "heuristic"}
 
 
 def _vendor_product(variant: str, activation, out_dtype, a, rhs, bias):

@@ -117,6 +117,20 @@ def write_results(results: dict, base_dir: Optional[str]) -> None:
             (p / f"benchmark_result_{pf}.json").write_text(json.dumps(result, indent=1))
 
 
+def benchmark_offline(m: int, n: int, k: int,
+                      perf_func: str,
+                      acc: str = "float32",
+                      warmup_seconds: float = 2.0,
+                      benchmark_seconds: float = 10.0,
+                      base_dir: Optional[str] = None,
+                      seed: int = 0,
+                      device: str = "cuda") -> dict:
+    """Time the candidate against one baseline (the reference's one process per
+    perf_func); write and return its result."""
+    return benchmark_offline_all(m, n, k, [perf_func], acc, warmup_seconds,
+                                 benchmark_seconds, base_dir, seed, device)[perf_func]
+
+
 def benchmark_offline_all(m: int, n: int, k: int,
                           perf_funcs=None,
                           acc: str = "float32",

@@ -21,6 +21,21 @@ import numpy as np
 from tpul2_torch.harness.bench_offline import _run_mode, write_results
 
 
+def benchmark_server(m: int, n: int, k: int,
+                     perf_func: str,
+                     target_qps: float,
+                     acc: str = "float32",
+                     warmup_seconds: float = 2.0,
+                     benchmark_seconds: float = 10.0,
+                     base_dir: Optional[str] = None,
+                     seed: int = 0,
+                     device: str = "cuda") -> dict:
+    """The server twin against one baseline under Poisson arrivals; write and return its
+    result."""
+    return benchmark_server_all(m, n, k, target_qps, [perf_func], acc, warmup_seconds,
+                                benchmark_seconds, base_dir, seed, device)[perf_func]
+
+
 def benchmark_server_all(m: int, n: int, k: int,
                          target_qps: float,
                          perf_funcs=None,

@@ -28,7 +28,7 @@ import torch
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.dispatch import candidate_fn, resolve_config
 from tpul2_torch.ops.baselines import BASELINES
-from tpul2_torch.utils.platform import device_name
+from tpul2_torch.utils.platform import check_device, device_name
 
 #: Largest integer exactly representable for each output dtype's mantissa.
 EXACT_BOUND = {
@@ -211,7 +211,9 @@ def run_correctness_check(m: int, n: int, k: int,
 
     Pass criterion (reference :242-268): the candidate's average max-diff is exactly 0.0
     and free of NaN/Inf, no guard band was ever touched, and every variant is exact.
-    Baselines are reported, not gated on."""
+    Baselines are reported, not gated on.  Without a card it raises unless
+    ``device='cpu'``."""
+    check_device(device, "the gate checks the card's kernels")
     stats = compare_with_cpu_f32(m, n, k, acc, iterations=iterations,
                                  time_cap_s=time_cap_s, seed=seed, funcs=funcs,
                                  device=device, mode=mode)

@@ -11,13 +11,21 @@ cuBLASLt-auto-tuning-{tn,nn,max}``, where ``-max`` is the layout with the lower 
 columns; then ``device``, the nvidia-smi name and power limit the row was measured at.
 A JSONL sidecar beside each CSV keeps, per shape, every function's median, p99 and IQR,
 the dispatched config and the device record.
+
+The campaign's shape list is the reference's grid (``REFERENCE_DIMS`` cubed, SURVEY.md
+C14), ordered by ``grid`` and classified by ``band``: copies of ``scripts/run_suite.py``'s
+``grid`` and ``scripts/aggregate_results.py``'s ``band``, which the tests hold equal.
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import json
 from pathlib import Path
+
+#: The reference's grid edges: the campaign's shapes are this list cubed (1000 shapes).
+REFERENCE_DIMS = [64, 128, 256, 512, 1024, 2048, 4096, 8192, 12288, 16384]
 
 DEFAULT_SHAPES = [
     # thin-K (6)
@@ -139,3 +147,45 @@ def append_sidecar(path: Path, record: dict) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     with path.open("a") as f:
         f.write(json.dumps(record) + "\n")
+
+
+def band(mnk: str) -> str:
+    """The shape's band: 'square', 'thin-K', 'skinny' or 'other'.  The tuned library's
+    wins concentrate in the thin-K and skinny streaming bands; squares are the vendor
+    library's home ground."""
+    m, n, k = (int(x) for x in mnk.split("x"))
+    if m == n == k:
+        return "square"
+    if k <= 512 and max(m, n) >= 2048:
+        return "thin-K"
+    if (m <= 256 and min(n, k) >= 2048) or (n <= 256 and min(m, k) >= 2048):
+        return "skinny"
+    return "other"
+
+
+def grid(dims, max_shapes=None, max_elems=None, order: str = "lex") -> list:
+    """The (m, n, k) shapes of ``dims`` cubed, in ``order``.
+
+    'lex' is itertools.product's order; 'cost' puts cheap shapes first (by m·n·k);
+    'stratified' merges the bands' cost-ascending lists in proportion, so that every
+    prefix keeps the grid's band mix and a campaign cut by the clock is not all one band.
+    ``max_elems`` drops shapes whose largest operand holds more elements; ``max_shapes``
+    keeps the first ones."""
+    if order not in ("lex", "cost", "stratified"):
+        raise ValueError(f"order must be 'lex', 'cost' or 'stratified', got {order!r}")
+    shapes = list(itertools.product(dims, dims, dims))
+    if max_elems:
+        shapes = [s for s in shapes
+                  if max(s[0] * s[2], s[2] * s[1], s[0] * s[1]) <= max_elems]
+    if order == "cost":
+        shapes.sort(key=lambda s: (s[0] * s[1] * s[2], s))
+    elif order == "stratified":
+        buckets: dict = {}
+        for s in sorted(shapes, key=lambda s: (s[0] * s[1] * s[2], s)):
+            buckets.setdefault(band(mnk_name(*s)), []).append(s)
+        merged = sorted((i / len(bl), i, b, s) for b, bl in sorted(buckets.items())
+                        for i, s in enumerate(bl))
+        shapes = [s for _, _, _, s in merged]
+    if max_shapes:
+        shapes = shapes[:max_shapes]
+    return shapes

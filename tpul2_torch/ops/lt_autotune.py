@@ -9,7 +9,11 @@ as the shape's winner, and run the winner from then on.  The search and the laun
 driven from here.  It is a measuring baseline, never called by the port's dispatch.
 
 The reference times 50 warmup and 100 timed rounds; the counts here are fixed at
-``WARMUP_ROUNDS`` and ``TIMED_ROUNDS``, with no calibration.  The workspace is
+``WARMUP_ROUNDS`` and ``TIMED_ROUNDS``, with no calibration.  A caller that must bound the
+search's cost (the lean campaign engine, at shapes up to 16384^3, where one round of 100
+algos takes over a second) passes ``budget_ms``: one warmup round, then as many timed
+rounds as the algos' summed times of that round fit in the budget, at least
+``MIN_TIMED_ROUNDS`` and at most ``TIMED_ROUNDS``.  The workspace is
 ``WORKSPACE_BYTES``, allocated once through torch's allocator (the reference's 20 GB is
 far beyond what any algo asks on Hopper); an algo that needs more is skipped and counted.
 
@@ -31,6 +35,8 @@ from tpul2_torch.ops._build import load_library
 MAX_ALGOS = 100
 WARMUP_ROUNDS = 5
 TIMED_ROUNDS = 20
+#: The fewest timed rounds of a search bounded by ``budget_ms``.
+MIN_TIMED_ROUNDS = 3
 WORKSPACE_BYTES = 64 << 20
 #: Pointer alignment the heuristic's algos assume (cuBLASLt's default preference).
 ALIGN_BYTES = 256
@@ -49,6 +55,7 @@ class LtSearch:
     best: int
     medians_ms: list
     seconds: float
+    timed_rounds: int = TIMED_ROUNDS
 
 
 _SEARCHES: dict = {}
@@ -60,6 +67,11 @@ def select_winner(rounds_ms: list) -> tuple:
     such algo on a tie."""
     medians = [float(x) for x in np.median(np.asarray(rounds_ms, np.float64), axis=0)]
     return int(np.argmin(medians)), medians
+
+
+def bounded_rounds(budget_ms: float, round_ms: float) -> int:
+    """Timed rounds of a search bounded by ``budget_ms``, one round taking ``round_ms``."""
+    return max(MIN_TIMED_ROUNDS, min(TIMED_ROUNDS, int(budget_ms / max(round_ms, 1e-6))))
 
 
 def _check(err: int, what: str) -> None:
@@ -89,9 +101,10 @@ def _stream(device: torch.device) -> int:
 
 
 def search(m: int, n: int, k: int, layout: str, out_dtype: torch.dtype = torch.bfloat16,
-           device="cuda", seed: int = 0) -> LtSearch:
-    """The shape's search, run once per process and kept; raises if cuBLASLt refuses the
-    shape or an algo fails to launch."""
+           device="cuda", seed: int = 0, budget_ms: float | None = None) -> LtSearch:
+    """The shape's search, run once per process and kept (whatever budget a later call
+    names); raises if cuBLASLt refuses the shape or an algo fails to launch.
+    ``budget_ms`` bounds the timed rounds' summed algo time (module docstring)."""
     key = _key(m, n, k, layout, out_dtype)
     found = _SEARCHES.get(key)
     if found is not None:
@@ -111,25 +124,29 @@ def search(m: int, n: int, k: int, layout: str, out_dtype: torch.dtype = torch.b
     count = n_algos.value
     rng, order_rng = np.random.default_rng(seed), random.Random(seed)
     out = torch.empty((m, n), dtype=out_dtype, device=device)
-    rounds = []
+
+    def one_round() -> list:
+        """Every algo once, in a shuffled order, on fresh inputs: each one's ms."""
+        a, b, b_t = fresh_inputs(rng, m, n, k, device=device)
+        order = list(range(count))
+        order_rng.shuffle(order)
+        ms = (ctypes.c_float * count)()
+        _check(lib.tl2_lt_time_round(*key, a.data_ptr(),
+                                     (b_t if layout == "tn" else b).data_ptr(),
+                                     out.data_ptr(), ws.data_ptr(), WORKSPACE_BYTES,
+                                     (ctypes.c_int * count)(*order), count, ms,
+                                     _stream(device)), "cublasLt timing round")
+        return list(ms)
+
     with torch.cuda.device(device):
-        for r in range(WARMUP_ROUNDS + TIMED_ROUNDS):
-            a, b, b_t = fresh_inputs(rng, m, n, k, device=device)
-            order = list(range(count))
-            order_rng.shuffle(order)
-            ms = (ctypes.c_float * count)()
-            _check(lib.tl2_lt_time_round(*key, a.data_ptr(),
-                                         (b_t if layout == "tn" else b).data_ptr(),
-                                         out.data_ptr(), ws.data_ptr(), WORKSPACE_BYTES,
-                                         (ctypes.c_int * count)(*order), count, ms,
-                                         _stream(device)), "cublasLt timing round")
-            if r >= WARMUP_ROUNDS:
-                rounds.append(list(ms))
+        warm = [one_round() for _ in range(WARMUP_ROUNDS if budget_ms is None else 1)]
+        timed = TIMED_ROUNDS if budget_ms is None else bounded_rounds(budget_ms, sum(warm[-1]))
+        rounds = [one_round() for _ in range(timed)]
     best, medians = select_winner(rounds)
     _check(lib.tl2_lt_select(*key, best), "cublasLt select")
     found = _SEARCHES[key] = LtSearch(m, n, k, layout, str(out_dtype).removeprefix("torch."),
                                       count, n_skipped.value, best, medians,
-                                      time.perf_counter() - t0)
+                                      time.perf_counter() - t0, len(rounds))
     return found
 
 
