@@ -14,6 +14,12 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      ops.matmul.launch_route over a grid of shapes, tiles, bk (single intervals
      included), layouts and operand alignments, and tl2_staged_route with
      ops.pipelined.staged_route over shapes, tiles, depths, layouts and alignments
+  native  the native tuning cache (tpul2_torch/native, standalone: dispatch does not read
+     it): its g++ build time; the committed DB's 40 entries put into the cache, saved to a
+     file and loaded back must answer every exact key as the JSON does; then the host
+     microseconds of one exact-key lookup in the cache, in the JSON DB (TuneDB.get) and of
+     a resolve_config memo hit, and the ms of loading the cache's file against the JSON.
+     No kernel launches
   2  kernel vs plain torch version on the card over the grid
      {f32, bf16 acc} x {kn, nk} x {gk == 1, gk > 1} x {aligned, unaligned}
      x {no epilogue, bias + gelu|silu|tanh}, plus batched (B = 3), at the main-path
@@ -126,6 +132,19 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      busy time, idle share, top device ops) and a profiled train step through the
      heuristic and the vendor config, and profile_shape at FFN-1's shape with a trace;
      each kernel row's launches add the model path's
+  parallel  tpul2_torch.parallel on a world of one rank over NCCL (one card; NCCL refuses two
+     ranks on one device) and make_mesh(1): the five strategies (dp, tp, kshard,
+     kshard_scatter, 2d) at 4096^3 and 64x8192x8192 in both families, through the
+     committed DB and the heuristic, and at 64x8192x8192 with an explicit staged config
+     (64x64 ring tile, depth 4): exact on 0/1 inputs (density 0.1) against the unsharded
+     dispatch.matmul and the plain product; the counters (zeroed before each group of
+     strategy calls) must show the wgmma carry and the staged ring; then
+     make_sharded_train_step at full width (d_model 1024, d_ff 4096, batch 512, lr 1.0,
+     heuristic) for 3 steps against train_step on the same inputs (loss rtol 1e-3, each
+     weight's update within 0.1 relative L2), its loss falling and its counters showing the
+     single-K and multi-K wgmma bodies, both steps' ms back to back in turns, and one
+     profile_step of each (device busy ms, idle share, top device and host ops); each
+     kernel row's launches add the parallel layer's
 Phases 2 to 5 and the server slice measure the heuristic: they run with
 TPUL2_TORCH_TUNEDB naming an empty file, so the committed DB does not steer them.
 The last two lines are the per-kernel JSON record and {"ok": true, "device": {...}}.
@@ -705,6 +724,271 @@ def _model_phase(torch, counters, zero_counters, use_db) -> tuple:
     return rec, launches
 
 
+#: Phase parallel's strategy shapes (the bring-up square and the skinny serving shape) and
+#: the density of their 0/1 inputs: at 0.1 every sum, K = 8192 included, stays below 256
+#: with a wide margin, so both families and the bf16 output are exact.
+PARALLEL_SHAPES = [(4096, 4096, 4096), (64, 8192, 8192)]
+PARALLEL_DENSITY = 0.1
+#: The staged config phase parallel passes at 64x8192x8192 (a 64x64 ring tile, 4 stages).
+PARALLEL_STAGED = dict(bm=64, bn=64, bk=1024, pipeline_depth=4)
+#: The sharded FFN step: the model entry's widths, its lr (large enough that a step moves
+#: most bf16 weights at full width) and steps, and the tolerances against the single-device
+#: step.
+FFN_SHARDED_LR, FFN_SHARDED_STEPS = 1.0, 3
+FFN_LOSS_RTOL, FFN_UPDATE_REL_L2 = 1e-3, 0.1
+
+
+def _median_us(fn, reps: int) -> float:
+    """Median host microseconds of one call over ``reps`` calls."""
+    import statistics
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append((time.perf_counter_ns() - t0) / 1e3)
+    return statistics.median(times)
+
+
+def _native_phase(repo: Path, use_db) -> dict:
+    """Phase native: the g++ build of the tuning cache, the committed DB's entries through
+    the cache and its file against the JSON, and the host cost of an exact-key lookup in
+    the cache against the JSON DB's and a resolve_config memo hit's, and of loading the
+    cache's file against the JSON.  Host code only: no kernel launches."""
+    from tpul2_torch.autotune import db as db_mod
+    from tpul2_torch.config import KernelConfig
+    from tpul2_torch.dispatch import resolve_config
+    from tpul2_torch.native import NativeTuneCache, build
+    from tpul2_torch.utils.platform import nvidia_smi_name_power
+
+    rec = {}
+    t0 = time.perf_counter()
+    lib = build.load_native()
+    rec["build_seconds"] = lib.build_seconds
+    rec["load_seconds"] = time.perf_counter() - t0
+    print(f"  g++ build {lib.build_seconds:.3f} s (0.0 = library was current), load "
+          f"{rec['load_seconds']:.3f} s: {build.LIB_PATH.name}")
+
+    committed = repo / "tpul2_torch" / "data" / "tunedb_h100.json"
+    entries = json.loads(committed.read_text())["entries"]
+    db = db_mod.TuneDB(path=committed).load()
+    nc = NativeTuneCache()
+    keys = []
+    for key, e in entries.items():
+        mnk, acc, dt = key.split("/")
+        keys.append((*(int(x) for x in mnk.split("_")), acc, dt))
+        nc.put(*keys[-1][:3], KernelConfig(**e["config"]), acc=acc, in_dtype=dt,
+               tflops=e.get("tflops", 0.0))
+    path = repo / "runs" / "chip_smoke" / "native" / "tunedb_h100.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    nc.save(path)
+    back = NativeTuneCache().load(path)
+    bad = [key for key in keys if back.get(*key) != db.get(*key)]
+    rec["committed"] = {"entries": len(entries), "cache_size": len(back), "mismatches": bad}
+    print(f"  committed DB: {len(entries)} entries through the cache and its file, "
+          f"mismatches {bad}")
+    if bad or len(back) != len(entries) or len(entries) != 40:
+        raise AssertionError("the cache does not answer the committed DB's 40 entries")
+
+    use_db("committed")
+    default = db_mod.default_db()
+
+    def native_gets():
+        for key in keys:
+            back.get(*key)
+
+    def json_gets():
+        for key in keys:
+            db.get(*key)
+
+    def memo_hits():
+        for key in keys:
+            resolve_config(*key)
+
+    memo_hits()
+    per = len(keys)
+    native_us = _median_us(native_gets, 50) / per
+    json_us = _median_us(json_gets, 50) / per
+    hit_us = _median_us(memo_hits, 50) / per
+    load_bin = _median_us(lambda: NativeTuneCache().load(path), 20)
+    load_json = _median_us(lambda: db_mod.TuneDB(path=committed).load(), 20)
+    rec["host_us"] = {"native_get": native_us, "json_get": json_us,
+                      "resolve_memo_hit": hit_us, "cache_file_load_ms": load_bin / 1e3,
+                      "json_load_ms": load_json / 1e3, "memo_entries": len(default.memo)}
+    print(f"  host time per call (median of 50 passes over the 40 keys): exact-key lookup "
+          f"{native_us:.3f} us in the native cache, {json_us:.3f} us in the JSON DB; "
+          f"resolve_config memo hit {hit_us:.3f} us; load: cache file {load_bin / 1e3:.4f} "
+          f"ms, JSON (TuneDB.load) {load_json / 1e3:.4f} ms ({nvidia_smi_name_power()})")
+    return rec
+
+
+def _parallel_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple:
+    """Phase parallel: a world of one rank on NCCL (the machine has one card, and NCCL
+    refuses two ranks on one device), make_mesh(1), the five sharded strategies at full
+    size through the committed DB and the heuristic and once with an explicit staged
+    config, exact on 0/1 inputs against the unsharded dispatch.matmul and the plain
+    product; then the sharded FFN step at full width against train_step.  Returns (record,
+    the launches of the counted parts)."""
+    import torch.distributed as dist
+
+    from tpul2_torch import parallel as par
+    from tpul2_torch.config import KernelConfig
+    from tpul2_torch.dispatch import matmul
+    from tpul2_torch.harness import profiling
+    from tpul2_torch.models import init_ffn, make_sharded_train_step, train_step
+    from tpul2_torch.models.entry import D_FF, D_MODEL, SEQ
+    from tpul2_torch.utils.platform import nvidia_smi_name_power
+
+    rec = {"tolerances": {"ffn_loss_rtol": FFN_LOSS_RTOL,
+                          "ffn_update_rel_l2_per_tensor": FFN_UPDATE_REL_L2}}
+    launches = {key: 0 for key in counters()}
+    rendezvous = repo / "runs" / "chip_smoke" / "nccl_rendezvous"
+    rendezvous.parent.mkdir(parents=True, exist_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0,
+                            world_size=1)
+    try:
+        mesh = par.make_mesh(1)
+        rec["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend()}
+        print(f"  mesh {rec['mesh']}")
+        strategies = {
+            "dp_matmul": lambda a, b, **kw: par.dp_matmul(a, b, mesh, **kw),
+            "tp_matmul": lambda a, b, **kw: par.tp_matmul(a, b, mesh, **kw),
+            "kshard_matmul": lambda a, b, **kw: par.kshard_matmul(a, b, mesh, **kw),
+            "kshard_scatter_matmul": lambda a, b, **kw: par.kshard_scatter_matmul(
+                a, b, mesh, **kw),
+            "sharded_matmul_2d": lambda a, b, **kw: par.sharded_matmul_2d(a, b, mesh, **kw)}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        inputs = {}
+        for m, n, k in PARALLEL_SHAPES:
+            a = (torch.rand((m, k), generator=gen, device="cuda") < PARALLEL_DENSITY)
+            b = (torch.rand((k, n), generator=gen, device="cuda") < PARALLEL_DENSITY)
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            inputs[(m, n, k)] = (a, b, (a.float() @ b.float()).to(torch.bfloat16))
+        runs = [(db, acc, shape, None) for db in ("committed", "heuristic")
+                for acc in ("float32", "bfloat16") for shape in PARALLEL_SHAPES]
+        runs += [("heuristic", acc, (64, 8192, 8192),
+                  KernelConfig(**PARALLEL_STAGED, acc_dtype=acc))
+                 for acc in ("float32", "bfloat16")]
+        rec["strategies"] = []
+        for db, acc, shape, config in runs:
+            use_db(db)
+            a, b, plain = inputs[shape]
+            whole = matmul(a, b, acc=acc, config=config)  # the comparison: not counted
+            zero_counters()
+            outs = {name: fn(a, b, acc=acc, config=config)
+                    for name, fn in strategies.items()}
+            torch.cuda.synchronize()
+            got = counters()
+            for key, v in got.items():
+                launches[key] += v
+            wrong = [name for name, out in outs.items()
+                     if not (torch.equal(out, whole) and torch.equal(out, plain))]
+            if not torch.equal(whole, plain):
+                wrong.append("unsharded")
+            label = "staged" if config is not None else db
+            row = {"shape": list(shape), "acc": acc, "config": label, "wrong": wrong,
+                   "launches": {key: v for key, v in got.items() if v}}
+            rec["strategies"].append(row)
+            print(f"  {shape[0]}x{shape[1]}x{shape[2]} {acc} ({label}): 5 strategies + the "
+                  f"unsharded product, exact on 0/1 inputs: {not wrong}; launches "
+                  f"{json.dumps(row['launches'])}")
+            if wrong:
+                raise AssertionError(f"{wrong} differ from the plain product ({row})")
+        need = ("multi_k_wgmma", "staged_ring")
+        if any(launches[key] <= 0 for key in need):
+            raise AssertionError(f"the strategies did not launch {need}: {launches}")
+
+        # the sharded FFN step at full width (heuristic: FFN-1 on the single-K body, FFN-2
+        # on the K carry) against train_step on the same inputs
+        use_db("heuristic")
+        fgen = torch.Generator(device="cuda")
+        fgen.manual_seed(12)
+        params = init_ffn(fgen, D_MODEL, D_FF)
+        x, y = (torch.randn((SEQ, D_MODEL), generator=fgen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        step, shard_fn = make_sharded_train_step(mesh, lr=FFN_SHARDED_LR)
+        blocks = shard_fn(params, x, y)
+
+        def sharded():
+            w1, w2, xs, ys = blocks
+            losses = []
+            for _ in range(FFN_SHARDED_STEPS):
+                w1, w2, loss = step(w1, w2, xs, ys)
+                losses.append(float(loss))
+            return (w1, w2), losses
+
+        def single():
+            p, losses = params, []
+            for _ in range(FFN_SHARDED_STEPS):
+                p, loss = train_step(p, x, y, lr=FFN_SHARDED_LR)
+                losses.append(float(loss))
+            return tuple(p), losses
+
+        zero_counters()
+        (sw, sl) = sharded()
+        torch.cuda.synchronize()
+        ffn_launches = counters()
+        for key, v in ffn_launches.items():
+            launches[key] += v
+        (rw, rl) = single()
+        loss_rel = [abs(s - r) / abs(r) for s, r in zip(sl, rl)]
+        upd, differ, identical = {}, {}, True
+        for name, s, r, p0 in zip(("w1", "w2"), sw, rw, params):
+            ds, dr = s.float() - p0.float(), r.float() - p0.float()
+            upd[name] = ((ds - dr).norm() / dr.norm()).item()
+            differ[name] = (s != r).float().mean().item()
+            identical = identical and torch.equal(s, r)
+        rec["ffn"] = {"d_model": D_MODEL, "d_ff": D_FF, "batch": SEQ, "lr": FFN_SHARDED_LR,
+                      "sharded_losses": sl, "single_losses": rl, "loss_rel_diff": loss_rel,
+                      "update_rel_l2": upd, "weights_differing_share": differ,
+                      "bit_identical": identical and sl == rl,
+                      "launches": {key: v for key, v in ffn_launches.items() if v}}
+        print(f"  sharded FFN step ({D_MODEL} x {D_FF}, batch {SEQ}, lr {FFN_SHARDED_LR}, "
+              f"heuristic): loss {json.dumps(sl)} against train_step's {json.dumps(rl)} "
+              f"(relative {json.dumps([round(v, 8) for v in loss_rel])}, <= {FFN_LOSS_RTOL}); "
+              f"update relative L2 {json.dumps(upd)} (<= {FFN_UPDATE_REL_L2}); share of "
+              f"weights differing {json.dumps(differ)}; bit-identical "
+              f"{rec['ffn']['bit_identical']}; launches {json.dumps(rec['ffn']['launches'])}")
+        if not rec["ffn"]["bit_identical"]:
+            print("  (not bit-identical: the sharded step keeps FFN-2's output in f32 into the "
+                  "loss, the JAX sharded step's layout, where train_step's ffn_forward rounds "
+                  "it to bf16; the all-reduce over one rank adds nothing)")
+        if not all(math.isfinite(v) for v in sl) or not sl[-1] < sl[0]:
+            raise AssertionError(f"the sharded step's loss is not finite and falling: {sl}")
+        if max(loss_rel) > FFN_LOSS_RTOL or max(upd.values()) > FFN_UPDATE_REL_L2:
+            raise AssertionError("the sharded step differs from train_step")
+        if ffn_launches["single_k_wgmma"] <= 0 or ffn_launches["multi_k_wgmma"] <= 0:
+            raise AssertionError(f"the sharded step did not run the single-K and multi-K "
+                                 f"wgmma bodies: {ffn_launches}")
+
+        # the sharded step's ms against train_step's, back to back, in turns
+        times = {"sharded": [], "single": []}
+        for kind in ("single", "sharded", "sharded", "single"):
+            fn = ((lambda: step(*blocks)) if kind == "sharded"
+                  else (lambda: train_step(params, x, y, lr=FFN_SHARDED_LR)))
+            times[kind].append(_time_ms(torch, fn, reps=10))
+        rec["ffn"]["step_ms"] = times
+        print(f"  step ms (CUDA events over 10 back-to-back steps, in turns): sharded "
+              f"{json.dumps(times['sharded'])}, train_step {json.dumps(times['single'])} "
+              f"({nvidia_smi_name_power()})")
+        rec["ffn"]["profile"] = {
+            "sharded": profiling.profile_step(lambda: step(*blocks)),
+            "single": profiling.profile_step(
+                lambda: train_step(params, x, y, lr=FFN_SHARDED_LR))}
+        for kind, prof in rec["ffn"]["profile"].items():
+            print(f"  profile_step {kind}: wall {prof['wall_ms']:.3f} ms (unprofiled "
+                  f"{prof['wall_ms_unprofiled']:.3f}), device busy {prof['device_busy_ms']} "
+                  f"ms, idle share {prof['idle_share']}")
+            print(f"    top device ops {json.dumps(prof['top_device_ops'][:6])}")
+            print(f"    top host ops {json.dumps(prof['top_host_ops'][:6])}")
+    finally:
+        dist.destroy_process_group()
+    return rec, launches
+
+
 #: Phase campaign's shapes: the heuristic's multi-K (4096^3) and single-K (FFN-1's
 #: 512x4096x1024) wgmma routes, and the skinny serving shape through the committed DB.
 CAMPAIGN_HEURISTIC_SHAPES = [(4096, 4096, 4096), (512, 4096, 1024)]
@@ -1151,6 +1435,16 @@ def main(argv=None) -> int:
         path.unlink(missing_ok=True)
         os.environ[db_mod.ENV_VAR] = str(path)
         db_mod.reset_default_db()
+
+    def use_db(kind: str) -> None:
+        if kind == "heuristic":
+            pin_empty_db()
+        else:  # the committed tpul2_torch/data/tunedb_h100.json
+            os.environ.pop(db_mod.ENV_VAR, None)
+            db_mod.reset_default_db()
+
+    with phase("native"):
+        record["native"] = _native_phase(repo, use_db)
 
     pin_empty_db()
 
@@ -1940,21 +2234,19 @@ def main(argv=None) -> int:
         record["committed_db_launches"] = counters()
         print("  launches " + json.dumps(record["committed_db_launches"]))
 
-    def use_db(kind: str) -> None:
-        if kind == "heuristic":
-            pin_empty_db()
-        else:  # the committed tpul2_torch/data/tunedb_h100.json
-            os.environ.pop(db_mod.ENV_VAR, None)
-            db_mod.reset_default_db()
-
     with phase("campaign"):
         record["campaign"], campaign_launches = _campaign_phase(torch, repo, counters,
                                                                 zero_counters, use_db)
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
-    # each kernel row's launches: its main paths', the campaign's and the model path's
+    with phase("parallel"):
+        record["parallel"], parallel_launches = _parallel_phase(torch, repo, counters,
+                                                                zero_counters, use_db)
+    # each kernel row's launches: its main paths', the campaign's, the model path's and the
+    # parallel layer's
     for row, key in zip(kernels, kernel_keys):
-        row["launches"] += campaign_launches[key] + model_launches[key]
+        row["launches"] += (campaign_launches[key] + model_launches[key]
+                            + parallel_launches[key])
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported on the port's path")

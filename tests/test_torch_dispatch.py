@@ -151,7 +151,8 @@ def test_port_imports_no_jax():
             "tpul2_torch.harness.suite, tpul2_torch.ops.lt_autotune, "
             "tpul2_torch.autotune, tpul2_torch.autotune.db, tpul2_torch.autotune.search, "
             "tpul2_torch.autotune.transfer, tpul2_torch.autotune.__main__, "
-            "tpul2_torch.utils.platform; print('jax' in sys.modules)")
+            "tpul2_torch.utils.platform, tpul2_torch.native, tpul2_torch.parallel, "
+            "tpul2_torch.models; print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "False"
@@ -160,7 +161,7 @@ def test_port_imports_no_jax():
 def test_port_sources_name_no_jax():
     for path in list((REPO / "tpul2_torch").rglob("*.py")) + [
             REPO / "chip_smoke.py", REPO / "scripts" / "eval_one_shape_torch.py",
-            REPO / "scripts" / "run_suite_torch.py"]:
+            REPO / "scripts" / "run_suite_torch.py", REPO / "tests" / "_torch_ranks.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from tpul2." not in text and "import tpul2\n" not in text, path

@@ -17,6 +17,7 @@ from tpul2_torch.models.mlp import (  # noqa: F401
     ffn_forward,
     init_ffn,
     loss_fn,
+    make_sharded_train_step,
     train_step,
 )
 from tpul2_torch.models.transformer import (  # noqa: F401
