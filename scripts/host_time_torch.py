@@ -17,7 +17,8 @@ host time per call, on the host clock, the median and the least of ``--reps`` ba
   launch_host_ms  ops.matmul.launch_kernel with the resolved config: the wrapper below
                   check_operands (the route, the argument tuple, ctypes, the C launcher);
   direct_host_ms  the C launcher alone through ctypes with a prebuilt argument tuple, for
-                  each body whose C route takes the shape (tl2_matmul_*out always);
+                  each body whose C route takes the shape (tl2_matmul_*out, on no route of
+                  the package since its ring took every launch, always);
   torch_host_ms   torch.matmul (torch.bmm for the batched row);
 steps_us, the steps of the entry point one at a time (microseconds per call, the median
 of ``--reps`` batches of 2000 calls):

@@ -7,7 +7,7 @@ import torch
 
 import tpul2.config as jcfg
 from tpul2_torch.config import (KSTEP, NUM_SMS, SMEM_LIMIT, TILE_CHOICES, WGMMA_TILES,
-                                KernelConfig, heuristic_config)
+                                KernelConfig, carry_stages, heuristic_config)
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 from tpul2_torch.utils.padding import cdiv
 
@@ -80,8 +80,10 @@ def test_validate_vendor_variants():
 @pytest.mark.parametrize("bn", TILE_CHOICES)
 def test_smem_model(bm, bn):
     cfg = KernelConfig(bm=bm, bn=bn)
-    # one stage of A (bm x 40) and B (bn x 40) bf16 tiles, rows padded by 8
-    assert cfg.smem_bytes() == (bm + bn) * (KSTEP + 8) * 2
+    # the carry ring: carry_stages stages of A (bm rows) and B (bn rows) of 64 bf16 each,
+    # the 1024-byte alignment slack and two mbarriers a stage
+    stages = carry_stages(bm, bn)
+    assert cfg.smem_bytes() == 1024 + stages * (bm + bn) * 2 * KSTEP * 2 + 16 * stages
     assert cfg.smem_bytes() <= SMEM_LIMIT and cfg.validate() is None
 
 

@@ -57,11 +57,11 @@ def test_kernel_matches_plain(cuda, acc, layout, bk):
     a = _01((M, K), 1).to(cuda)
     rhs = _01((N, K) if layout == "nk" else (K, N), 2).to(cuda)
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
-    assert mm.launch_route(cfg, a, rhs, M, N, K) == "mma_sync"  # K % 8 != 0
-    before = mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K_MMA_SYNC
+    assert mm.launch_route(cfg, a, rhs, M, N, K) == "wgmma_lsu"  # K % 8 != 0
+    before = mm.LAUNCHES_MULTI_K_WGMMA_LSU + mm.LAUNCHES_SINGLE_K_WGMMA_LSU
     got = fn(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_MULTI_K_MMA_SYNC + mm.LAUNCHES_SINGLE_K_MMA_SYNC == before + 1
+    assert mm.LAUNCHES_MULTI_K_WGMMA_LSU + mm.LAUNCHES_SINGLE_K_WGMMA_LSU == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
     assert torch.equal(got, want)
 
@@ -180,15 +180,17 @@ def test_wgmma_long_interval_stays_in_f32_tolerance(cuda, layout):
 
 
 def test_wgmma_refused_launch_raises(cuda):
-    """A launch outside the wgmma route (K % 8 != 0) is refused by the C launcher before
-    any work, and check_launch raises LaunchRefused; the route sends it to mma.sync."""
+    """A launch outside the ring's route (bk 48, not a multiple of 32, which validate also
+    refuses) is refused by the C launcher before any work, and check_launch raises
+    LaunchRefused; K % 8 != 0 is on the route, with the loads producer."""
     lib = load_library()
     m, n, k = 64, 64, 1001
-    cfg = KernelConfig(bm=64, bn=64, bk=128)
+    cfg = KernelConfig(bm=64, bn=64, bk=48)
+    assert cfg.validate() is not None
     a, b = _01((m, k), 22).to(cuda), _01((k, n), 23).to(cuda)
     out = torch.empty((m, n), dtype=torch.float32, device=cuda)
-    assert mm.launch_route(cfg, a, b, m, n, k) == "mma_sync"
-    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr()) == 0
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr()) == 2
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 48, 0, a.data_ptr(), b.data_ptr()) == 0
     err = lib.tl2_wgmma_f32out(*mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
     with pytest.raises(LaunchRefused, match="launch failed"):
         check_launch(err, "tl2_wgmma")
@@ -218,24 +220,27 @@ def test_bf16_family_single_interval_is_the_f32_sum(cuda):
 
 def test_wgmma_smem_model_matches_the_kernel(cuda):
     lib = load_library()
-    for bm in mm.WGMMA_TILES:
-        for bn in mm.WGMMA_TILES:
-            assert lib.tl2_wgmma_smem_bytes(bm, bn, 4) == mm.wgmma_smem_bytes(bm, bn)
+    for bm in (32, 64, 128):
+        for bn in (32, 64, 128):
+            assert lib.tl2_wgmma_carry_stages(bm, bn) == mm.carry_stages(bm, bn)
+            assert (lib.tl2_wgmma_smem_bytes(bm, bn, mm.carry_stages(bm, bn))
+                    == mm.wgmma_smem_bytes(bm, bn))
             for stages in (2, 3, 6, 8):
                 assert (lib.tl2_wgmma_smem_bytes(bm, bn, stages)
                         == mm.wgmma_smem_bytes(bm, bn, stages))
 
 
 def _staged_counts() -> tuple:
-    return pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC, pl.LAUNCHES_STAGED_SPLIT
+    return pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_RING_LSU, pl.LAUNCHES_STAGED_SPLIT
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("depth", [2, 3, 4, 6, 8])
 @pytest.mark.parametrize("tile", [(32, 64), (64, 128), (128, 128)])
 def test_staged_kernel_matches_plain(cuda, layout, depth, tile):
-    """Each route's staged body against its plain version with the same split count;
-    128 x 128 at depth 8 needs more than 227 KB on the ring, which validate refuses."""
+    """The staged ring on every tile (a swapped 32-edge one included) against its plain
+    version with the same split count; 128 x 128 at depth 8 needs more than 227 KB,
+    which validate refuses."""
     m, n, k = 256, 512, 2048
     cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=256, acc_dtype="bfloat16",
                        rhs_layout=layout, pipeline_depth=depth,
@@ -247,29 +252,23 @@ def test_staged_kernel_matches_plain(cuda, layout, depth, tile):
         with pytest.raises(ValueError, match="shared memory"):
             pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=torch.float32)
         return
-    route = pl.staged_route(cfg, a, rhs, m, n, k)
-    assert route == ("mma_sync" if 32 in tile else "ring")
-    splits = pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route == "ring" else 1
-    ring, mma_sync, split = _staged_counts()
+    assert pl.staged_route(cfg, a, rhs, m, n, k) == "ring"
+    splits = pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth)
+    ring, ring_lsu, split = _staged_counts()
     got = pl.cuda_matmul_pipelined(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert _staged_counts() == (ring + (route == "ring"), mma_sync + (route == "mma_sync"),
-                                split + (splits > 1))
+    assert _staged_counts() == (ring + 1, ring_lsu, split + (splits > 1))
     assert torch.equal(got, pl.pipelined_reference(a, rhs, layout, torch.float32, splits))
 
 
 def test_staged_smem_model_matches_the_kernel(cuda):
-    """Each route's count: the ring tiles tl2_wgmma.cu's, the 32-edge tiles
-    tl2_staged.cu's."""
+    """Every tile's staged ring: tl2_wgmma.cu's count at each depth."""
     lib = load_library()
     for bm in (32, 64, 128):
         for bn in (32, 64, 128):
             for depth in (2, 3, 4, 6, 8):
                 cfg = KernelConfig(bm=bm, bn=bn, pipeline_depth=depth)
-                if bm in mm.WGMMA_TILES and bn in mm.WGMMA_TILES:
-                    assert lib.tl2_wgmma_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
-                else:
-                    assert lib.tl2_staged_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
+                assert lib.tl2_wgmma_smem_bytes(bm, bn, depth) == cfg.smem_bytes()
 
 
 def test_staged_route_matches_the_c_rule(cuda):
@@ -287,10 +286,10 @@ def test_staged_route_matches_the_c_rule(cuda):
                         for layout in ("kn", "nk"):
                             cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
                                                pipeline_depth=2)
-                            py = pl.staged_route(cfg, a, b, m, n, k) == "ring"
-                            assert py == bool(lib.tl2_staged_route(
+                            py = {"ring": 1, "ring_lsu": 2}[pl.staged_route(cfg, a, b, m, n, k)]
+                            assert py == lib.tl2_staged_route(
                                 m, n, k, bm, bn, int(layout == "nk"), a.data_ptr(),
-                                b.data_ptr())), (m, n, k, cfg, off_a, off_b)
+                                b.data_ptr()), (m, n, k, cfg, off_a, off_b)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -350,26 +349,88 @@ def test_staged_single_k_takes_the_single_k_kernel(cuda):
 
 
 def test_staged_refused_launch_raises(cuda):
-    """A tile the staged kernel has no instance for, a ring tile on the mma.sync body, a
-    32-edge tile on the ring, and a split count that leaves a split empty: the launchers
-    refuse before any work and the wrapper raises; a misaligned operand raises before the
-    launch."""
+    """A tile the staged kernel has no instance for, a depth below 2, and a split count
+    that leaves a split empty: the launcher refuses before any work and the wrapper
+    raises.  A base 2 bytes off 16 takes the loads producer ('ring_lsu', the same sum); an
+    out off 16 bytes raises before the launch."""
     a, b = _01((192, 256), 13).to(cuda), _01((256, 192), 14).to(cuda)
     out = torch.empty((192, 192), dtype=torch.float32, device=cuda)
-    for tile, route, splits in (((48, 48), "mma_sync", 1), ((64, 64), "mma_sync", 1),
-                                ((32, 64), "ring", 1), ((64, 64), "ring", 3)):
+    for tile, depth, splits in (((48, 48), 2, 1), ((64, 64), 1, 1), ((64, 64), 2, 3)):
         cfg = KernelConfig(bm=tile[0], bn=tile[1], pipeline_depth=2)
         with pytest.raises(LaunchRefused, match="launch failed"):
-            pl.launch_staged(a, b, cfg, out, 2, 192, 192, 256, route, splits)
+            pl.launch_staged(a, b, cfg, out, depth, 192, 192, 256, splits)
     buf = _01((64 * 256 + 8,), 15).to(cuda)
     a_off = buf[8:].view(64, 256)  # 16-byte rows, but a base 16 bytes past the allocation
-    a_odd = buf[1:1 + 64 * 256].view(64, 256)  # base 2 bytes off: no 16-byte copies
+    a_odd = buf[1:1 + 64 * 256].view(64, 256)  # base 2 bytes off: the loads producer
+    rhs = _01((256, 64), 16).to(cuda)
     cfg = KernelConfig(bm=64, bn=64, bk=64, pipeline_depth=2)
-    got = pl.cuda_matmul_pipelined(a_off, _01((256, 64), 16).to(cuda), cfg)
+    got = pl.cuda_matmul_pipelined(a_off, rhs, cfg, out_dtype=torch.float32)
+    assert pl.staged_route(cfg, a_odd, rhs, 64, 64, 256) == "ring_lsu"
+    lsu = pl.LAUNCHES_STAGED_RING_LSU
+    odd = pl.cuda_matmul_pipelined(a_odd, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert got.shape == (64, 64)
+    assert pl.LAUNCHES_STAGED_RING_LSU == lsu + 1
+    for x, got_x in ((a_off, got), (a_odd, odd)):
+        assert torch.equal(got_x, pl.pipelined_reference(x, rhs, "kn", torch.float32,
+                                                         pl.staged_splits(64, 64, 256, 64,
+                                                                          64, 2)))
+    bad_out = torch.empty(64 * 64 + 1, dtype=torch.float32, device=cuda)[1:].view(64, 64)
     with pytest.raises(ValueError, match="16-byte"):
-        pl.cuda_matmul_pipelined(a_odd, _01((256, 64), 16).to(cuda), cfg)
+        pl.cuda_matmul_pipelined(a_off, rhs, cfg, out=bad_out)
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("tile", [(32, 32), (32, 64), (32, 128), (64, 32), (128, 32)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_narrow_tiles_match_plain(cuda, layout, tile):
+    """The width-32 and swapped tiles at decode-size M and N edges, a bf16-family carry
+    with a rounding point in the middle of a stage (bk 96): 0/1 inputs exact, normal inputs
+    within allowed_error."""
+    m, n, k = 17, 2 * tile[1] + 9, 328
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=96, acc_dtype="bfloat16", rhs_layout=layout)
+    fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(24)
+    counter = "LAUNCHES_WIDTH32" if tile[1] == 32 else "LAUNCHES_SWAPPED"
+    for zero_one in (True, False):
+        shape_b = (n, k) if layout == "nk" else (k, n)
+        if zero_one:
+            a, rhs = _01((m, k), 25).to(cuda), _01(shape_b, 26).to(cuda)
+        else:
+            a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+            rhs = torch.randn(shape_b, generator=gen, device=cuda).bfloat16()
+        before, mid = getattr(mm, counter), mm.LAUNCHES_MIDSTAGE
+        got = fn(a, rhs, cfg, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert getattr(mm, counter) == before + 1 and mm.LAUNCHES_MIDSTAGE == mid + 1
+        want = mm.matmul_reference(a, rhs, cfg.bk, "bfloat16", layout, out_dtype=torch.float32)
+        if zero_one:
+            assert torch.equal(got, want)
+        else:
+            tol = mm.allowed_error(a, rhs, cfg.bk, "bfloat16", layout, torch.float32)
+            assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("tile", [(128, 128), (32, 64), (64, 32)], ids=lambda t: f"{t[0]}x{t[1]}")
+def test_loads_producer_gives_the_tma_bits(cuda, tile):
+    """Aligned operands launched directly with the loads producer on A, on B and on both
+    (vec_a / vec_b = 0): the same stages and wgmmas as the TMA producer, so the same bits."""
+    lib = load_library()
+    m, n, k = 96, 200, 520
+    cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, acc_dtype="bfloat16")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(27)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    outs = []
+    for vec_a, vec_b in ((1, 1), (0, 1), (1, 0), (0, 0)):
+        out = torch.empty((m, n), dtype=torch.float32, device=cuda)
+        args = list(mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
+        args[18], args[19] = vec_a, vec_b
+        check_launch(lib.tl2_wgmma_f32out(*args), "tl2_wgmma_f32out")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_tuner_on_card(cuda, tmp_path):

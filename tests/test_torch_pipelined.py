@@ -27,8 +27,9 @@ import tpul2.config as jcfg
 from tpul2.dispatch import matmul as jax_matmul
 from tpul2.ops.pipelined import pallas_matmul_pipelined
 from tpul2_torch import dispatch
-from tpul2_torch.config import (NUM_SMS, SMEM_LIMIT, TILE_CHOICES, WGMMA_KSTAGE, WGMMA_TILES,
-                                KernelConfig, wgmma_smem_bytes)
+from tpul2_torch.config import (NUM_SMS, SMEM_LIMIT, TILE_CHOICES, WGMMA_KSTAGE, KernelConfig,
+                                wgmma_smem_bytes)
+from tpul2_torch.ops import launch_counts
 from tpul2_torch.ops import matmul as mm
 from tpul2_torch.ops import pipelined as pl
 
@@ -266,17 +267,14 @@ def test_batched_dispatch_ignores_depth():
 @pytest.mark.parametrize("bm", TILE_CHOICES)
 @pytest.mark.parametrize("bn", TILE_CHOICES)
 def test_smem_grows_with_depth(bm, bn):
-    """Each staged route's own count: the ring tiles tl2_wgmma.cu's ring of 64-deep stages
-    (1024 + depth·(bm + bn)·128 + 16·depth), the 32-edge tiles tl2_staged.cu's slices of
-    (bm + bn) rows of 32 + 8 bf16; validate refuses what exceeds 227 KB."""
+    """Every tile's staged launch takes the ring: 1024 + depth·(bm + bn)·128 + 16·depth
+    bytes, growing with the depth; depth 0 is the carry ring (``carry_stages`` stages);
+    validate refuses what exceeds 227 KB."""
     base = KernelConfig(bm=bm, bn=bn)
-    ring = bm in WGMMA_TILES and bn in WGMMA_TILES
     sizes = [dataclasses.replace(base, pipeline_depth=d).smem_bytes() for d in (2, 3, 4, 6, 8)]
-    assert base.smem_bytes() < sizes[0] and sizes == sorted(sizes)
+    assert base.smem_bytes() == wgmma_smem_bytes(bm, bn) and sizes == sorted(sizes)
     for d, size in zip((2, 3, 4, 6, 8), sizes):
-        want = (1024 + d * (bm + bn) * 128 + 16 * d) if ring else d * (bm + bn) * 40 * 2
-        assert size == want
-        assert size == (wgmma_smem_bytes(bm, bn, d) if ring else want)
+        assert size == 1024 + d * (bm + bn) * 128 + 16 * d == wgmma_smem_bytes(bm, bn, d)
         err = dataclasses.replace(base, pipeline_depth=d).validate()
         assert (err is None) == (size <= SMEM_LIMIT)
     # only 128 x 128 at depth 8 (263,296 bytes) does not fit
@@ -304,19 +302,18 @@ def _bf16(shape, offset=0):
 @pytest.mark.parametrize("bm", TILE_CHOICES)
 @pytest.mark.parametrize("bn", TILE_CHOICES)
 def test_staged_route_rule(bm, bn, layout):
-    """Ring tiles with operands TMA can read take the ring; 32-edge tiles tl2_staged.cu;
+    """Every tile takes the ring: filled by TMA where it can read both operands, by the
+    loads producer where a base is off 16 bytes or a row TMA cannot step (K % 8 != 0);
     bk and the depth play no part."""
     m, n, k = 128, 256, 1024
     rhs_shape = (n, k) if layout == "nk" else (k, n)
-    want = "ring" if bm in WGMMA_TILES and bn in WGMMA_TILES else "mma_sync"
     for bk, depth in ((128, 2), (256, 4), (512, 8)):
         cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout, pipeline_depth=depth)
-        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape), m, n, k) == want
-        # a base 2 bytes off 16, or a row TMA cannot step (K % 8 != 0): off the ring
-        assert pl.staged_route(cfg, _bf16((m, k), 1), _bf16(rhs_shape), m, n, k) == "mma_sync"
-        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape, 4), m, n, k) == "mma_sync"
+        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape), m, n, k) == "ring"
+        assert pl.staged_route(cfg, _bf16((m, k), 1), _bf16(rhs_shape), m, n, k) == "ring_lsu"
+        assert pl.staged_route(cfg, _bf16((m, k)), _bf16(rhs_shape, 4), m, n, k) == "ring_lsu"
         assert pl.staged_route(cfg, _bf16((m, 1020)), _bf16(rhs_shape), m, n,
-                               1020) == "mma_sync"
+                               1020) == "ring_lsu"
 
 
 @pytest.mark.parametrize("m,n,k,want", [(64, 64, 12288, 48), (64, 64, 4096, 16),
@@ -409,22 +406,21 @@ def test_plain_split_sum_adds_partials_in_split_order():
     assert torch.equal(pl.pipelined_reference(a, b, "kn", torch.float32, 11), want)
 
 
-@pytest.mark.parametrize("tile,splits", [((64, 64), 4), ((128, 64), 4), ((32, 64), 1)])
+@pytest.mark.parametrize("tile,splits", [((64, 64), 4), ((128, 64), 4), ((32, 64), 4)])
 def test_cpu_path_takes_the_launch_split_count(tile, splits, monkeypatch):
-    """The CPU wrapper runs the plain version with the split count its launch would take:
-    the rule's on the ring, one on the mma.sync body; no kernel counter moves."""
+    """The CPU wrapper runs the plain version with the split count its launch would take,
+    the rule's on every tile (a 32-edge one included); no kernel counter moves."""
     seen = []
     real = pl.pipelined_reference
     monkeypatch.setattr(pl, "pipelined_reference",
                         lambda *args: seen.append(args[-1]) or real(*args))
     cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, pipeline_depth=2)
     a_np, b_np = _inputs(23, 128, 64, 512, True)
-    before = (pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC, pl.LAUNCHES_STAGED_SPLIT)
+    before = launch_counts()
     got = _ours(a_np, b_np, cfg, "float32")
     assert seen == [splits]
     assert torch.equal(got, torch.from_numpy(a_np @ b_np))
-    assert (pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_MMA_SYNC,
-            pl.LAUNCHES_STAGED_SPLIT) == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("depth", [1, 5, 7, 9, -2])

@@ -1,14 +1,15 @@
-"""The route rule, and the wgmma route's semantics on the CPU path.
+"""The route rule, and the ring's semantics on the CPU path.
 
-``ops.matmul.launch_route`` sends a launch to ``csrc/tl2_wgmma.cu`` or to
-``csrc/tl2_matmul.cu``'s mma.sync body, from the shape before the launch; on the card,
-``chip_smoke.py`` phase 1 holds the C mirror (``tl2_wgmma_route``) to it.  Here: each
-condition flips the route on its own, a single interval takes wgmma exactly where its
-tile and operands allow, the CPU path launches nothing, at each wgmma tile, with gk > 1
-and K % 64 != 0, the port's CPU path agrees with ``tpul2.ops.matmul`` in interpret mode,
-and so does the bf16 family's single interval (the f32 sum, never rounded, then the
-epilogue) against ``pallas_matmul_fused``.  Tolerances as in test_torch_matmul.py: 0/1
-inputs bit-exact (every sum is an integer below 2^24); normal inputs within
+Every launch runs ``csrc/tl2_wgmma.cu``'s ring; ``ops.matmul.launch_route`` names, from
+the shape before the launch, the producer that fills it: TMA ('wgmma') or, where TMA
+cannot read an operand, the loads producer ('wgmma_lsu'); ``ops.matmul.operand_producers``
+says which operand each takes.  On the card, ``chip_smoke.py`` phase 1 holds the C mirror
+(``tl2_wgmma_route``) to it.  Here: each condition flips the producer on its own, every
+tile takes the ring at a single interval, the CPU path launches nothing, at each wide tile,
+with gk > 1 and K % 64 != 0, the port's CPU path agrees with ``tpul2.ops.matmul`` in
+interpret mode, and so does the bf16 family's single interval (the f32 sum, never rounded,
+then the epilogue) against ``pallas_matmul_fused``.  Tolerances as in test_torch_matmul.py:
+0/1 inputs bit-exact (every sum is an integer below 2^24); normal inputs within
 ``ops.matmul.allowed_error`` (f32 reorder, plus one bf16 ulp of the running sum in the
 bf16 family where there is more than one interval).
 
@@ -44,82 +45,103 @@ def _operands(m, n, k, layout, off_a=0, off_b=0):
     return a, rhs
 
 
-#: (case, changes to the base launch, route).  The base takes wgmma; each other row
-#: changes one condition.
+#: (case, changes to the base launch, route, the operands the loads producer reads).  The
+#: base takes TMA for both; each other row changes one condition.  Every valid config takes
+#: the ring: a 32 edge (width 32, or swapped at bm 32), bk 96 (a rounding point in the
+#: middle of a stage) and M or N of 1..31 included.
 ROUTE_CASES = [
-    ("base", {}, "wgmma"),
-    ("nk", {"layout": "nk"}, "wgmma"),
-    ("tile_64x64", {"bm": 64, "bn": 64}, "wgmma"),
-    ("tile_128x64", {"bn": 64}, "wgmma"),
-    ("k_tail", {"k": 328}, "wgmma"),
-    ("gk1", {"bk": 512}, "wgmma"),
-    ("bm32", {"bm": 32}, "mma_sync"),
-    ("bn32", {"bn": 32}, "mma_sync"),
-    ("bk_not_64", {"bk": 96}, "mma_sync"),
-    ("k_not_8", {"k": 1001}, "mma_sync"),
-    ("kn_n_not_8", {"n": 1001}, "mma_sync"),
-    ("nk_n_not_8", {"n": 1001, "layout": "nk"}, "wgmma"),
-    ("nk_k_not_8", {"k": 1004, "layout": "nk"}, "mma_sync"),
-    ("a_base_2_bytes_off", {"off_a": 1}, "mma_sync"),
-    ("b_base_8_bytes_off", {"off_b": 4}, "mma_sync"),
-    ("b_base_16_bytes_off", {"off_b": 8}, "wgmma"),
+    ("base", {}, "wgmma", ""),
+    ("nk", {"layout": "nk"}, "wgmma", ""),
+    ("tile_64x64", {"bm": 64, "bn": 64}, "wgmma", ""),
+    ("tile_128x64", {"bn": 64}, "wgmma", ""),
+    ("k_tail", {"k": 328}, "wgmma", ""),
+    ("gk1", {"bk": 512}, "wgmma", ""),
+    ("bm32", {"bm": 32}, "wgmma", ""),
+    ("bn32", {"bn": 32}, "wgmma", ""),
+    ("bk_not_64", {"bk": 96}, "wgmma", ""),
+    ("k_not_8", {"k": 1001}, "wgmma_lsu", "a"),
+    ("kn_n_not_8", {"n": 1001}, "wgmma_lsu", "b"),
+    ("nk_n_not_8", {"n": 1001, "layout": "nk"}, "wgmma", ""),
+    ("nk_k_not_8", {"k": 1004, "layout": "nk"}, "wgmma_lsu", "ab"),
+    ("a_base_2_bytes_off", {"off_a": 1}, "wgmma_lsu", "a"),
+    ("b_base_8_bytes_off", {"off_b": 4}, "wgmma_lsu", "b"),
+    ("b_base_16_bytes_off", {"off_b": 8}, "wgmma", ""),
+    ("m1", {"m": 1, "bm": 32}, "wgmma", ""),
+    ("m17", {"m": 17, "bm": 32, "layout": "nk"}, "wgmma", ""),
+    ("m31", {"m": 31, "bm": 32, "bn": 32}, "wgmma", ""),
+    ("n1_kn", {"n": 1, "bn": 32}, "wgmma_lsu", "b"),
+    ("n17_nk", {"n": 17, "bn": 32, "layout": "nk"}, "wgmma", ""),
+    ("n31_kn", {"n": 31, "bm": 32, "bn": 32}, "wgmma_lsu", "b"),
+    ("bk96_bm32", {"bk": 96, "bm": 32, "bn": 64}, "wgmma", ""),
+    ("bk96_a_off", {"bk": 96, "off_a": 1}, "wgmma_lsu", "a"),
+    ("lsu_a_only_nk", {"off_a": 2, "layout": "nk", "bn": 32}, "wgmma_lsu", "a"),
+    ("lsu_b_only_nk", {"off_b": 1, "layout": "nk", "bm": 32}, "wgmma_lsu", "b"),
 ]
 
 
-@pytest.mark.parametrize("case,change,route", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
-def test_route_rule(case, change, route):
+@pytest.mark.parametrize("case,change,route,lsu", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_route_rule(case, change, route, lsu):
     d = dict(m=256, n=256, k=512, bm=128, bn=128, bk=128, layout="kn", off_a=0, off_b=0)
     d.update(change)
     cfg = KernelConfig(bm=d["bm"], bn=d["bn"], bk=d["bk"], rhs_layout=d["layout"])
+    assert cfg.validate() is None
     a, rhs = _operands(d["m"], d["n"], d["k"], d["layout"], d["off_a"], d["off_b"])
     assert mm.launch_route(cfg, a, rhs, d["m"], d["n"], d["k"]) == route
+    tma_a, tma_b = mm.operand_producers(cfg, a, rhs, d["n"], d["k"])
+    assert ("a" if not tma_a else "") + ("b" if not tma_b else "") == lsu
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("k,bk", [(512, 512), (328, 512), (64, 64), (1024, 8192)])
-def test_single_interval_never_takes_wgmma(k, bk, layout):
-    """gk == 1 never takes the wgmma body off its tiles or with operands TMA cannot read:
-    the mma.sync body at a 32 edge, or where an operand's base is off 16 bytes or its
-    rows are not (K % 8 != 0).  On the 64/128 tiles with readable operands it takes wgmma
-    at any bk (there is no rounding point inside K)."""
+def test_single_interval_takes_the_ring_on_every_tile(k, bk, layout):
+    """gk == 1 takes the ring on every tile, 32 edges included: filled by TMA where both
+    operands allow it, by the loads producer where an operand's base is off 16 bytes or
+    its rows are not (K % 8 != 0)."""
     a, rhs = _operands(128, 128, k, layout)
     a_off, _ = _operands(128, 128, k, layout, off_a=1)
     odd_a, odd_rhs = _operands(128, 128, k - 1, layout)
     for bm in (32, 64, 128):
         for bn in (32, 64, 128):
             cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
-            on_tile = bm in mm.WGMMA_TILES and bn in mm.WGMMA_TILES
-            assert mm.launch_route(cfg, a, rhs, 128, 128, k) == ("wgmma" if on_tile
-                                                                 else "mma_sync")
-            assert mm.launch_route(cfg, a_off, rhs, 128, 128, k) == "mma_sync"
-            assert mm.launch_route(cfg, odd_a, odd_rhs, 128, 128, k - 1) == "mma_sync"
+            assert mm.launch_route(cfg, a, rhs, 128, 128, k) == "wgmma"
+            assert mm.launch_route(cfg, a_off, rhs, 128, 128, k) == "wgmma_lsu"
+            assert mm.launch_route(cfg, odd_a, odd_rhs, 128, 128, k - 1) == "wgmma_lsu"
 
 
 def test_wgmma_smem_model_fits_every_tile():
-    for bm in mm.WGMMA_TILES:
-        for bn in mm.WGMMA_TILES:
-            assert mm.wgmma_smem_bytes(bm, bn) <= 232448   # the H100's 227 KB per block
+    """The carry ring of every tile fits the H100's 227 KB a block: 4 stages on the wide
+    tiles, a 32-edge tile's ring sized to hold 64 KB of its bn side in flight."""
+    for bm in (32, 64, 128):
+        for bn in (32, 64, 128):
+            assert mm.wgmma_smem_bytes(bm, bn) <= 232448
+            assert mm.wgmma_smem_bytes(bm, bn) == mm.wgmma_smem_bytes(
+                bm, bn, mm.carry_stages(bm, bn))
     assert mm.wgmma_smem_bytes(128, 128) == 1024 + 4 * 256 * 128 + 64
+    assert [mm.carry_stages(bm, bn) for bm, bn in ((32, 64), (32, 128), (32, 32), (64, 32),
+                                                    (128, 32))] == [8, 4, 16, 16, 11]
 
 
 def _counts():
     return tuple(getattr(mod, f"LAUNCHES_{body}_K_{route}") for mod in (mm, bmm)
-                 for body in ("MULTI", "SINGLE") for route in ("WGMMA", "MMA_SYNC"))
+                 for body in ("MULTI", "SINGLE") for route in ("WGMMA", "WGMMA_LSU"))
 
 
 @pytest.mark.parametrize("entry", ["nn", "tn", "fused", "batched"])
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("route", ["wgmma", "wgmma_lsu"])
 def test_cpu_path_launches_nothing(entry, route):
-    """Configs of both routes run the plain version on CPU tensors: no counter moves."""
+    """Configs of both routes run the plain version on CPU tensors: no counter moves.  The
+    loads producer's case has A's base 2 bytes off 16 and a 32-row tile."""
     rng = np.random.default_rng(3)
     bm = 128 if route == "wgmma" else 32
     cfg = KernelConfig(bm=bm, bn=64, bk=BK, rhs_layout="nk" if entry == "tn" else "kn")
     a = torch.from_numpy(rng.integers(0, 2, (2, M, K)).astype(np.float32)).bfloat16()
     b = torch.from_numpy(rng.integers(0, 2, (2, K, N)).astype(np.float32)).bfloat16()
+    if route == "wgmma_lsu":
+        a = torch.zeros(a.numel() + 1, dtype=torch.bfloat16)[1:].view(a.shape).copy_(a)
     rhs = b[0].t().contiguous() if entry == "tn" else b[0]
     assert mm.launch_route(cfg, a[0], rhs, M, N, K) == route
     want = (a @ b).float()
-    before = _counts()
+    before = _counts() + (mm.LAUNCHES_WIDTH32, mm.LAUNCHES_SWAPPED, mm.LAUNCHES_MIDSTAGE)
     if entry == "nn":
         got, want = mm.cuda_matmul(a[0], rhs, cfg, out_dtype=torch.float32), want[0]
     elif entry == "tn":
@@ -130,7 +152,8 @@ def test_cpu_path_launches_nothing(entry, route):
         want = want[0] + 1
     else:
         got = bmm.cuda_batched_matmul(a, b, cfg, out_dtype=torch.float32)
-    assert _counts() == before
+    assert _counts() + (mm.LAUNCHES_WIDTH32, mm.LAUNCHES_SWAPPED,
+                        mm.LAUNCHES_MIDSTAGE) == before
     assert torch.equal(got, want)
 
 

@@ -13,11 +13,11 @@ stays the reference.  Module names mirror ``tpul2``'s:
   tpul2_torch.dispatch              config resolution (DB -> neighbour -> heuristic,
                                     by mode, kept per shape until the DB changes) and
                                     the candidate entries and their server twins
-  tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_wgmma.cu and csrc/tl2_matmul.cu
-                                    (the route picks one per launch) + plain versions
+  tpul2_torch.ops.matmul / batched  wrappers of csrc/tl2_wgmma.cu's ring (every tile;
+                                    the route names its producer: TMA or loads) + plain
+                                    versions
   tpul2_torch.ops.pipelined         the staged K ring: csrc/tl2_wgmma.cu's ring with a
-                                    split K on the ring tiles, csrc/tl2_staged.cu on the
-                                    32-edge ones (the route picks one) + plain version
+                                    split K on every tile + plain version
   tpul2_torch.ops.baselines         library GEMMs (torch.matmul, cuBLAS, cuBLASLt, and
                                     the cuBLASLt auto-tuning search of ops.lt_autotune)
   tpul2_torch.models                the transformer block and the FFN on the tuned GEMMs,

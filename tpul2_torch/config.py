@@ -4,30 +4,29 @@ Counterpart of ``tpul2/config.py``.  One dataclass names a point of the searched
 field names are the JAX package's, so a configuration carries across
 (``KernelConfig.from_jax``).  What the fields mean on Hopper:
 
-  bm, bn          CTA output tile; one of TILE_CHOICES.  Two bodies serve them, picked per
-                  launch by ``ops.matmul.launch_route``: a tile of 64 or 128 in both edges
-                  (WGMMA_TILES) with operands TMA can read, and bk % 64 == 0 where there is
-                  a K carry (gk > 1), runs tl2_wgmma.cu (m64 x bn wgmmas, one consumer
-                  warpgroup per 64 rows, a TMA ring of 64-deep K stages), for the K carry
-                  and for the single interval (gk == 1) alike; the 32-edge tiles and
-                  unaligned operands run tl2_matmul.cu (each warp a 32 x 32 sub-tile of
-                  m16n8k16 MMAs).  ``smem_bytes`` models the body a config's launches take:
-                  tl2_matmul.cu for depth 0 (the wgmma ring's 4 stages,
-                  ``wgmma_smem_bytes``, 132 KB at 128 x 128, fit every tile), the staged
-                  route's body for depth >= 2
+  bm, bn          CTA output tile; one of TILE_CHOICES.  Every tile runs tl2_wgmma.cu's
+                  TMA + wgmma ring (``ops.matmul.launch_route``), for the K carry and the
+                  single interval (gk == 1) alike: 64 or 128 in both edges, one consumer
+                  warpgroup per 64 rows of m64 x bn wgmmas; bn = 32 the same at width 32;
+                  bm = 32 over bn 64 / 128 with the operands swapped (the tile's N rows are
+                  wgmma's M).  The route names the producer that fills the ring: TMA where
+                  it can read both operands, the loads producer where it cannot.
+                  ``smem_bytes`` models the ring a config's launches take: ``carry_stages``
+                  stages for depth 0 (``wgmma_smem_bytes``), ``pipeline_depth`` stages for
+                  a staged config
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
-                  (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, the
-                  kernel's shared-memory K step
+                  (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, half
+                  a ring stage, so that a rounding point falls on a stage's start or its
+                  middle
   acc_dtype       'float32' (F32F16F16F32 family) or 'bfloat16' (F16F16F16F16 family)
   grid_order      CTA raster order: 'mn' walks N fastest, 'nm' walks M fastest
   rhs_layout      'kn' reads B (K, N); 'nk' reads B_t (N, K)
   edge            'pad' or 'mask': the same launch on Hopper, since the kernel predicates
                   its own loads and stores; kept so configurations carry across
   pipeline_depth  0: the carry and single-K bodies; 2..8: the staged kernel (the port of
-                  ``tpul2/ops/pipelined.py``) with a ring of this many K stages in shared
-                  memory: on a ring tile (WGMMA_TILES in both edges) tl2_wgmma.cu's ring of
-                  64-deep TMA stages, else tl2_staged.cu's ring of 32-deep cp.async
-                  slices (``ops.pipelined.staged_route``)
+                  ``tpul2/ops/pipelined.py``) with a ring of this many 64-deep K stages in
+                  shared memory, on every tile, with a split K where the output has few
+                  tiles (``ops.pipelined``)
   use_vendor      sentinel: call the library GEMM ``vendor_variant`` (ops/baselines.py)
 
 The TPU's VMEM model is replaced by the CTA's shared-memory footprint (the reference's
@@ -44,20 +43,25 @@ from typing import Optional
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 from tpul2_torch.utils.padding import cdiv, round_up
 
-#: Output tile edges the kernels are instantiated for (TL2_TILE, TL2_STAGED_TILE).
+#: Output tile edges the ring kernel is instantiated for (csrc/tl2_wgmma*.cu).
 TILE_CHOICES = (32, 64, 128)
-#: Tile edges of the wgmma body (csrc/tl2_wgmma.cu): one consumer warpgroup per 64 rows.
+#: The wide tile edges: one consumer warpgroup of m64 wgmmas per 64 rows of C.  A 32 edge
+#: runs the same ring at width 32 (bn) or with the operands swapped (bm).
 WGMMA_TILES = (64, 128)
 #: K depth of one stage of the wgmma body's TMA ring: one 128-byte row of bf16, so a K
 #: carry's bk must be a multiple.
 WGMMA_KSTAGE = 64
-#: Ring depth of the wgmma body's K-carry and single-K launches (a staged launch takes its
-#: config's pipeline_depth).
+#: Ring depth of the K-carry and single-K launches on the wide tiles (CARRY_STAGES); a
+#: 32-edge tile's ring is sized by bytes (``carry_stages``), a staged launch takes its
+#: config's pipeline_depth.
 WGMMA_STAGES = 4
-#: K depth of one shared-memory stage (tl2_matmul.cu KSTEP); every bk is a multiple.
+#: The bytes of the bn side a 32-edge tile's carry ring keeps in flight, and its most
+#: stages (RING_BYTES, MAX_RING).
+RING_BYTES = 65536
+MAX_RING = 16
+#: Half a ring stage: every bk is a multiple, so a rounding point falls on a stage's start
+#: or its middle, where the bf16 family's consumer can round.
 KSTEP = 32
-#: Row padding of the shared-memory tiles, in bf16 elements (tl2_matmul.cu KPAD).
-KPAD = 8
 #: Shared memory one block may use on the H100 (227 KB); above 48 KB only as dynamic
 #: shared memory after cudaFuncSetAttribute, which the launcher does.
 SMEM_LIMIT = 232448
@@ -78,10 +82,25 @@ SPACE_REV = 1
 _TPU_ONLY_FIELDS = ("vmem_limit_bytes", "parallel_mn")
 
 
-def wgmma_smem_bytes(bm: int, bn: int, stages: int = WGMMA_STAGES) -> int:
-    """Shared memory of one wgmma CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
-    ring to the swizzle period, ``stages`` stages of (bm + bn) rows of 128 bytes, and a
-    full and an empty mbarrier per stage."""
+def carry_stages(bm: int, bn: int) -> int:
+    """The ring depth of a carry or single-K launch (``tl2_wgmma_carry_stages``): WGMMA_STAGES
+    on the wide tiles; on a 32-edge tile, whose stage is small, enough stages to keep
+    RING_BYTES of the bn side in flight (cdiv(65536, bn * 128)), at least WGMMA_STAGES and
+    at most MAX_RING, within SMEM_LIMIT: 32 x 64 8, 32 x 128 4, 32 x 32 and 64 x 32 16,
+    128 x 32 the 11 that fit."""
+    if bm in WGMMA_TILES and bn in WGMMA_TILES:
+        return WGMMA_STAGES
+    want = max(WGMMA_STAGES, cdiv(RING_BYTES, bn * WGMMA_KSTAGE * 2))
+    fit = (SMEM_LIMIT - 1024) // ((bm + bn) * WGMMA_KSTAGE * 2 + 16)
+    return min(want, MAX_RING, fit)
+
+
+def wgmma_smem_bytes(bm: int, bn: int, stages: Optional[int] = None) -> int:
+    """Shared memory of one ring CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
+    ring to the swizzle period, ``stages`` (default: ``carry_stages``) stages of (bm + bn)
+    rows of 128 bytes, and a full and an empty mbarrier per stage."""
+    if stages is None:
+        stages = carry_stages(bm, bn)
     return 1024 + stages * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * stages * 8
 
 
@@ -138,17 +157,10 @@ class KernelConfig:
         return KernelConfig(**json.loads(s))
 
     def smem_bytes(self) -> int:
-        """Shared memory of one CTA of the body this config's launches take.
-
-        Depth 0: tl2_matmul.cu's one stage of the A and B tiles, rows padded by KPAD
-        (``tl2_smem_bytes``).  A staged config (depth >= 2) on a ring tile: tl2_wgmma.cu's
-        ring of ``pipeline_depth`` 64-deep stages (``wgmma_smem_bytes``); on a 32-edge
-        tile: tl2_staged.cu's ``pipeline_depth`` KPAD-padded slices
-        (``tl2_staged_smem_bytes``)."""
-        if (self.pipeline_depth >= 2 and self.bm in WGMMA_TILES
-                and self.bn in WGMMA_TILES):
-            return wgmma_smem_bytes(self.bm, self.bn, self.pipeline_depth)
-        return max(1, self.pipeline_depth) * (self.bm + self.bn) * (KSTEP + KPAD) * 2
+        """Shared memory of one CTA of the ring this config's launches take
+        (``wgmma_smem_bytes``): ``carry_stages`` 64-deep stages for depth 0,
+        ``pipeline_depth`` of them for a staged config."""
+        return wgmma_smem_bytes(self.bm, self.bn, self.pipeline_depth or None)
 
     def validate(self) -> Optional[str]:
         """Return an error string if the kernel cannot run this config, else None.
@@ -174,13 +186,12 @@ class KernelConfig:
             return ("pipeline_depth requires edge='pad' (the staged kernel needs "
                     "block-divisible dims)")
         if self.bm not in TILE_CHOICES:
-            return (f"bm={self.bm} is not one of the kernel's tiles {TILE_CHOICES} "
-                    "(multiples of the 32x32 warp tile of m16n8k16 MMAs)")
+            return f"bm={self.bm} is not one of the kernel's tiles {TILE_CHOICES}"
         if self.bn not in TILE_CHOICES:
-            return (f"bn={self.bn} is not one of the kernel's tiles {TILE_CHOICES} "
-                    "(multiples of the 32x32 warp tile of m16n8k16 MMAs)")
+            return f"bn={self.bn} is not one of the kernel's tiles {TILE_CHOICES}"
         if self.bk <= 0 or self.bk % KSTEP:
-            return f"bk={self.bk} is not a positive multiple of the kernel's K step {KSTEP}"
+            return (f"bk={self.bk} is not a positive multiple of {KSTEP}, half the ring's "
+                    "K stage")
         if self.acc_dtype not in ("float32", "bfloat16"):
             return f"unsupported acc_dtype {self.acc_dtype}"
         if self.grid_order not in ("mn", "nm"):
@@ -217,10 +228,10 @@ def heuristic_config(m: int, n: int, k: int, acc_dtype: str = "float32") -> Kern
 
     Starts from the largest tile the problem fills, then halves the larger tile edge
     (bm on a tie) while the grid has fewer CTAs than the card has SMs, so a skinny or
-    thin problem still spreads over the card, but never below the wgmma body's least
-    edge (WGMMA_TILES): a 32-edge tile runs the mma.sync body, 12-14x slower than a
-    64-row wgmma tile at 64 x 8192 x 8192 on the H100 (PERF.md).  An edge is 32 only
-    where the problem's own dimension is at most 32.  Never returns the vendor sentinel."""
+    thin problem still spreads over the card, but never below the wide tiles' least edge
+    (WGMMA_TILES): a 32-edge tile halves what each CTA's stage of B serves.  An edge is 32
+    only where the problem's own dimension is at most 32 (decode-size M or N: the ring's
+    width-32 or swapped tile).  Never returns the vendor sentinel."""
     def edge(dim: int) -> int:
         return next((t for t in TILE_CHOICES if t >= dim), TILE_CHOICES[-1])
 
@@ -254,15 +265,16 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
     streaming shapes (min(m, n) <= 256 and k >= 2048), at depths 2 and 4, from the top
     4 picks by the prior among the ring tiles (WGMMA_TILES in both edges, whatever
     ``max_candidates`` kept) whose blocks divide the problem with at least 3 K
-    intervals.  The ring tiles run the staged sum on tl2_wgmma.cu's TMA ring with a split
-    K (``ops.pipelined``); the prior's fill term would rank the 32-edge tiles first at the
-    streaming shapes, and their staged body (tl2_staged.cu, mma.sync) ran 2.7x behind
-    the heuristic's 64 x 64 wgmma tile at 64 x 8192 x 8192 on the H100 (PERF.md).  Where
-    the problem has no ring tile (a dimension of at most 32), the picks come from the kept
-    candidates, as in the JAX package, and run tl2_staged.cu.  Either ring's stages are
-    as deep whatever bk is, and the prior ranks all four raster/layout variants of a
-    (tile, bk) ahead of another bk for the same tile, so no two staged candidates differ
-    in bk alone.  Then every vendor variant, always, so the tuner can never do worse than
+    intervals.  Every tile runs the staged sum on tl2_wgmma.cu's ring with a split K
+    (``ops.pipelined``); the prior's fill term would rank the 32-edge tiles first at the
+    streaming shapes, where a 32-edge tile's CTAs read B twice as often as a 64-row
+    tile's (and tl2_staged.cu's 32-edge mma.sync tile ran 2.7x behind the 64 x 64 ring
+    at 64 x 8192 x 8192 on the H100, PERF.md).  Where the problem has no wide tile (a
+    dimension of at most 32), the picks come from the kept candidates, as in the JAX
+    package: the ring's width-32 or swapped tiles.  The ring's stages are as deep
+    whatever bk is, and the prior ranks all four raster/layout variants of a (tile, bk)
+    ahead of another bk for the same tile, so no two staged candidates differ in bk
+    alone.  Then every vendor variant, always, so the tuner can never do worse than
     the library.
     """
     def tiles(dim: int) -> list:

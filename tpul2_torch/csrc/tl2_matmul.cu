@@ -1,15 +1,16 @@
-// tl2_matmul.cu — the tuned-GEMM kernel of tpul2_torch, hand-written for Hopper (sm_90a).
+// tl2_matmul.cu — the tuned-GEMM kernel of tpul2_torch, hand-written for Hopper (sm_90a):
+// mma.sync, one synchronous shared-memory stage.
 //
-// Replaces four Pallas TPU kernels with one CUDA kernel:
+// Off every route: since the 32-edge tiles, the operands TMA cannot read and the carries
+// whose bk is not a multiple of 64 moved onto tl2_wgmma.cu's ring, nothing in the package
+// launches this kernel. It is kept as a direct-launch reference: chip_smoke.py times it
+// beside the ring on the same config. It was the first port of four Pallas TPU kernels:
 //   tpul2/ops/matmul.py::_kernel_multi_k     (K carry across grid steps, gk > 1)
 //   tpul2/ops/matmul.py::_kernel_single_k    (whole K in one block, gk == 1)
 //   tpul2/ops/batched.py::_bmm_kernel        (batched, K carry)
 //   tpul2/ops/batched.py::_bmm_kernel_single_k
 // The K-loop length (1 or many bk intervals) is a runtime value and the batch index is
-// blockIdx.z, so the four are one launch path. Since tl2_wgmma.cu, this body serves all four
-// only off the wgmma route (ops/matmul.py::launch_route): 32-edge tiles, a K carry whose bk
-// is not a multiple of 64, and operands TMA cannot read (unaligned bases, K % 8 or, for
-// 'kn', N % 8 != 0).
+// blockIdx.z, so the four are one launch path.
 //
 // What it computes, per output tile, for C = act(A @ B [+ bias]) cast to the output type:
 //   for each K interval of length bk (the config's rounding interval):
@@ -42,7 +43,7 @@
 // should bound it; the skinny 64x8192x8192 and thin-K 8192x128x64 shapes are below the ridge
 // and bound by bytes. This design reaches neither: with one synchronous stage every load
 // latency is exposed, and mma.sync runs at a fraction of the wgmma rate. The TMA ring and
-// wgmma warpgroups are tl2_wgmma.cu, which takes every bring-up shape off this body.
+// wgmma warpgroups are tl2_wgmma.cu, which takes every launch off this body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -334,11 +335,5 @@ int tl2_matmul_f32out(const void* a, const void* b, const void* bias, void* c, i
   return launch<float>(a, b, bias, c, batch, m, n, k, sa, sb, sc, bm, bn, bk, rhs_nk, acc_bf16,
                        act, raster_nm, vec_a, vec_b, stream);
 }
-
-// Shared memory of one CTA for a (bm, bn) tile; mirrors KernelConfig.smem_bytes().
-int tl2_smem_bytes(int bm, int bn) { return (bm + bn) * LDS * (int)sizeof(bf16); }
-
-// The K depth of one shared-memory stage; every bk must be a multiple of it.
-int tl2_kstep(void) { return KSTEP; }
 
 }  // extern "C"

@@ -1,12 +1,12 @@
 // tl2_staged.cu — the staged (kStage) GEMM kernel of tpul2_torch, hand-written for Hopper
-// (sm_90a).
+// (sm_90a): mma.sync fed by a cp.async ring.
 //
-// Replaces the Pallas TPU kernel tpul2/ops/pipelined.py::_kernel for the 32-edge tiles: one
-// output tile per CTA, the K loop inside the CTA over a `depth`-slot circular buffer that
-// asynchronous copies keep filled ahead of the MMAs. Route: tl2_staged_route (tl2_wgmma.cu,
-// mirrored by ops/pipelined.py::staged_route) sends the ring tiles (64 and 128 in both
-// edges) with TMA-readable operands to tl2_wgmma_staged, the same staged sum on the TMA +
-// wgmma ring with a split K; this kernel takes the rest and refuses a launch on that route.
+// Off every route: since the 32-edge staged tiles moved onto tl2_wgmma.cu's ring (with its
+// split K and its loads producer), nothing in the package launches this kernel. It is kept
+// as a direct-launch reference: chip_smoke.py times it beside the ring on the same config.
+// It was the port of tpul2/ops/pipelined.py::_kernel for the 32-edge tiles: one output tile
+// per CTA, the K loop inside the CTA over a `depth`-slot circular buffer that asynchronous
+// copies keep filled ahead of the MMAs.
 //
 // What it computes: C = A @ B (rhs_nk = 0, B is (K, N)) or C = A @ B_t^T (rhs_nk = 1, B_t is
 // (N, K)), bf16 inputs. The sum runs in f32 over the WHOLE K, whatever the config's acc_dtype
@@ -38,16 +38,10 @@
 // tensor cores' accumulator instead gives some 25x cuBLAS's f32 error at K = 8192 (max |err|
 // against an f64 product; chip_smoke.py phase 2b prints both), enough to break the f32
 // tolerance 1e-5 |C| + 1e-5 sqrt(K) on results near zero.
-// The ring tiles moved to tl2_wgmma.cu (TMA + mbarriers, wgmma warpgroups, split K); a
-// 32-edge tile has no wgmma form (an m64 instruction), so it stays here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-// The staged route rule (tl2_wgmma.cu): 1 where tl2_wgmma_staged takes the launch.
-extern "C" int tl2_staged_route(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
-                                const void* b);
 
 namespace {
 
@@ -296,13 +290,12 @@ extern "C" {
 
 // C = A @ B (rhs_nk = 0) or A @ B_t^T (rhs_nk = 1) through the depth-slot ring, f32 over all
 // of K, written as f32 (out_f32 = 1) or bf16. Needs M % bm == 0, N % bn == 0, K % 32 == 0,
-// 2 <= depth <= 8, 16-byte aligned pointers and a launch off the ring's route
-// (tl2_staged_route == 0). Returns the cudaError_t of the launch (cudaErrorInvalidValue,
+// 2 <= depth <= 8 and 16-byte aligned pointers. Returns the cudaError_t of the launch (cudaErrorInvalidValue,
 // before any work, for what the kernel does not take).
 int tl2_staged(const void* a, const void* b, void* c, int m, int n, int k, int bm, int bn,
                int depth, int rhs_nk, int raster_nm, int out_f32, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || m % bm || n % bn || k % KSTEP ||
-      depth < 2 || depth > MAX_DEPTH || tl2_staged_route(m, n, k, bm, bn, rhs_nk, a, b))
+      depth < 2 || depth > MAX_DEPTH)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c)) % 16)
@@ -321,8 +314,5 @@ int tl2_staged(const void* a, const void* b, void* c, int m, int n, int k, int b
 #undef TL2_STAGED_TILE
   return (int)cudaErrorInvalidValue;
 }
-
-// Shared memory of one CTA of the staged kernel; mirrors KernelConfig.smem_bytes().
-int tl2_staged_smem_bytes(int bm, int bn, int depth) { return smem_bytes(bm, bn, depth); }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C interface.
 
 The role of ``tpul2/native/build.py``.  Every ``csrc/*.cu`` of the package is compiled
-for ``sm_90a`` into an object of its own, all nvcc processes started together, then linked
+for ``sm_90a`` into an object of its own (the ring kernel's instances are spread over four
+files that share ``csrc/tl2_wgmma.cuh``), all nvcc processes started together, then linked
 into ``tpul2_torch/_build/libtl2_kernels.so`` at first use (with the toolkit's cuBLASLt,
 ``LINK_FLAGS``, for the auto-tuning baseline's search) and loaded with ctypes.  The
 build is redone whenever a source or the flags change (a sha256 stamp beside the
@@ -32,6 +33,7 @@ LINK_FLAGS = ["-lcublasLt"]
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each tl2_matmul and tl2_wgmma launcher: a, b, bias, c, batch, m, n, k,
 #: sa, sb, sc, bm, bn, bk, rhs_nk, acc_bf16, act, raster_nm, vec_a, vec_b, stream.
+#: tl2_matmul and tl2_staged (mma.sync) are on no route: only chip_smoke.py launches them.
 _LAUNCH_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _P]
 #: C signature of tl2_staged: a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm, out_f32,
@@ -66,8 +68,9 @@ def _sources() -> list:
 
 
 def _digest(sources: list) -> str:
+    """sha256 of the flags, the sources and the headers they include (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -138,14 +141,10 @@ def load_library() -> ctypes.CDLL:
     # ws, c, m, n, splits, out_f32, stream
     lib.tl2_splitk_reduce.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     lib.tl2_splitk_reduce.restype = ctypes.c_int
-    lib.tl2_smem_bytes.argtypes = [_I, _I]
-    lib.tl2_smem_bytes.restype = ctypes.c_int
-    lib.tl2_staged_smem_bytes.argtypes = [_I, _I, _I]
-    lib.tl2_staged_smem_bytes.restype = ctypes.c_int
-    lib.tl2_kstep.argtypes = []
-    lib.tl2_kstep.restype = ctypes.c_int
     lib.tl2_wgmma_smem_bytes.argtypes = [_I, _I, _I]
     lib.tl2_wgmma_smem_bytes.restype = ctypes.c_int
+    lib.tl2_wgmma_carry_stages.argtypes = [_I, _I]
+    lib.tl2_wgmma_carry_stages.restype = ctypes.c_int
     # m, n, k, bm, bn, bk, rhs_nk, a, b
     lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P]
     lib.tl2_wgmma_route.restype = ctypes.c_int

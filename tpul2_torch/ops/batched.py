@@ -1,10 +1,10 @@
 """Batched GEMM C[t] = A[t] @ B[t] on the same Hopper kernels.
 
 Counterpart of ``tpul2/ops/batched.py`` (``_bmm_kernel`` and ``_bmm_kernel_single_k``):
-the batch index is the kernels' ``blockIdx.z`` and each batch element reuses the 2-D
-tiling and route (``ops.matmul.launch_route``: the wgmma body for the K carry and the
-single interval alike where it takes the tile and the operands, else the mma.sync body),
-with the same bk rounding points.  As in the JAX kernel there is no bias, no activation
+the batch index is the ring kernel's ``blockIdx.z`` and each batch element reuses the 2-D
+tiling and route (``ops.matmul.launch_route``: the ring for the K carry and the single
+interval alike, filled by TMA or by the loads producer), with the same bk rounding
+points.  As in the JAX kernel there is no bias, no activation
 and no 'nk' layout.  For a CUDA tensor
 the wrapper launches a kernel or raises; for a CPU tensor it runs
 ``batched_matmul_reference``.  Under autograd the call goes through ``ops.matmul.GemmVjp``
@@ -23,12 +23,12 @@ from tpul2_torch.ops.matmul import (GemmVjp, _with_layout, check_operands, launc
 from tpul2_torch.utils.padding import cdiv
 
 #: Launches of the batched kernels with more than one bk interval (``_bmm_kernel``) and
-#: with one (``_bmm_kernel_single_k``), each on the wgmma body or on the mma.sync body,
+#: with one (``_bmm_kernel_single_k``), each with the TMA producer or the loads producer,
 #: counted where a kernel is launched.
 LAUNCHES_MULTI_K_WGMMA = 0
-LAUNCHES_MULTI_K_MMA_SYNC = 0
+LAUNCHES_MULTI_K_WGMMA_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
-LAUNCHES_SINGLE_K_MMA_SYNC = 0
+LAUNCHES_SINGLE_K_WGMMA_LSU = 0
 
 
 def batched_matmul_reference(a: torch.Tensor, b: torch.Tensor, bk: int,
@@ -43,8 +43,8 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
                         out_dtype: Optional[torch.dtype] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[t] = A[t] @ B[t]; a (B, M, K), b (B, K, N), both bf16."""
-    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC
-    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_MMA_SYNC
+    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_WGMMA_LSU
+    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU
     cfg = _with_layout(config, "kn")
     if records_grad(a, b):
         refuse_out_under_grad(out, "batched_matmul")
@@ -64,9 +64,9 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
         if route == "wgmma":
             LAUNCHES_MULTI_K_WGMMA += 1
         else:
-            LAUNCHES_MULTI_K_MMA_SYNC += 1
+            LAUNCHES_MULTI_K_WGMMA_LSU += 1
     elif route == "wgmma":
         LAUNCHES_SINGLE_K_WGMMA += 1
     else:
-        LAUNCHES_SINGLE_K_MMA_SYNC += 1
+        LAUNCHES_SINGLE_K_WGMMA_LSU += 1
     return out

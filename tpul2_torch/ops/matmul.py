@@ -2,12 +2,13 @@
 
 Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 ``cuda_matmul_fused`` play ``pallas_matmul``, ``pallas_matmul_tn`` and
-``pallas_matmul_fused``.  For a CUDA tensor each launches one of two bodies, picked by
-``launch_route`` from the shape before the launch: ``csrc/tl2_wgmma.cu`` (TMA ring +
-wgmma) for the K carry and the single K interval alike, on the tiles and alignments it
-takes, ``csrc/tl2_matmul.cu`` (mma.sync) for everything else; a launch that fails
-raises.  For a CPU tensor it runs ``matmul_reference``, the plain version of the same
-semantics.  Nothing falls back from a kernel to another kernel or to the plain version.
+``pallas_matmul_fused``.  For a CUDA tensor each launches ``csrc/tl2_wgmma.cu``'s ring
+(wgmma warpgroups over a ring of 64-deep K stages) for the K carry and the single K
+interval alike, on every tile; ``launch_route`` names, from the shape before the launch,
+the producer that fills the ring: TMA ('wgmma') or, where TMA cannot read an operand, the
+loads producer ('wgmma_lsu').  A launch that fails raises.  For a CPU tensor it runs
+``matmul_reference``, the plain version of the same semantics.  Nothing falls back from a
+kernel to another kernel or to the plain version.
 
 The kernel predicates its own edges, so ``edge='pad'`` and ``edge='mask'`` are the same
 launch: no padding copy, no output slice, and with ``out=`` the kernel writes straight
@@ -26,9 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-# the wgmma body's ring constants and shared-memory model, read through this module too
+# the ring's constants and shared-memory model, read through this module too
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
-                                KernelConfig, wgmma_smem_bytes)
+                                KernelConfig, carry_stages, wgmma_smem_bytes)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -42,18 +43,24 @@ ACTIVATIONS = {
     "silu": F.silu,
     "tanh": torch.tanh,
 }
-#: The kernel's activation codes (tl2_matmul.cu enum Act).
+#: The kernel's activation codes (tl2_wgmma.cuh enum Act).
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Launches of the 2-D kernels, by K-loop length and route: more than one bk interval
-#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each on the
-#: wgmma body or on the mma.sync body.  Counted where a kernel is launched and nowhere
+#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each with the
+#: TMA producer or the loads producer.  Counted where a kernel is launched and nowhere
 #: else.
 LAUNCHES_MULTI_K_WGMMA = 0
-LAUNCHES_MULTI_K_MMA_SYNC = 0
+LAUNCHES_MULTI_K_WGMMA_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
-LAUNCHES_SINGLE_K_MMA_SYNC = 0
+LAUNCHES_SINGLE_K_WGMMA_LSU = 0
+#: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn 32),
+#: of a swapped tile (bm 32 over bn 64 / 128), and of a bf16-family carry that rounds in
+#: the middle of a stage (bk % 64 == 32).
+LAUNCHES_WIDTH32 = 0
+LAUNCHES_SWAPPED = 0
+LAUNCHES_MIDSTAGE = 0
 
 
 def records_grad(a: torch.Tensor, rhs: torch.Tensor,
@@ -153,9 +160,12 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
       rtol 1e-5·|C| + atol 1e-5·√K   the f32 sums are taken in another order;
       2^-7 · max_j |running sum_j|   bf16 family with more than one K interval only: an
                                      f32 reorder can flip one bf16 rounding of the running
-                                     sum, which moves it by at most one bf16 ulp of the
-                                     largest sum it passed (a single interval is never
-                                     rounded, so it is held to the f32 terms);
+                                     sum, which moves it by one bf16 ulp of the sum it
+                                     passed (a single interval is never rounded, so it is
+                                     held to the f32 terms).  Later intervals re-round
+                                     that gap and can widen it past this term where a sum
+                                     crosses a power of two; chip_smoke.py then requires
+                                     the bits of a reference in the kernel's f32 order;
       x 1.2                          with an activation: no slope above 1.13 (gelu);
       2^-7 · |act(C + bias)|         bf16 output only: the final cast can round the two
                                      f32 values to neighbouring bf16 values.
@@ -181,20 +191,23 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
     return tol
 
 
+def operand_producers(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
+                      n: int, k: int) -> tuple:
+    """(TMA reads A, TMA reads the RHS): a 16-byte aligned base and rows of a multiple of
+    16 bytes (K % 8 for A and B_t, N % 8 for B); where not, the loads producer reads the
+    operand.  ``launch_args`` passes the same two flags as vec_a and vec_b."""
+    return (a.data_ptr() % 16 == 0 and k % 8 == 0,
+            rhs.data_ptr() % 16 == 0 and (k if cfg.rhs_layout == "nk" else n) % 8 == 0)
+
+
 def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                  m: int, n: int, k: int) -> str:
-    """The body a launch takes, from the shape before the launch (``tl2_wgmma_route``
-    mirrors it): 'wgmma' iff bm and bn are in WGMMA_TILES, TMA can read both operands
-    (16-byte aligned bases; rows of a multiple of 16 bytes: K % 8 for A and B_t, N % 8
-    for B), and, with more than one bk interval, bk is a multiple of WGMMA_KSTAGE (no ring
-    stage straddles a rounding point).  A single interval (gk == 1) has no rounding point
-    inside K, so it takes wgmma at any bk.  Else 'mma_sync'."""
-    rhs_row = k if cfg.rhs_layout == "nk" else n
-    wgmma = (min(m, n, k) > 0 and cfg.bm in WGMMA_TILES and cfg.bn in WGMMA_TILES
-             and (cfg.bk % WGMMA_KSTAGE == 0 or cdiv(k, cfg.bk) == 1)
-             and a.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
-             and k % 8 == 0 and rhs_row % 8 == 0)
-    return "wgmma" if wgmma else "mma_sync"
+    """The producer of a launch's ring, from the shape before the launch
+    (``tl2_wgmma_route`` mirrors it: 1 and 2): 'wgmma' where TMA can read both operands
+    (``operand_producers``), else 'wgmma_lsu' (the loads producer reads the operand TMA
+    cannot).  Every valid config takes one of them, at any bk: a carry's rounding point
+    falls on a stage's start or, where bk % 64 == 32, its middle."""
+    return "wgmma" if all(operand_producers(cfg, a, rhs, n, k)) else "wgmma_lsu"
 
 
 def _vector_ok(t: torch.Tensor, row_len: int) -> bool:
@@ -255,8 +268,9 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
 
 def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                 batch: int, m: int, n: int, k: int) -> tuple:
-    """The argument list of every C launcher (tl2_matmul_* and tl2_wgmma_*), on the
-    current stream of ``a``'s card.
+    """The argument list of the C launchers (tl2_wgmma_*, and tl2_matmul_*, which share it),
+    on the current stream of ``a``'s card: vec_a / vec_b say TMA may read the operand
+    (tl2_matmul.cu reads them as 16-byte loads being legal, the same condition).
 
     The stream is taken as its raw handle (``torch._C._cuda_getCurrentRawStream``, what
     torch's own compiled kernels launch on): ``torch.cuda.current_stream`` builds a Stream
@@ -271,32 +285,38 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
             torch._C._cuda_getCurrentRawStream(a.get_device()))
 
 
-#: The C launcher of each (route, f32 output).
-_LAUNCHERS = {("wgmma", True): "tl2_wgmma_f32out", ("wgmma", False): "tl2_wgmma_bf16out",
-              ("mma_sync", True): "tl2_matmul_f32out",
-              ("mma_sync", False): "tl2_matmul_bf16out"}
+#: The C launcher of each output dtype.
+_LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16out"}
 
 
 def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                   batch: int, m: int, n: int, k: int) -> str:
-    """Launch the body ``launch_route`` picks on the current stream, writing ``out``;
-    return the route ('wgmma' or 'mma_sync').
+    """Launch the ring on the current stream, writing ``out``; return the route
+    (``launch_route``: 'wgmma' or 'wgmma_lsu').  Counts the width-32, swapped and mid-stage
+    launches.
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
-    route = launch_route(cfg, a, rhs, m, n, k)
-    name = _LAUNCHERS[route, out.dtype == torch.float32]
+    global LAUNCHES_WIDTH32, LAUNCHES_SWAPPED, LAUNCHES_MIDSTAGE
+    name = _LAUNCHERS[out.dtype]
+    args = launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k)
     with torch.cuda.device(a.get_device()):  # an int index: the cheap way in
-        err = getattr(load_library(), name)(
-            *launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k))
+        err = getattr(load_library(), name)(*args)
     if err:  # the message formats the config, so only on failure
         check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
-    return route
+    if cfg.bn == 32:
+        LAUNCHES_WIDTH32 += 1
+    elif cfg.bm == 32:
+        LAUNCHES_SWAPPED += 1
+    if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
+        LAUNCHES_MIDSTAGE += 1
+    # launch_route's answer, read off the launch's own vec_a and vec_b
+    return "wgmma" if args[18] and args[19] else "wgmma_lsu"
 
 
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
-    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_MMA_SYNC
-    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_MMA_SYNC
+    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_WGMMA_LSU
+    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU
     if records_grad(a, rhs, bias):
         refuse_out_under_grad(out, "matmul")
         return GemmVjp.apply(a, rhs, bias, lambda a_, rhs_, bias_: _matmul(
@@ -316,11 +336,11 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
         if route == "wgmma":
             LAUNCHES_MULTI_K_WGMMA += 1
         else:
-            LAUNCHES_MULTI_K_MMA_SYNC += 1
+            LAUNCHES_MULTI_K_WGMMA_LSU += 1
     elif route == "wgmma":
         LAUNCHES_SINGLE_K_WGMMA += 1
     else:
-        LAUNCHES_SINGLE_K_MMA_SYNC += 1
+        LAUNCHES_SINGLE_K_WGMMA_LSU += 1
     return out
 
 

@@ -7,25 +7,21 @@ the MMAs.  The sum is f32 over the whole K whatever ``acc_dtype`` says, then one
 the bf16 family a staged config answers differently from ``cuda_matmul``, which rounds the
 carry after every bk interval.
 
-Two bodies, picked per launch by ``staged_route`` from the shape before the launch
-(``tl2_staged_route`` mirrors it; a launch outside its route is refused, never redirected):
-  'ring'      bm and bn in WGMMA_TILES, operands TMA can read: ``tl2_wgmma_staged``
-              (csrc/tl2_wgmma.cu), the TMA + wgmma ring's f32-carry instance.
-              ``pipeline_depth`` is the ring's depth in 64-deep TMA stages (WGMMA_KSTAGE):
-              depth d keeps up to d stages (64·d of K) in flight.  Where the output has
-              few tiles, the launch splits K (``staged_splits``, below);
-  'mma_sync'  a 32-edge tile, which has no m64 wgmma form: ``tl2_staged``
-              (csrc/tl2_staged.cu), mma.sync fed by cp.async.  ``pipeline_depth`` counts
-              32-deep slices (config.KSTEP): depth d keeps d - 1 slices in flight.
-Neither ring holds a bk-deep block, as the JAX kernel's DMA slots do (one would not fit
-shared memory at the tuning shape's bk = 1024).  bk reaches the staged path only through
-the JAX rules below (divisibility, the clamp, the gk == 1 route, where bk is the single-K
-kernel's interval); ``candidate_configs`` never offers two staged candidates that differ in
-bk alone.
+One body on every tile: ``tl2_wgmma_staged`` (csrc/tl2_wgmma.cu), the ring kernel's
+f32-carry instance, at the wide tiles, at width 32 and with the operands swapped (bm 32).
+``pipeline_depth`` is the ring's depth in 64-deep stages (WGMMA_KSTAGE): depth d keeps up
+to d stages (64·d of K) in flight.  ``staged_route`` names, from the shape before the launch
+(``tl2_staged_route`` mirrors it), the producer that fills the ring: 'ring' (TMA) or
+'ring_lsu' (the loads producer, where a base is not 16-byte aligned).  Where the output
+has few tiles, the launch splits K (``staged_splits``, below).  The ring does not hold a
+bk-deep block, as the JAX kernel's DMA slots do (one would not fit shared memory at the
+tuning shape's bk = 1024).  bk reaches the staged path only through the JAX rules below
+(divisibility, the clamp, the gk == 1 route, where bk is the single-K kernel's interval);
+``candidate_configs`` never offers two staged candidates that differ in bk alone.
 
 Split K.  The TPU kernel's grid runs in order on one core; on the H100 one CTA per output
-tile leaves most of the 132 SMs idle at the skinny streaming shapes where the tuner offers
-staged configs.  A ring launch with ``splits`` > 1 gives split s the K range
+tile leaves most of the 132 SMs idle at the skinny streaming and decode-size shapes where
+the tuner offers staged configs.  A launch with ``splits`` > 1 gives split s the K range
 ``split_bounds(k, splits)[s]`` (whole 64-deep stages; TMA zero-fills the last one's K
 tail), writes each split's f32 partial into a workspace the wrapper allocates (splits x M x
 N f32), then a second kernel on the same stream adds the partials of each element in split
@@ -51,19 +47,20 @@ from typing import Optional
 
 import torch
 
-from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, WGMMA_TILES, KernelConfig
+from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, KernelConfig
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.matmul import (_vector_ok, check_operands, cuda_matmul, cuda_matmul_tn,
-                                    records_grad, refuse_out_under_grad)
+                                    operand_producers, records_grad, refuse_out_under_grad)
 from tpul2_torch.utils.padding import cdiv
 
-#: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the TMA +
-#: wgmma ring and the mma.sync body; and of the ring launches that split K (each also
-#: launches the split-K reduction).  Counted where a kernel is launched and nowhere else:
-#: not on the gk == 1 path.
+#: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the ring
+#: filled by TMA and by the loads producer; of the launches that split K (each also
+#: launches the split-K reduction); and of those on a 32-edge tile.  Counted where a kernel
+#: is launched and nowhere else: not on the gk == 1 path.
 LAUNCHES_STAGED_RING = 0
-LAUNCHES_STAGED_MMA_SYNC = 0
+LAUNCHES_STAGED_RING_LSU = 0
 LAUNCHES_STAGED_SPLIT = 0
+LAUNCHES_STAGED_NARROW = 0
 
 
 class StagedNoVjp(torch.autograd.Function):
@@ -128,43 +125,30 @@ def staged_depth(depth: int, gk: int) -> int:
 
 def staged_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                  m: int, n: int, k: int) -> str:
-    """The body a staged launch takes, from the shape before the launch
-    (``tl2_staged_route`` mirrors it): 'ring' iff bm and bn are in WGMMA_TILES and TMA can
-    read both operands (16-byte aligned bases; rows of a multiple of 16 bytes: K % 8 for A
-    and B_t, N % 8 for B); else 'mma_sync'.  bk plays no part: the staged sum has no
-    rounding point inside K."""
-    rhs_row = k if cfg.rhs_layout == "nk" else n
-    ring = (min(m, n, k) > 0 and cfg.bm in WGMMA_TILES and cfg.bn in WGMMA_TILES
-            and a.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
-            and k % 8 == 0 and rhs_row % 8 == 0)
-    return "ring" if ring else "mma_sync"
+    """The producer of a staged launch's ring, from the shape before the launch
+    (``tl2_staged_route`` mirrors it: 1 and 2): 'ring' where TMA can read both operands
+    (``ops.matmul.operand_producers``), else 'ring_lsu'.  Every tile takes one of them; bk plays no part, since the staged
+    sum has no rounding point inside K."""
+    return "ring" if all(operand_producers(cfg, a, rhs, n, k)) else "ring_lsu"
 
 
 def launch_staged(a, rhs, cfg: KernelConfig, out: torch.Tensor, depth: int,
-                  m: int, n: int, k: int, route: str, splits: int) -> None:
-    """Launch the staged body of ``route`` on the current stream, writing ``out``: on the
-    ring with ``splits`` (> 1: into a workspace, then the reduction), on mma.sync with one.
+                  m: int, n: int, k: int, splits: int) -> None:
+    """Launch the staged ring on the current stream, writing ``out``: with ``splits`` > 1
+    into a workspace, then the reduction.
 
-    Raises if the build fails or a launcher reports an error.  Does not synchronise."""
-    lib = load_library()
+    Raises if the build fails or the launcher reports an error.  Does not synchronise."""
     device = a.get_device()
     with torch.cuda.device(device):
-        stream = torch._C._cuda_getCurrentRawStream(device)
-        flags = (int(cfg.rhs_layout == "nk"), int(cfg.grid_order == "nm"),
-                 int(out.dtype == torch.float32), stream)
-        if route == "ring":
-            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-                  if splits > 1 else None)
-            name = "tl2_wgmma_staged"
-            err = lib.tl2_wgmma_staged(a.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-                                       None if ws is None else ws.data_ptr(), m, n, k,
-                                       cfg.bm, cfg.bn, depth, splits, *flags)
-        else:
-            name = "tl2_staged"
-            err = lib.tl2_staged(a.data_ptr(), rhs.data_ptr(), out.data_ptr(), m, n, k,
-                                 cfg.bm, cfg.bn, depth, *flags)
+        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+              if splits > 1 else None)
+        err = load_library().tl2_wgmma_staged(
+            a.data_ptr(), rhs.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            m, n, k, cfg.bm, cfg.bn, depth, splits, int(cfg.rhs_layout == "nk"),
+            int(cfg.grid_order == "nm"), int(out.dtype == torch.float32),
+            torch._C._cuda_getCurrentRawStream(device))
     if err:
-        check_launch(err, f"{name} ({cfg} at depth={depth} splits={splits} "
+        check_launch(err, f"tl2_wgmma_staged ({cfg} at depth={depth} splits={splits} "
                           f"m={m} n={n} k={k})")
 
 
@@ -177,7 +161,8 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     a: (M, K).  The RHS follows ``config.rhs_layout``: (K, N) for 'kn', (N, K) for 'nk'.
     ``config.pipeline_depth`` (>= 2) is the ring depth.  All three dims must divide the
     blocks.  ``out=`` receives C in place."""
-    global LAUNCHES_STAGED_RING, LAUNCHES_STAGED_MMA_SYNC, LAUNCHES_STAGED_SPLIT
+    global LAUNCHES_STAGED_RING, LAUNCHES_STAGED_RING_LSU, LAUNCHES_STAGED_SPLIT
+    global LAUNCHES_STAGED_NARROW
     cfg = config or KernelConfig(pipeline_depth=2)
     if cfg.pipeline_depth < 2:
         raise ValueError("cuda_matmul_pipelined requires pipeline_depth >= 2 "
@@ -197,22 +182,21 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
         refuse_out_under_grad(out, "matmul_pipelined")
         return StagedNoVjp.apply(a, b_or_bt, lambda a_, rhs_: cuda_matmul_pipelined(
             a_, rhs_, cfg, out_dtype))
-    route = staged_route(cfg, a, b_or_bt, m, n, k)
-    splits = staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route == "ring" else 1
+    splits = staged_splits(m, n, k, cfg.bm, cfg.bn, depth)
     if a.device.type == "cpu":
         res = pipelined_reference(a, b_or_bt, cfg.rhs_layout, out_dtype, splits)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    for name, t, row in (("a", a, k), ("rhs", b_or_bt, k if cfg.rhs_layout == "nk" else n),
-                         ("out", out, n)):
-        if not _vector_ok(t, row):
-            raise ValueError(f"the staged kernel needs 16-byte aligned rows; {name} is not")
-    launch_staged(a, b_or_bt, cfg, out, depth, m, n, k, route, splits)
-    if route == "ring":
+    elif not _vector_ok(out, n):
+        raise ValueError("the staged kernel needs a 16-byte aligned out")
+    launch_staged(a, b_or_bt, cfg, out, depth, m, n, k, splits)
+    if staged_route(cfg, a, b_or_bt, m, n, k) == "ring":
         LAUNCHES_STAGED_RING += 1
     else:
-        LAUNCHES_STAGED_MMA_SYNC += 1
+        LAUNCHES_STAGED_RING_LSU += 1
     if splits > 1:
         LAUNCHES_STAGED_SPLIT += 1
+    if cfg.bm == 32 or cfg.bn == 32:
+        LAUNCHES_STAGED_NARROW += 1
     return out
