@@ -150,6 +150,21 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      stores a screened vendor config, the re-measured row launches no kernel and is
      faster, the repair journal holds the shape once); and demote_uncompilable_entries'
      launch probe of a stored staged config, which must keep it
+  grid tune  the grid-scale tools on a copy of the committed DB
+     (runs/chip_smoke/gridtune_db.json): scripts/run_suite_torch.py tune (its main()) in
+     both families at 8 candidates, 3 + 5 rounds and 4 finalists over the stratified
+     grid's first four shapes (one per band), 2048^3 and 1024x8192x2048, first over the
+     first three, then over all six: the second run must tune only the new ones, with the
+     ring launched and no mma.sync body; scripts/seed_tail_entries_torch.py, which must
+     leave resolve_config unchanged at every grid shape of both families and modes (its
+     counts by source and kind, its seconds); scripts/correctness_campaign_torch.py
+     --no_demote over the copy's kernel entries in stratified order for 60 s (no failure,
+     no guard hit; the entries checked, those left for the budget, the seconds per
+     entry), then once more, which must gate none that the first gated (none at all
+     where the first was not cut); and the six shapes through the lean engine
+     (harness.campaign, no heal) through the committed DB and through the copy: per
+     family each row's config source, whether a kernel or the sentinel ran, and the
+     geomean against torch.matmul
   model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
      8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
      block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
@@ -186,6 +201,7 @@ The last two lines are the per-kernel JSON record and {"ok": true, "device": {..
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -1779,6 +1795,179 @@ def _campaign_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple
     return rec, launches
 
 
+#: Phase grid tune: the stratified grid's first shapes (one per band) and two shapes that
+#: ran the heuristic kernel in the no-heal grid; the tuner's reduced budget; the gate's.
+GRID_TUNE_PREFIX = 4
+GRID_TUNE_EXTRA = [(2048, 2048, 2048), (1024, 8192, 2048)]
+GRID_TUNE_FIRST = 3
+GRID_TUNE_BUDGET = ["--max_candidates", "8", "--stage1_rounds", "3", "--stage2_rounds", "5",
+                    "--finalists", "4"]
+GRID_GATE_BUDGET_S = 60.0
+
+
+def _grid_tune_phase(repo: Path, counters, zero_counters) -> tuple:
+    """Phase grid tune: tune a grid prefix into a DB copy and resume, seed the rest of the
+    grid, gate the copy's kernel entries on the card, and run the tuned shapes through the
+    lean engine through the committed DB and through the copy.  Returns (record, the
+    launches of the phase)."""
+    import json
+    import shutil
+    import statistics
+
+    from tpul2_torch.autotune import db as db_mod
+    from tpul2_torch.dispatch import resolve_config
+    from tpul2_torch.harness import campaign, suite
+
+    t_phase = time.perf_counter()
+    work = repo / "runs" / "chip_smoke" / "gridtune"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    db_path = repo / "runs" / "chip_smoke" / "gridtune_db.json"
+    shutil.copy(campaign.COMMITTED_DB, db_path)
+    run_suite, seed, gate = (_script(repo, name) for name in (
+        "run_suite_torch", "seed_tail_entries_torch", "correctness_campaign_torch"))
+
+    def main_json(mod, argv, log=None) -> tuple:
+        """The script's exit code and the JSON object of its last stdout line; its stderr
+        goes to ``log`` where given (the gate prints a line per entry)."""
+        printed, errs = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(
+                errs if log else sys.stderr):
+            rc = mod.main(argv)
+        if log:
+            with log.open("a") as f:
+                f.write(errs.getvalue())
+        return rc, json.loads(printed.getvalue().strip().splitlines()[-1])
+
+    prefix = suite.grid(suite.REFERENCE_DIMS, order="stratified")[:GRID_TUNE_PREFIX]
+    if len({suite.band(suite.mnk_name(*s)) for s in prefix}) != GRID_TUNE_PREFIX:
+        raise AssertionError(f"the stratified prefix is not one shape per band: {prefix}")
+    shapes = prefix + GRID_TUNE_EXTRA
+    rec = {"shapes": [list(s) for s in shapes], "tune": [], "launches": {}}
+
+    # ---- 1. tune the first shapes, then all of them: the second run tunes the new ones ----
+    zero_counters()
+    t0 = time.perf_counter()
+    for todo in (shapes[:GRID_TUNE_FIRST], shapes):
+        spec = ";".join(",".join(map(str, s)) for s in todo)
+        for acc in ("float32", "bfloat16"):
+            rc, out = main_json(run_suite, ["tune", "--db", str(db_path), "--shapes", spec,
+                                            "--acc", acc, *GRID_TUNE_BUDGET])
+            tuned = [tuple(t["mnk"]) for t in out["tuned"]]
+            want = todo if len(todo) == GRID_TUNE_FIRST else shapes[GRID_TUNE_FIRST:]
+            if rc != 0 or tuned != [tuple(s) for s in want]:
+                raise AssertionError(f"tune ({acc}, {len(todo)} shapes) exited {rc} and tuned "
+                                     f"{tuned}, not {want}")
+            for t in out["tuned"]:
+                b = t["best"]
+                row = {"mnk": t["mnk"], "acc": acc, "speedup": t["speedup"],
+                       "kernel_vs_torch_matmul": t["kernel_vs_torch_matmul"],
+                       "seconds": t["seconds"],
+                       "best": (f"vendor {b['vendor_variant']}" if b["use_vendor"] else
+                                f"{b['bm']}x{b['bn']} bk={b['bk']} {b['rhs_layout']} "
+                                f"depth={b['pipeline_depth']}")}
+                rec["tune"].append(row)
+                print("  tuned " + json.dumps(row))
+    rec["tune_seconds"] = time.perf_counter() - t0
+    launches = rec["launches"]["tune"] = counters()
+    ring = sum(v for key, v in launches.items() if key != "mma_sync")
+    print(f"  tune: {len(rec['tune'])} shapes x families tuned in {rec['tune_seconds']:.1f} s "
+          f"({rec['tune_seconds'] / len(rec['tune']):.2f} s each); launches "
+          + json.dumps(launches))
+    if ring <= 0 or launches["mma_sync"]:
+        raise AssertionError(f"the tune launched {ring} ring kernels and "
+                             f"{launches['mma_sync']} mma.sync bodies")
+
+    # ---- 2. seed the rest of the grid: dispatch's decisions are unchanged ----
+    grid = suite.grid(suite.REFERENCE_DIMS)
+    old_env = os.environ.get(db_mod.ENV_VAR)
+
+    def decisions() -> dict:
+        os.environ[db_mod.ENV_VAR] = str(db_path)
+        db_mod.reset_default_db()
+        try:
+            return {(s, acc, mode): resolve_config(*s, acc, mode=mode) for s in grid
+                    for acc in ("float32", "bfloat16") for mode in ("offline", "server")}
+        finally:
+            if old_env is None:
+                os.environ.pop(db_mod.ENV_VAR)
+            else:
+                os.environ[db_mod.ENV_VAR] = old_env
+            db_mod.reset_default_db()
+
+    before = decisions()
+    rc, out = main_json(seed, ["--db", str(db_path)])
+    after = decisions()
+    changed = [key for key in before if before[key] != after[key]]
+    rec["seed"] = out
+    print(f"  seed: {out['seeded']} entries {json.dumps(out['counts'])} in "
+          f"{out['seconds']:.3f} s; DB {out['entries_before']} -> {out['entries_after']}; "
+          f"resolve_config changed at {len(changed)} of {len(before)} grid decisions")
+    if rc != 0 or changed or out["entries_after"] != 2 * len(grid):
+        raise AssertionError(f"seeding exited {rc}, changed {changed[:5]}, {out}")
+
+    # ---- 3. gate the copy's kernel entries on the card, then resume ----
+    argv = ["--db", str(db_path), "--no_demote", "--order", "stratified", "--budget_s",
+            str(GRID_GATE_BUDGET_S), "--jsonl", str(work / "gate.jsonl"), "--out",
+            str(work / "gate.json")]
+    zero_counters()
+    log = work / "gate.log"
+    rc, first = main_json(gate, argv, log)
+    run = first["run"]
+    rc2, second = main_json(gate, argv, log)
+    launches = rec["launches"]["gate"] = counters()
+    gated = [(r["mnk"], r["acc"]) for r in map(json.loads, (work / "gate.jsonl").read_text()
+                                                 .splitlines())]
+    rec["gate"] = {"first": first, "second": second["run"]}
+    bands = collections.Counter(suite.band(mnk) for mnk, _ in gated)
+    print(f"  gate: {run['checked']} of {first['total_kernel_entries']} kernel entries checked "
+          f"in {run['seconds']:.1f} s ({run['seconds_per_entry']:.4f} s per entry), "
+          f"{run['skipped_for_budget']} left for the budget; by band {json.dumps(bands)}; "
+          f"failed {len(first['failed'])}, guard hits {first['guard_hits']}; the second "
+          f"invocation checked {second['run']['checked']} ({len(gated)} records, "
+          f"{len(set(gated))} entries); launches " + json.dumps(launches))
+    if rc != 0 or first["failed"] or first["guard_hits"] or not run["checked"]:
+        raise AssertionError(f"the gate failed: {first['failed'][:3]}\n"
+                             + log.read_text()[-4000:])
+    # the second run gates only what the first left for the budget, nothing twice
+    again, left = second["run"]["checked"], run["skipped_for_budget"]
+    if rc2 != 0 or len(gated) != len(set(gated)) or again > left:
+        raise AssertionError(f"the resumed gate checked {again} entries after {left} were "
+                             "left")
+    if launches["mma_sync"]:
+        raise AssertionError("the gate launched an mma.sync body")
+
+    # ---- 4. the tuned shapes through the lean engine: the committed DB, then the copy ----
+    zero_counters()
+    rec["lean"] = {}
+    for label, path in (("committed", campaign.COMMITTED_DB), ("tuned", db_path)):
+        out_dir = work / f"lean_{label}"
+        summary = campaign.run_campaign(shapes, out_dir, db_path=path)
+        if summary["rows"] != len(shapes) or summary["failed"]:
+            raise AssertionError(f"lean through the {label} DB: {summary}")
+        rows = [json.loads(ln) for ln in
+                campaign.sidecar_path(out_dir, "offline").read_text().splitlines()]
+        rec["lean"][label] = {}
+        for acc in ("float32", "bfloat16"):
+            per = [{"mnk": r["mnk"], "source": r["config_source"][acc]["source"],
+                    "scope": r["config_source"][acc].get("scope"),
+                    "ran": "sentinel" if r["configs"][acc]["use_vendor"] else "kernel",
+                    "speedup": r["speedups"][acc]["torch_matmul"]} for r in rows]
+            geo = statistics.geometric_mean(p["speedup"] for p in per)
+            rec["lean"][label][acc] = {"rows": per, "geomean_vs_torch_matmul": geo}
+            print(f"  lean through the {label} DB, {acc}: geomean {geo:.4f}x torch.matmul; "
+                  + "; ".join(f"{p['mnk']} {p['source']}"
+                              + (f" ({p['scope']})" if p["scope"] else "")
+                              + f" -> {p['ran']} {p['speedup']:.4f}" for p in per))
+    launches = rec["launches"]["lean"] = counters()
+    if launches["mma_sync"]:
+        raise AssertionError("the lean rows launched an mma.sync body")
+    total = {key: sum(part[key] for part in rec["launches"].values()) for key in launches}
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase grid tune: {rec['seconds']:.1f} s")
+    return rec, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2806,15 +2995,20 @@ def main(argv=None) -> int:
     with phase("campaign"):
         record["campaign"], campaign_launches = _campaign_phase(torch, repo, counters,
                                                                 zero_counters, use_db)
+    with phase("grid tune"):
+        record["grid_tune"], grid_tune_launches = _grid_tune_phase(repo, counters,
+                                                                   zero_counters)
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
     with phase("parallel"):
         record["parallel"], parallel_launches = _parallel_phase(torch, repo, counters,
                                                                 zero_counters, use_db)
-    # each kernel row's launches: its main paths', the campaign's, the model path's, the
-    # parallel layer's and the seq-16 block's; no path launched an mma.sync body
-    paths = {"campaign": campaign_launches, "model": model_launches,
-             "parallel": parallel_launches, "decode block": decode_launches}
+    # each kernel row's launches: its main paths', the campaign's, the grid tune's, the
+    # model path's, the parallel layer's and the seq-16 block's; no path launched an
+    # mma.sync body
+    paths = {"campaign": campaign_launches, "grid tune": grid_tune_launches,
+             "model": model_launches, "parallel": parallel_launches,
+             "decode block": decode_launches}
     for name, got in paths.items():
         if got["mma_sync"]:
             raise AssertionError(f"the {name} path launched an mma.sync body: {got}")

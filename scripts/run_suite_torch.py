@@ -1,6 +1,19 @@
 #!/usr/bin/env python
-"""Shape-suite runner of tpul2_torch: one CSV row per shape and family in CUDA-L2's schema,
-through the DB named by ``--db`` (default ``tpul2_torch/data/tunedb_h100.json``).
+"""Shape-suite runner of tpul2_torch: the grid's tuning into a DB, and one CSV row per shape
+and family in CUDA-L2's schema through the DB named by ``--db`` (default
+``tpul2_torch/data/tunedb_h100.json``).
+
+  tune  the counterpart of ``scripts/run_suite.py tune``: the shapes of ``--dims`` cubed
+        (the reference's grid by default) in ``--order`` (default lex, the JAX order),
+        cut by ``--max_elems`` and ``--max_shapes``, or the ``--shapes`` list, tuned
+        ``--chunk`` shapes at a time through ``autotune.search.tune_many`` into the DB
+        named by ``--db`` (required: a copy, never the committed file).  The tuner stores
+        each shape's winner as it finishes it, so a cut run resumes at the first untuned
+        shape; a shape with a measured entry is skipped.  Offline entries only (server
+        sub-entries: ``python -m tpul2_torch.autotune --mode server``).  Progress goes to
+        stderr; stdout gets one JSON object: the newly tuned shapes, each winner, its
+        speedup over torch_matmul and the fastest kernel candidate's time over
+        torch_matmul's, and the seconds.
 
   eval --engine run_mode (the default)
         for each shape not yet in the CSV: the gate (stop the shape if it fails), then
@@ -28,6 +41,9 @@ reference's 1000-shape grid in ``--order`` (default stratified: every prefix kee
 grid's band mix) cut at ``--max_shapes``.
 
 Usage:
+  cp tpul2_torch/data/tunedb_h100.json runs/db.json
+  python scripts/run_suite_torch.py tune --db runs/db.json --max_shapes 100 --acc float32
+  python scripts/run_suite_torch.py tune --db /tmp/db.json --device cpu --dims 64 96
   python scripts/run_suite_torch.py eval --acc float32 --mode offline
   python scripts/run_suite_torch.py eval --acc bfloat16 --mode server --target_qps 100
   python scripts/run_suite_torch.py eval --device cpu --shapes "96,160,200" --out_dir /tmp/s
@@ -58,9 +74,28 @@ def parse_shapes(spec: str) -> list:
 
 
 def parse_args(argv=None):
+    from tpul2_torch.harness.suite import REFERENCE_DIMS
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
+    tu = sub.add_parser("tune", help="tune the grid's shapes into a DB copy")
+    tu.add_argument("--db", required=True,
+                    help="the TuneDB file the winners go to (not the committed one)")
+    tu.add_argument("--dims", type=int, nargs="*", default=REFERENCE_DIMS)
+    tu.add_argument("--max_shapes", type=int, default=None)
+    tu.add_argument("--max_elems", type=int, default=None,
+                    help="skip shapes whose largest operand exceeds this element count")
+    tu.add_argument("--order", choices=["lex", "cost", "stratified"], default="lex")
+    tu.add_argument("--shapes", default=None,
+                    help="'default' or 'm,n,k;m,n,k;...' tuned instead of the grid")
+    tu.add_argument("--acc", choices=["float32", "bfloat16"], default="float32")
+    tu.add_argument("--chunk", type=int, default=8)
+    tu.add_argument("--max_candidates", type=int, default=16)
+    tu.add_argument("--stage1_rounds", type=int, default=3)
+    tu.add_argument("--stage2_rounds", type=int, default=6)
+    tu.add_argument("--finalists", type=int, default=4)
+    tu.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    tu.add_argument("--verbose", action="store_true")
     ev = sub.add_parser("eval", help="gate + bench per shape into the CSV")
     ev.add_argument("--acc", choices=["float32", "bfloat16"], default="float32")
     ev.add_argument("--mode", choices=["offline", "server"], default="offline")
@@ -91,6 +126,13 @@ def parse_args(argv=None):
     ev.add_argument("--trials", type=int, default=None,
                     help="lean: publication iterations per shape (requests in server mode)")
     args = ap.parse_args(argv)
+    if args.cmd == "tune":
+        from tpul2_torch.harness.campaign import refuse_committed_db
+        try:
+            args.db = refuse_committed_db(args.db, "tune")
+        except ValueError as e:
+            ap.error(str(e))
+        return args
     if args.mode == "server" and (args.target_qps is None or args.target_qps <= 0):
         ap.error("--mode server needs --target_qps > 0")
     if args.engine == "run_mode" and (args.heal or args.defend or args.trials):
@@ -103,6 +145,59 @@ def shape_list(args) -> list:
     if args.grid == "reference":
         return grid(REFERENCE_DIMS, max_shapes=args.max_shapes, order=args.order)
     return parse_shapes(args.shapes)[:args.max_shapes]
+
+
+def tune_shape_list(args) -> list:
+    """``--shapes``, else the grid of ``--dims`` (``scripts/run_suite.py``'s ``grid`` in
+    lex order)."""
+    from tpul2_torch.harness.suite import grid
+    if args.shapes:
+        return parse_shapes(args.shapes)[:args.max_shapes]
+    return grid(args.dims, args.max_shapes, args.max_elems, args.order)
+
+
+def _kernel_ratio(res):
+    """The fastest kernel candidate's stage-1 time over torch_matmul's (device time where
+    the tuner ran on the card), or None where no kernel candidate launched."""
+    ref = next(d["stage1_ms"] for d in res.medians_ms
+               if d["config"]["use_vendor"] and d["config"]["vendor_variant"] == "torch_matmul")
+    kernels = [d["stage1_ms"] for d in res.medians_ms if not d["config"]["use_vendor"]]
+    return min(kernels) / ref if kernels else None
+
+
+def cmd_tune(args) -> int:
+    import json
+
+    import torch
+
+    from tpul2_torch.autotune import search
+    from tpul2_torch.autotune.db import TuneDB
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device (pass --device cpu to tune the plain versions)", file=sys.stderr)
+        return 1
+    db = TuneDB(path=args.db).load()
+    shapes = tune_shape_list(args)
+    print(f"tuning {len(shapes)} shapes into {args.db} (DB has {len(db)} entries)",
+          file=sys.stderr)
+    t0 = time.time()
+    tuned = []
+    # chunk by chunk: the tuner saves the DB after every shape, so a cut run resumes
+    for i in range(0, len(shapes), args.chunk):
+        chunk = shapes[i:i + args.chunk]
+        results = search.tune_many(chunk, acc=args.acc, db=db, device=args.device,
+                                   skip_tuned=True, max_candidates=args.max_candidates,
+                                   stage1_rounds=args.stage1_rounds,
+                                   stage2_rounds=args.stage2_rounds,
+                                   finalists=args.finalists, verbose=args.verbose)
+        tuned += [{"mnk": [r.m, r.n, r.k], "best": dataclasses.asdict(r.best),
+                   "speedup": r.speedup, "seconds": r.elapsed_s,
+                   "kernel_vs_torch_matmul": _kernel_ratio(r)} for r in results]
+        print(f"[{time.time() - t0:.0f}s] {i + len(chunk)}/{len(shapes)} "
+              f"({len(tuned)} newly tuned)", file=sys.stderr)
+    print(json.dumps({"acc": args.acc, "shapes": len(shapes), "tuned": tuned,
+                      "seconds": time.time() - t0, "db_entries": len(db)}))
+    return 0
 
 
 def cmd_eval_lean(args) -> int:
@@ -182,7 +277,7 @@ def cmd_eval(args) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    return cmd_eval(args)
+    return cmd_tune(args) if args.cmd == "tune" else cmd_eval(args)
 
 
 if __name__ == "__main__":

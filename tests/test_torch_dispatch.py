@@ -159,9 +159,11 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    for path in list((REPO / "tpul2_torch").rglob("*.py")) + [
-            REPO / "chip_smoke.py", REPO / "scripts" / "eval_one_shape_torch.py",
-            REPO / "scripts" / "run_suite_torch.py", REPO / "tests" / "_torch_ranks.py"]:
+    scripts = sorted((REPO / "scripts").glob("*_torch.py"))
+    for name in ("eval_one_shape", "run_suite", "seed_tail_entries", "correctness_campaign"):
+        assert REPO / "scripts" / f"{name}_torch.py" in scripts
+    for path in list((REPO / "tpul2_torch").rglob("*.py")) + scripts + [
+            REPO / "chip_smoke.py", REPO / "tests" / "_torch_ranks.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from tpul2." not in text and "import tpul2\n" not in text, path

@@ -375,15 +375,17 @@ def tune_many(shapes: Sequence[tuple],
               verbose: bool = True,
               **kw) -> list:
     """Tune a batch of (M, N, K) shapes, one after another.  Resumable: with
-    ``skip_tuned`` shapes already tuned in ``mode`` are skipped; with ``seed_from_db`` a
-    stored winner competes first.  ``kw`` goes to ``tune_shape``."""
+    ``skip_tuned`` shapes already tuned in ``mode`` are skipped; an entry stored with
+    ``"measured": false`` (a seeded or server-only shape) is not a tuning and is tuned,
+    where the JAX package skips any stored entry.  With ``seed_from_db`` a stored config
+    competes first.  ``kw`` goes to ``tune_shape``."""
     db = db if db is not None else default_db()
     results = []
     for (m, n, k) in shapes:
         stored = db.get(m, n, k, acc)
         done = (db.get_server_entry(m, n, k, acc) if mode == "server"
                 else db.get_entry(m, n, k, acc))
-        if skip_tuned and done is not None:
+        if skip_tuned and done is not None and done.get("measured", True):
             continue
         seeds = [stored] if (seed_from_db and stored is not None) else None
         results.append(tune_shape(m, n, k, acc=acc, out_dtype=out_dtype, db=db,

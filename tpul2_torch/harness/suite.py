@@ -163,29 +163,37 @@ def band(mnk: str) -> str:
     return "other"
 
 
-def grid(dims, max_shapes=None, max_elems=None, order: str = "lex") -> list:
-    """The (m, n, k) shapes of ``dims`` cubed, in ``order``.
+def order_shapes(shapes, order: str = "lex") -> list:
+    """``shapes`` in ``order``.
 
-    'lex' is itertools.product's order; 'cost' puts cheap shapes first (by m·n·k);
-    'stratified' merges the bands' cost-ascending lists in proportion, so that every
-    prefix keeps the grid's band mix and a campaign cut by the clock is not all one band.
-    ``max_elems`` drops shapes whose largest operand holds more elements; ``max_shapes``
-    keeps the first ones."""
+    'lex' is sorted order (itertools.product's, for a grid); 'cost' puts cheap shapes
+    first (by m·n·k); 'stratified' merges the bands' cost-ascending lists in proportion,
+    so that every prefix keeps the band mix of ``shapes`` and a run cut by the clock is
+    not all one band."""
     if order not in ("lex", "cost", "stratified"):
         raise ValueError(f"order must be 'lex', 'cost' or 'stratified', got {order!r}")
+    if order == "lex":
+        return sorted(shapes)
+    by_cost = sorted(shapes, key=lambda s: (s[0] * s[1] * s[2], s))
+    if order == "cost":
+        return by_cost
+    buckets: dict = {}
+    for s in by_cost:
+        buckets.setdefault(band(mnk_name(*s)), []).append(s)
+    merged = sorted((i / len(bl), i, b, s) for b, bl in sorted(buckets.items())
+                    for i, s in enumerate(bl))
+    return [s for _, _, _, s in merged]
+
+
+def grid(dims, max_shapes=None, max_elems=None, order: str = "lex") -> list:
+    """The (m, n, k) shapes of ``dims`` cubed, in ``order``: 'lex' is itertools.product's
+    order, 'cost' and 'stratified' are ``order_shapes``'.  ``max_elems`` drops shapes whose
+    largest operand holds more elements; ``max_shapes`` keeps the first ones."""
     shapes = list(itertools.product(dims, dims, dims))
     if max_elems:
         shapes = [s for s in shapes
                   if max(s[0] * s[2], s[2] * s[1], s[0] * s[1]) <= max_elems]
-    if order == "cost":
-        shapes.sort(key=lambda s: (s[0] * s[1] * s[2], s))
-    elif order == "stratified":
-        buckets: dict = {}
-        for s in sorted(shapes, key=lambda s: (s[0] * s[1] * s[2], s)):
-            buckets.setdefault(band(mnk_name(*s)), []).append(s)
-        merged = sorted((i / len(bl), i, b, s) for b, bl in sorted(buckets.items())
-                        for i, s in enumerate(bl))
-        shapes = [s for _, _, _, s in merged]
+    shapes = order_shapes(shapes, order) if order != "lex" else shapes
     if max_shapes:
         shapes = shapes[:max_shapes]
     return shapes
