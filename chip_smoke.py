@@ -15,7 +15,11 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      'wgmma', 2 'wgmma_lsu') over a grid of shapes (M and N of 1, 8, 17, 31, 32 among
      them), all nine tiles, bk (96 and 160, single intervals included), layouts and
      operand alignments, and tl2_staged_route with ops.pipelined.staged_route over
-     shapes, tiles, depths, layouts and alignments.  The mma.sync bodies' C entries
+     shapes, tiles, depths, layouts and alignments; the wide route's models
+     (config.wide_stages and wide_smem_bytes against tl2_wgmma_wide_stages and
+     _smem_bytes, validate against the stages that fit) and its route (3 'wgmma_wide'
+     where launch_route takes it, 0 where it raises) over wide blocks, bk, layouts and
+     alignments.  The mma.sync bodies' C entries
      (tl2_matmul_*out, tl2_staged) are wrapped to count every call made through the
      library: the package makes none (the "mma_sync" count of every path must be 0), and
      this script launches them only through the unwrapped functions
@@ -67,13 +71,14 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      gate must pass; then the entry points (dispatch.matmul, dispatch.batched_matmul) at
      shapes with K % 8 != 0, which TMA cannot read, with one K interval and with several,
      at decode shapes (the swapped and width-32 tiles, 2-D and batched), with a bf16
-     config whose bk is 96 (a rounding point mid-stage), and dispatch.matmul with staged
-     configs (a 32-edge tile and a ring tile whose few tiles split K, an A base 2 bytes
-     off 16): exact on 0/1 inputs
+     config whose bk is 96 (a rounding point mid-stage), dispatch.matmul with a wide block
+     (256x1024, one interval, 'kn' and 'nk', bias + relu, M and N off the block) and with
+     staged configs (a 32-edge tile and a ring tile whose few tiles split K, an A base 2
+     bytes off 16): exact on 0/1 inputs
   4  the launch counters, zeroed just before phase 3, must show that each body ran with
-     both producers, single-K and multi-K, 2-D and batched, the width-32, swapped and
-     mid-stage launches, and the staged ring with both producers, a split and a 32-edge
-     tile; and no mma.sync launch: the bring-up shapes and the gate's batched variants
+     both producers, single-K and multi-K, 2-D and batched, the wide route, the width-32,
+     swapped and mid-stage launches, and the staged ring with both producers, a split and
+     a 32-edge tile; and no mma.sync launch: the bring-up shapes and the gate's batched variants
      take TMA (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0
      shapes the loads producer
   tune  `python -m tpul2_torch.autotune` (its main()) for each tuning shape (64x8192x8192,
@@ -165,6 +170,25 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      (harness.campaign, no heal) through the committed DB and through the copy: per
      family each row's config source, whether a kernel or the sentinel ran, and the
      geomean against torch.matmul
+  thin-K  the thin-K band and the wide blocks (tl2_wgmma_wide.cu): (a) the write-allocate
+     factor, the median GB/s of a read-only pass (sum) over that of a write-only pass
+     (fill) over 2 GiB, three turns of 10 passes each between CUDA events; (b) the wide
+     route against its plain version, 0/1 inputs exact and normal inputs within
+     allowed_error, at 16384x16384x64 'kn' bf16 out, 8192x16384x512 'nk' bias + gelu,
+     4096x16384x128 f32 out (a 512-row block's walk), 1024x2048x256 'nk' (1024 rows),
+     1000x1000x200 and 200x264x128 (edges the output's tensor map clips), each launch
+     counted on the wide route; (c) alone (CUDA graphs of direct launches) in turns at
+     16384x16384x64 and 8192x8192x256: the wide block, the 128x128 single-K ring, then
+     torch.matmul, the plain version and the bound; (d) scripts/thin_k_report_torch.py on
+     the committed no-heal grid in both families (300 thin-K rows each, none missing):
+     rows, at the wall, winning, targets; (e) scripts/retune_thin_k_torch.py over the
+     report's 6 largest f32 targets (by M·N, then the thinnest K) into a copy of the
+     committed DB (runs/chip_smoke/thin_k/retune_db.json) at 12 candidates, 2 + 4 rounds,
+     3 finalists and a 40 s budget (each shape's winner, its fastest kernel candidate and
+     that candidate's time over torch_matmul's), then the lean engine (harness.campaign)
+     over the retuned shapes through the committed DB and the copy: each shape's speedup
+     against torch.matmul and config (wide, ring or sentinel) before and after; the
+     counters (zeroed before the retune) must show the wide route launched
   model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
      8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
      block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
@@ -398,6 +422,53 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
                                 n += 1
                                 n_wgmma += py
     return n, n_wgmma
+
+
+def _check_wide_mirror(torch, lib, mm, config) -> tuple:
+    """The wide route's models against the kernel's: ``config.wide_stages`` and
+    ``wide_smem_bytes`` against tl2_wgmma_wide_stages / _smem_bytes, ``validate`` against
+    the stages that fit; then tl2_wgmma_route against ops.matmul.launch_route for wide
+    blocks over shapes (K and N off 8 among them), blocks, bk (one interval and several),
+    layouts and operand alignments: 'wgmma_wide' where the C side says 3, a ValueError
+    where it says 0.  Returns (route cases, wide launches among them)."""
+    for bm in (64, 128, 256, 2048):
+        for k in (32, 64, 128, 256, 512, 576, 1024, 1280, 1344, 4096):
+            stages = lib.tl2_wgmma_wide_stages(bm, k)
+            kernel = lib.tl2_wgmma_wide_smem_bytes(bm, k, stages)
+            cfg = config.KernelConfig(bm=bm, bn=256, bk=k)
+            if (stages != config.wide_stages(bm, k)
+                    or kernel != config.wide_smem_bytes(bm, k, stages)
+                    or (cfg.validate() is None) != (stages >= config.WIDE_MIN_STAGES)
+                    or (stages >= config.WIDE_MIN_STAGES and kernel > config.SMEM_LIMIT)):
+                raise AssertionError(f"the wide smem model differs from the kernel at bm {bm} "
+                                     f"k {k}: {stages} stages, {kernel} bytes")
+    buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    shapes = ((16384, 16384, 64), (8192, 16384, 512), (1000, 1000, 200), (200, 264, 128),
+              (2048, 2048, 100), (2048, 1001, 64), (128, 4096, 1024))
+    n = n_wide = 0
+    for off_a in (0, 1):
+        for off_b in (0, 8):
+            a, b = buf[off_a:], buf[off_b:]
+            for m, nn, k in shapes:
+                for bm, bn in ((64, 256), (128, 2048), (256, 128), (2048, 16384), (512, 512)):
+                    for bk in (64, 96, 128, 256, 512, 1024):
+                        for layout in ("kn", "nk"):
+                            cfg = config.KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
+                            c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk, int(layout == "nk"),
+                                                    a.data_ptr(), b.data_ptr())
+                            try:
+                                route = mm.launch_route(cfg, a, b, m, nn, k)
+                            except ValueError:
+                                route = None
+                            if cfg.validate() is not None:
+                                route = None
+                            if (route == "wgmma_wide") != (c == 3) or c not in (0, 3):
+                                raise AssertionError(f"wide route differs at {m}x{nn}x{k} {cfg} "
+                                                     f"offsets {off_a}, {off_b}: python "
+                                                     f"{route}, C {c}")
+                            n += 1
+                            n_wide += c == 3
+    return n, n_wide
 
 
 def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
@@ -1968,6 +2039,223 @@ def _grid_tune_phase(repo: Path, counters, zero_counters) -> tuple:
     return rec, total
 
 
+#: Phase thin-K: the write-allocate probe's bytes, its passes of each kind, and the wide
+#: route's cases against its plain version: (name, m, n, k, cfg kwargs, activation, out
+#: dtype name).  The bm > 128 walks, both layouts and output dtypes, bias + gelu and the
+#: TMA-clipped edges (M, N not multiples of the block) are among them.
+WA_BYTES = 1 << 31
+WA_PASSES = 10
+THIN_K_CASES = [
+    ("16384x16384x64 kn bf16", 16384, 16384, 64, dict(bm=128, bn=2048), None, "bfloat16"),
+    ("8192x16384x512 nk bias+gelu", 8192, 16384, 512,
+     dict(bm=128, bn=1024, rhs_layout="nk"), "gelu", "bfloat16"),
+    ("4096x16384x128 f32 out, bm 512 walk", 4096, 16384, 128, dict(bm=512, bn=512), None,
+     "float32"),
+    ("1024x2048x256 nk f32, bm 1024 walk", 1024, 2048, 256,
+     dict(bm=1024, bn=256, rhs_layout="nk", grid_order="nm"), "silu", "float32"),
+    ("1000x1000x200 clipped edges", 1000, 1000, 200, dict(bm=256, bn=384), "tanh", "bfloat16"),
+    ("200x264x128 bm 64, clipped", 200, 264, 128, dict(bm=64, bn=256, rhs_layout="nk"),
+     "relu", "float32"),
+]
+#: Phase thin-K (c): the wide block timed at each shape (the JAX space's stripes).
+THIN_K_TIMED = [((16384, 16384, 64), dict(bm=128, bn=2048)),
+                ((8192, 8192, 256), dict(bm=128, bn=1024))]
+#: Phase thin-K (e): the retune's targets, its search and its budget.
+THIN_K_RETUNE_TARGETS = 6
+THIN_K_RETUNE = ["--max_candidates", "12", "--finalists", "3", "--stage1_rounds", "2",
+                 "--stage2_rounds", "4", "--budget_s", "40"]
+
+
+def _write_allocate(torch) -> dict:
+    """(a): GB/s of a write-only pass (fill) and a read-only pass (sum) over the same
+    WA_BYTES, in turns (write, read, read, write, write, read), WA_PASSES passes a turn
+    between CUDA events after a warm-up; the medians of each kind and their ratio: the
+    output's write-allocate factor (read GB/s over write GB/s)."""
+    import statistics
+    buf = torch.empty(WA_BYTES // 4, dtype=torch.float32, device="cuda")
+    fns = {"write": lambda: buf.fill_(1.0), "read": lambda: buf.sum()}
+    turns = {"write": [], "read": []}
+    for fn in fns.values():
+        fn()
+    for name in ("write", "read", "read", "write", "write", "read"):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(WA_PASSES):
+            fns[name]()
+        end.record()
+        end.synchronize()
+        turns[name].append(WA_BYTES * WA_PASSES / (start.elapsed_time(end) * 1e-3) / 1e9)
+    del buf
+    rates = {f"{name}_gb_s": statistics.median(v) for name, v in turns.items()}
+    rates.update(bytes=WA_BYTES, turns_gb_s=turns,
+                 wa_factor=rates["read_gb_s"] / rates["write_gb_s"])
+    return rates
+
+
+def _thin_k_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time) -> tuple:
+    """Phase thin-K: (a) the write-allocate factor, (b) the wide route against its plain
+    version, (c) its time alone beside the 128 x 128 single-K ring, torch.matmul and the
+    bound, (d) scripts/thin_k_report_torch.py on the committed no-heal grid in both
+    families, (e) scripts/retune_thin_k_torch.py over the report's largest targets into a
+    copy of the committed DB, then the lean engine over the retuned shapes through the
+    committed DB and the copy.  Returns (record, kernel rows, their counter keys, the
+    launches of (e))."""
+    import shutil
+
+    from tpul2_torch.harness import campaign
+    from tpul2_torch.ops._build import check_launch
+    KernelConfig, mm, _ = mods
+    t_phase = time.perf_counter()
+    rec = {}
+    work = repo / "runs" / "chip_smoke" / "thin_k"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # ---- (a) the write-allocate factor ----
+    rec["write_allocate"] = _write_allocate(torch)
+    wa = rec["write_allocate"]
+    print(f"  (a) {WA_BYTES} bytes, {WA_PASSES} passes a turn, medians of 3: write-only "
+          f"{wa['write_gb_s']:.1f} GB/s, read-only {wa['read_gb_s']:.1f} GB/s; write-allocate "
+          f"factor {wa['wa_factor']:.4f}; turns {json.dumps(wa['turns_gb_s'])}")
+
+    # ---- (b) the wide route against its plain version ----
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    before = counters()["single_k_wgmma_wide"]
+    rec["cases"] = []
+    max_err = 0.0
+    for name, m, n, k, kw, act, out_name in THIN_K_CASES:
+        cfg = KernelConfig(bk=-(-k // 32) * 32, **kw)
+        errs = []
+        for zero_one in (True, False):
+            err, _ = _check_case(torch, mods, gen, 1, m, n, k, cfg, act, out_name, zero_one)
+            errs.append(err)
+        max_err = max(max_err, errs[1])
+        rec["cases"].append({"name": name, "config": dataclasses.asdict(cfg),
+                             "zero_one_diff": errs[0], "normal_max_abs_err": errs[1]})
+        print(f"  (b) {name} {cfg.bm}x{cfg.bn} bk={cfg.bk}: 0/1 diff {errs[0]}, normal max "
+              f"|diff| {errs[1]:.6g} within allowed_error")
+    launched = counters()["single_k_wgmma_wide"] - before
+    if launched != 2 * len(THIN_K_CASES):
+        raise AssertionError(f"the wide route launched {launched} times for "
+                             f"{2 * len(THIN_K_CASES)} checks")
+    rec["max_abs_err"] = max_err
+
+    # ---- (c) alone: the wide block, the 128 x 128 single-K ring, torch.matmul ----
+    rows, keys = [], []
+    rec["timed"] = []
+    for (m, n, k), kw in THIN_K_TIMED:
+        a, b = _inputs(torch, gen, (m, k), False), _inputs(torch, gen, (k, n), False)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        wide, ring = KernelConfig(bk=k, **kw), KernelConfig(bm=128, bn=128, bk=k)
+        routes = (mm.launch_route(wide, a, b, m, n, k), mm.launch_route(ring, a, b, m, n, k))
+        if routes != ("wgmma_wide", "wgmma"):
+            raise AssertionError(f"the timed configs take {routes} at {m}x{n}x{k}")
+
+        def direct(cfg, a=a, b=b, out=out, m=m, n=n, k=k):
+            def make():  # the arguments name the capturing stream
+                call = mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k)
+                return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
+            return make
+
+        turns = [host_time.alone_ms(torch, direct(cfg)) for cfg in (wide, ring, ring, wide)]
+        bound_ms, bound_by = _bound(1, m, n, k)
+        library = host_time.alone_ms(torch, lambda: (lambda: torch.matmul(a, b)))
+        row = {"mnk": [m, n, k], "wide": f"{wide.bm}x{wide.bn} bk={k}", "turns_ms": turns,
+               "wide_ms": (turns[0] + turns[3]) / 2,
+               "ring_128x128_ms": (turns[1] + turns[2]) / 2, "torch_alone_ms": library,
+               "plain_ms": _time_ms(torch, lambda: mm.matmul_reference(a, b, k), reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rec["timed"].append(row)
+        print(f"  (c) {m}x{n}x{k} alone in turns (wide, ring, ring, wide) ms: "
+              f"{json.dumps(turns)}; torch.matmul {row['torch_alone_ms']:.5f}, plain "
+              f"{row['plain_ms']:.5f}, bound {bound_ms:.5f} ({bound_by})")
+        common = {"route": "cuda", "replaces": "tpul2/ops/matmul.py:136",
+                  "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": row["torch_alone_ms"]}
+        rows.append({"name": f"tl2_wgmma_wide (single-K, {row['wide']}, {m}x{n}x{k})",
+                     "source": "tpul2_torch/csrc/tl2_wgmma_wide.cu", "max_abs_err": max_err,
+                     "ms": row["wide_ms"], **common})
+        keys.append("single_k_wgmma_wide")
+        if (m, n, k) == THIN_K_TIMED[0][0]:
+            check_launch(lib.tl2_wgmma_bf16out(*mm.launch_args(a, b, ring, out, None, None, 1,
+                                                               m, n, k)), "tl2_wgmma")
+            torch.cuda.synchronize()
+            err = (out.float() - mm.matmul_reference(a, b, k).float()).abs().max().item()
+            rows.append({"name": f"tl2_wgmma (single-K, 128x128, {m}x{n}x{k})",
+                         "source": _ring_source(ring, "wgmma"), "max_abs_err": err,
+                         "ms": row["ring_128x128_ms"], **common})
+            keys.append("single_k_wgmma")
+        del a, b, out
+
+    # ---- (d) the report on the committed no-heal grid ----
+    report = _script(repo, "thin_k_report_torch")
+    rec["report"] = {}
+    targets = {}
+    for acc in ("float32", "bfloat16"):
+        path = work / f"targets_{acc}.txt"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(io.StringIO()):
+            rc = report.main(["--acc", acc, "--targets_out", str(path)])
+        summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+        if rc != 0 or summary["rows"] != 300 or summary["missing"]:
+            raise AssertionError(f"the report ({acc}) exited {rc}: {summary}")
+        rec["report"][acc] = summary
+        targets[acc] = [tuple(map(int, ln.split(","))) for ln in path.read_text().split()]
+        print(f"  (d) report {acc}: {summary['rows']} thin-K rows, {summary['at_wall']} at the "
+              f"wall, {summary['winning']} winning, {summary['targets']} targets "
+              f"(wa_factor {summary['wa_factor']})")
+
+    # ---- (e) the retune on a copy, then the lean engine through both DBs ----
+    retune = _script(repo, "retune_thin_k_torch")
+    db_path = work / "retune_db.json"
+    shutil.copy(campaign.COMMITTED_DB, db_path)
+    acc = "float32"
+    # the largest outputs first (the band is bound by C's writes), the thinnest K among them
+    largest = sorted(targets[acc], key=lambda s: (-s[0] * s[1], s[2], s))
+    largest = largest[:THIN_K_RETUNE_TARGETS]
+    target_file = work / "retune_targets.txt"
+    target_file.write_text("".join(f"{m},{n},{k}\n" for m, n, k in largest))
+    zero_counters()
+    printed, errs = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(errs):
+        rc = retune.main(["--targets", str(target_file), "--db", str(db_path), "--acc", acc,
+                          *THIN_K_RETUNE])
+    out = json.loads(printed.getvalue().strip().splitlines()[-1])
+    (work / "retune.log").write_text(errs.getvalue())
+    for ln in errs.getvalue().splitlines():
+        print(f"  (e) {ln}")
+    if rc != 0 or not out["retuned"] or out["failed"]:
+        raise AssertionError(f"the retune exited {rc}: {out}")
+    rec["retune"] = out
+    shapes = [tuple(map(int, r["mnk"].split("x"))) for r in out["retuned"]]
+    rec["lean"] = {}
+    for label, path in (("committed", campaign.COMMITTED_DB), ("retuned", db_path)):
+        out_dir = work / f"lean_{label}"
+        summary = campaign.run_campaign(shapes, out_dir, accs=(acc,), db_path=path)
+        if summary["rows"] != len(shapes) or summary["failed"]:
+            raise AssertionError(f"lean through the {label} DB: {summary}")
+        rows_lean = [json.loads(ln) for ln in
+                     campaign.sidecar_path(out_dir, "offline").read_text().splitlines()]
+        rec["lean"][label] = {r["mnk"]: {
+            "speedup": r["speedups"][acc]["torch_matmul"],
+            "kind": retune.config_kind(KernelConfig(**r["configs"][acc])),
+            "config": retune.describe(KernelConfig(**r["configs"][acc]))} for r in rows_lean}
+    for mnk, after in rec["lean"]["retuned"].items():
+        prior = rec["lean"]["committed"][mnk]
+        print(f"  (e) {mnk} {acc}: {prior['speedup']:.4f}x torch.matmul through the committed "
+              f"DB ({prior['config']}) -> {after['speedup']:.4f}x through the retuned copy "
+              f"({after['config']})")
+    launches = rec["launches"] = counters()
+    print("  (e) launches of the retune and the lean rows " + json.dumps(launches))
+    if launches["single_k_wgmma_wide"] <= 0 or launches["mma_sync"]:
+        raise AssertionError("the retune's path launched no wide block (or an mma.sync body)")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase thin-K: {rec['seconds']:.1f} s")
+    return rec, rows, keys, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2057,9 +2345,12 @@ def main(argv=None) -> int:
                                              f"follow the kernel's {kernel} bytes")
         n_route = _check_route_mirror(torch, lib, mm, KernelConfig)
         n_staged = _check_staged_route_mirror(torch, lib, pl, KernelConfig)
+        from tpul2_torch import config as config_mod
+        n_wide = _check_wide_mirror(torch, lib, mm, config_mod)
         print(f"  carry ring depths {json.dumps(depths)}; smem models and route rules agree "
               f"with the kernels ({n_route[0]} route cases, {n_route[1]} of them TMA; "
-              f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA)")
+              f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA; {n_wide[0]} wide "
+              f"route cases, {n_wide[1]} of them launched)")
         record["carry_stages"] = depths
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds
@@ -2345,6 +2636,18 @@ def main(argv=None) -> int:
                 raise AssertionError(f"entry point at bk 96 ({bm}x{bn}) is not exact")
             print(f"  entry point 24x520x1000 {bm}x{bn} bk=96 bf16 acc (mid-stage rounding): "
                   "exact on 0/1 inputs")
+        # the entry point with a wide block (the thin-K band's stripes, tl2_wgmma_wide.cu):
+        # 'kn' and 'nk' (b_t read with no copy), bias + relu, M and N off the block
+        for (m, n, k), layout in (((4096, 8192, 64), "kn"), ((1000, 3000, 200), "nk")):
+            cfg = KernelConfig(bm=256, bn=1024, bk=-(-k // 32) * 32, rhs_layout=layout)
+            a, b = _inputs(torch, gen, (m, k), True), _inputs(torch, gen, (k, n), True)
+            bias = torch.randint(0, 2, (n,), generator=gen, device="cuda").float()
+            got = dispatch.matmul(a, b, config=cfg, bias=bias, activation="relu",
+                                  b_t=b.t().contiguous(), out_dtype=torch.float32)
+            if not torch.equal(got, torch.relu(a.float() @ b.float() + bias)):
+                raise AssertionError(f"entry point at {m}x{n}x{k} (wide) is not exact")
+            print(f"  entry point {m}x{n}x{k} {layout} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
+                  f"({mm.launch_route(cfg, a, b, m, n, k)}), bias + relu: exact on 0/1 inputs")
         # the entry point with staged configs: a 32-edge tile over few output tiles (a
         # split), a ring tile whose one output tile splits K 48 ways, and A's base 2 bytes
         # off 16 (the loads producer)
@@ -2998,17 +3301,22 @@ def main(argv=None) -> int:
     with phase("grid tune"):
         record["grid_tune"], grid_tune_launches = _grid_tune_phase(repo, counters,
                                                                    zero_counters)
+    with phase("thin-K"):
+        record["thin_k"], thin_rows, thin_keys, thin_k_launches = _thin_k_phase(
+            torch, repo, lib, mods, counters, zero_counters, host_time)
+        kernels += thin_rows
+        kernel_keys += thin_keys
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
     with phase("parallel"):
         record["parallel"], parallel_launches = _parallel_phase(torch, repo, counters,
                                                                 zero_counters, use_db)
     # each kernel row's launches: its main paths', the campaign's, the grid tune's, the
-    # model path's, the parallel layer's and the seq-16 block's; no path launched an
-    # mma.sync body
+    # thin-K retune's, the model path's, the parallel layer's and the seq-16 block's; no
+    # path launched an mma.sync body
     paths = {"campaign": campaign_launches, "grid tune": grid_tune_launches,
-             "model": model_launches, "parallel": parallel_launches,
-             "decode block": decode_launches}
+             "thin-K": thin_k_launches, "model": model_launches,
+             "parallel": parallel_launches, "decode block": decode_launches}
     for name, got in paths.items():
         if got["mma_sync"]:
             raise AssertionError(f"the {name} path launched an mma.sync body: {got}")

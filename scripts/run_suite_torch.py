@@ -156,15 +156,6 @@ def tune_shape_list(args) -> list:
     return grid(args.dims, args.max_shapes, args.max_elems, args.order)
 
 
-def _kernel_ratio(res):
-    """The fastest kernel candidate's stage-1 time over torch_matmul's (device time where
-    the tuner ran on the card), or None where no kernel candidate launched."""
-    ref = next(d["stage1_ms"] for d in res.medians_ms
-               if d["config"]["use_vendor"] and d["config"]["vendor_variant"] == "torch_matmul")
-    kernels = [d["stage1_ms"] for d in res.medians_ms if not d["config"]["use_vendor"]]
-    return min(kernels) / ref if kernels else None
-
-
 def cmd_tune(args) -> int:
     import json
 
@@ -192,7 +183,8 @@ def cmd_tune(args) -> int:
                                    finalists=args.finalists, verbose=args.verbose)
         tuned += [{"mnk": [r.m, r.n, r.k], "best": dataclasses.asdict(r.best),
                    "speedup": r.speedup, "seconds": r.elapsed_s,
-                   "kernel_vs_torch_matmul": _kernel_ratio(r)} for r in results]
+                   "kernel_vs_torch_matmul": search.fastest_kernel(r.medians_ms)[1]}
+                  for r in results]
         print(f"[{time.time() - t0:.0f}s] {i + len(chunk)}/{len(shapes)} "
               f"({len(tuned)} newly tuned)", file=sys.stderr)
     print(json.dumps({"acc": args.acc, "shapes": len(shapes), "tuned": tuned,

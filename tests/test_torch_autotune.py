@@ -24,6 +24,7 @@ from tpul2_torch.autotune.transfer import _adapt, neighbor_seed_configs
 from tpul2_torch.config import (KSTEP, TILE_CHOICES, WGMMA_TILES, KernelConfig,
                                 candidate_configs, heuristic_config)
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
+from tpul2_torch.utils.padding import round_up
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
@@ -62,7 +63,9 @@ def test_candidates_are_valid_and_distinct(m, n, k, acc):
     assert bool(kernels) == ((m, n, k) != (1, 1, 1))
     assert all(c.acc_dtype == acc for c in kernels)
     assert all(c.padding_waste(m, n, k) <= 0.6 for c in kernels)
-    assert all(c.bm in TILE_CHOICES and c.bn in TILE_CHOICES and c.bk % KSTEP == 0
+    # a ring tile, or a wide block (an edge above 128) with the whole K in one interval
+    assert all((c.bm in TILE_CHOICES and c.bn in TILE_CHOICES
+                or c.wide and c.bk == round_up(k, KSTEP)) and c.bk % KSTEP == 0
                for c in kernels)
     # 'mask' only where a block does not divide its dim
     assert all(m % c.bm or n % c.bn or k % c.bk for c in kernels if c.edge == "mask")

@@ -56,7 +56,7 @@ def test_from_jax_keeps_a_staged_pipeline_invalid():
 
 @pytest.mark.parametrize("kw,needle", [
     (dict(bm=16), "bm=16"),
-    (dict(bn=256), "bn=256"),
+    (dict(bn=96), "bn=96"),
     (dict(bk=100), "bk=100"),
     (dict(bk=0), "bk=0"),
     (dict(acc_dtype="float16"), "acc_dtype"),
@@ -68,6 +68,20 @@ def test_from_jax_keeps_a_staged_pipeline_invalid():
 def test_validate_rejects(kw, needle):
     err = KernelConfig(**kw).validate()
     assert err is not None and needle in err
+
+
+def test_wide_block_at_gk_above_one_is_refused_at_its_launch():
+    """A wide block (an edge above 128) validates without a shape; at a K beyond its bk
+    (more than one interval) the launch refuses it with the reason, on every path."""
+    from tpul2_torch.ops import matmul as mm
+    cfg = KernelConfig(bm=128, bn=256, bk=64)
+    assert cfg.validate() is None
+    a, b = torch.zeros(128, 128, dtype=torch.bfloat16), torch.zeros(128, 256,
+                                                                     dtype=torch.bfloat16)
+    for call in (lambda: mm.cuda_matmul(a, b, cfg), lambda: mm.launch_route(cfg, a, b, 128,
+                                                                             256, 128)):
+        with pytest.raises(ValueError, match="one K interval"):
+            call()
 
 
 def test_validate_vendor_variants():

@@ -575,3 +575,23 @@ def test_stream_defense_flags_a_side_stream_cheat_and_passes_the_candidate(cuda)
         honest = defense.run_all_defenses(candidate_fn("float32"), data)
     torch.cuda.synchronize()
     assert honest["pass"], honest
+
+
+@pytest.mark.parametrize("bm,bn,layout,out_dtype,act", [
+    (128, 256, "kn", torch.bfloat16, None), (256, 384, "nk", torch.float32, "relu"),
+    (64, 256, "kn", torch.float32, "relu"), (1024, 128, "nk", torch.bfloat16, None)])
+def test_wide_route_matches_its_plain_version(cuda, bm, bn, layout, out_dtype, act):
+    """A wide block (tl2_wgmma_wide.cu) on 0/1 inputs at edges its block does not divide:
+    launched once on the wide route, bit-equal to the plain version."""
+    m, n, k = 1000, 1000, 200
+    cfg = KernelConfig(bm=bm, bn=bn, bk=224, rhs_layout=layout)
+    a = _01((m, k), 3).to(cuda)
+    rhs = _01((n, k) if layout == "nk" else (k, n), 4).to(cuda)
+    bias = _01((n,), 5).float().to(cuda) if act else None
+    assert mm.launch_route(cfg, a, rhs, m, n, k) == "wgmma_wide"
+    before = mm.LAUNCHES_SINGLE_K_WGMMA_WIDE
+    got = mm._matmul(a, rhs, cfg, out_dtype, None, bias, act)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES_SINGLE_K_WGMMA_WIDE == before + 1
+    want = mm.matmul_reference(a, rhs, cfg.bk, "float32", layout, bias, act, out_dtype)
+    assert torch.equal(got, want)

@@ -30,7 +30,7 @@ from tpul2_torch import dispatch
 from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.autotune import search
 from tpul2_torch.autotune.db import TuneDB
-from tpul2_torch.config import KernelConfig
+from tpul2_torch.config import SPACE_REV, KernelConfig
 from tpul2_torch.harness import campaign, suite
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
@@ -241,7 +241,7 @@ def test_seed_keeps_every_grid_decision_and_marks_its_entries(tmp_path, tmp_defa
     seeded = [e for _, _, e in db.items() if e.get("scope") == "transfer_static"]
     assert len(seeded) == summary["seeded"]
     assert all(e["measured"] is False and e["speedup_vs_torch_matmul"] == 1.0
-               and e["tflops"] == 0.0 and e["timing_rev"] == 2 and e["space_rev"] == 1
+               and e["tflops"] == 0.0 and e["timing_rev"] == 2 and e["space_rev"] == SPACE_REV
                and "server" not in e for e in seeded)
     # a kernel the neighbour search adapted, and one the heuristic gave, both stored
     cfgs = {(m, n, k, acc): KernelConfig(**e["config"]) for (m, n, k), acc, e in db.items()}

@@ -317,6 +317,19 @@ class _ShapeTuning:
                   f"{REFERENCE}, {result.device})", file=sys.stderr)
         return result
 
+def fastest_kernel(medians_ms: list) -> tuple:
+    """(config, stage-1 ms over torch_matmul's) of the fastest kernel candidate among a
+    TuneResult's ``medians_ms`` (device time where the tuner ran on the card), or
+    (None, None) where no kernel candidate launched."""
+    ref = next(d["stage1_ms"] for d in medians_ms
+               if d["config"]["use_vendor"] and d["config"]["vendor_variant"] == REFERENCE)
+    kernels = [d for d in medians_ms if not d["config"]["use_vendor"]]
+    if not kernels:
+        return None, None
+    best = min(kernels, key=lambda d: d["stage1_ms"])
+    return KernelConfig(**best["config"]), best["stage1_ms"] / ref
+
+
 def _improves_over(stored: Optional[dict], tflops: float) -> bool:
     """``save="improve"``: persist where the shape has no entry or the new TFLOP/s beat
     the stored ones by more than the +-10% run-to-run noise margin."""

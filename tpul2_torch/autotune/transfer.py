@@ -2,7 +2,8 @@
 
 Counterpart of ``tpul2/autotune/transfer.py``.  A tuned neighbour's tiling is re-fitted
 onto the destination shape and onto the kernel's TILE_CHOICES; a config that the kernel
-cannot run afterwards (``validate``) is dropped.
+cannot run afterwards (``validate``, and for a wide block ``wide_launch_error`` at the
+destination shape) is dropped.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import dataclasses
 import math
 from typing import Optional
 
-from tpul2_torch.config import KSTEP, TILE_CHOICES, KernelConfig
+from tpul2_torch.config import KSTEP, TILE_CHOICES, KernelConfig, wide_launch_error
 from tpul2_torch.utils.padding import round_up
 
 
@@ -21,7 +22,9 @@ def _adapt(cfg: KernelConfig, src: tuple, dst: tuple) -> Optional[KernelConfig]:
     Tiles: a tile that covered its whole source dim, or exceeds the destination dim,
     becomes the smallest TILE_CHOICES tile that covers the destination dim (or the
     largest tile); others carry over.  bk: a whole-K cover stays whole-K (rounded up to
-    KSTEP); an oversized bk clamps the same way; others carry over."""
+    KSTEP); an oversized bk clamps the same way; others carry over.  A wide block that
+    carries over must launch at the destination (one K interval, TMA-readable rows):
+    where it cannot, None, as for any config ``validate`` refuses."""
     sm, sn, sk = src
     m, n, k = dst
 
@@ -37,7 +40,9 @@ def _adapt(cfg: KernelConfig, src: tuple, dst: tuple) -> Optional[KernelConfig]:
 
     adapted = dataclasses.replace(cfg, bm=fit_tile(cfg.bm, sm, m), bn=fit_tile(cfg.bn, sn, n),
                                   bk=fit_bk(cfg.bk))
-    return adapted if adapted.validate() is None else None
+    if adapted.validate() is not None or wide_launch_error(adapted, m, n, k) is not None:
+        return None
+    return adapted
 
 
 def neighbor_seed_configs(db, m: int, n: int, k: int, acc: str = "float32",

@@ -13,7 +13,16 @@ field names are the JAX package's, so a configuration carries across
                   it can read both operands, the loads producer where it cannot.
                   ``smem_bytes`` models the ring a config's launches take: ``carry_stages``
                   stages for depth 0 (``wgmma_smem_bytes``), ``pipeline_depth`` stages for
-                  a staged config
+                  a staged config.
+                  Or a wide block (``is_wide``: an edge above 128), the JAX space's
+                  "longest contiguous C stripes" (``tpul2/config.py:432-446``): bm 64, 128
+                  or a multiple of 128 up to WIDE_BM_MAX, bn a multiple of 128 up to
+                  WIDE_BN_MAX.  It runs tl2_wgmma_wide.cu (route 'wgmma_wide'): one CTA
+                  walks the block in 64- or 128-row x 128-column sub-tiles over a resident
+                  A strip and stores C by TMA.  It launches only with one K interval
+                  (gk == 1) on operands TMA can read (``wide_launch_error``), and its
+                  ``smem_bytes`` (``wide_smem_bytes`` at K = bk) must leave the B ring
+                  WIDE_MIN_STAGES stages
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
                   (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, half
                   a ring stage, so that a rounding point falls on a stage's start or its
@@ -74,9 +83,28 @@ PIPELINE_DEPTHS = (0, 2, 3, 4, 6, 8)
 #: multiples of KSTEP).
 _BK_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
+#: The wide blocks (tl2_wgmma_wide.cu): the JAX space's edges above 128 (``dim_choices``,
+#: ``tpul2/config.py:422-446``), each a multiple of WIDE_SUB_N, up to these.
+WIDE_BM_MAX = 2048
+WIDE_BN_MAX = 16384
+#: The power-of-two edges above 128 that ``candidate_configs`` emits (JAX's bases).
+WIDE_BM_CHOICES = (256, 512, 1024, 2048)
+WIDE_BN_CHOICES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+#: Columns of the wide route's sub-tile (its wgmmas are m64n128); its rows are 64 at
+#: bm = 64 and 128 otherwise (``wide_sub_m``).
+WIDE_SUB_N = 128
+#: The wide route's B ring: WIDE_STAGES deep where shared memory allows, WIDE_MIN_STAGES
+#: at least (WIDE_STAGES / WIDE_MIN_STAGES in tl2_wgmma.cuh).
+WIDE_STAGES = 4
+WIDE_MIN_STAGES = 2
+#: The wide route's C staging per consumer warpgroup: 64 rows x 128 columns of f32, two
+#: sub-tiles' worth of bf16 (WIDE_C_BYTES).
+WIDE_C_BYTES = 64 * WIDE_SUB_N * 4
+
 #: Candidate-space revision, stamped into TuneDB entries.  1 = the first Hopper space:
 #: TILE_CHOICES tiles, the JAX package's bk rule, the kStage axis, the vendor variants.
-SPACE_REV = 1
+#: 2 = the wide blocks at gk == 1 (WIDE_BM_CHOICES x WIDE_BN_CHOICES, bk the whole K).
+SPACE_REV = 2
 
 #: TPU-only fields of ``tpul2.config.KernelConfig`` that have no Hopper meaning.
 _TPU_ONLY_FIELDS = ("vmem_limit_bytes", "parallel_mn")
@@ -102,6 +130,58 @@ def wgmma_smem_bytes(bm: int, bn: int, stages: Optional[int] = None) -> int:
     if stages is None:
         stages = carry_stages(bm, bn)
     return 1024 + stages * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * stages * 8
+
+
+def is_wide(bm: int, bn: int) -> bool:
+    """A block with an edge above the ring tiles': the wide route's."""
+    return bm > TILE_CHOICES[-1] or bn > TILE_CHOICES[-1]
+
+
+def wide_sub_m(bm: int) -> int:
+    """Rows of the wide route's sub-tile (and of its resident A strip): 64 at bm = 64, else
+    128 (``tl2wg::wide_sub_m``)."""
+    return 64 if bm == 64 else 128
+
+
+def wide_smem_bytes(bm: int, k: int, stages: int) -> int:
+    """Shared memory of one wide CTA (``tl2_wgmma_wide_smem_bytes``): 1024 bytes to align
+    to the swizzle period, ``stages`` B stages of WIDE_SUB_N rows of 128 bytes, the A strip
+    (``wide_sub_m`` rows x K rounded up to 64, in 128-byte rows), WIDE_C_BYTES of C staging
+    per consumer warpgroup, a full and an empty mbarrier per stage and for the strip."""
+    sub_m = wide_sub_m(bm)
+    return (1024 + stages * WIDE_SUB_N * WGMMA_KSTAGE * 2
+            + cdiv(k, WGMMA_KSTAGE) * sub_m * WGMMA_KSTAGE * 2
+            + sub_m // 64 * WIDE_C_BYTES + (2 * stages + 2) * 8)
+
+
+def wide_stages(bm: int, k: int) -> int:
+    """The wide route's B ring depth at depth K (``tl2_wgmma_wide_stages``): WIDE_STAGES,
+    or as many as fit in SMEM_LIMIT (0 where none does); below WIDE_MIN_STAGES the block
+    does not fit."""
+    per_stage = WIDE_SUB_N * WGMMA_KSTAGE * 2 + 16
+    return max(0, min(WIDE_STAGES, (SMEM_LIMIT - wide_smem_bytes(bm, k, 0)) // per_stage))
+
+
+def wide_launch_error(cfg: "KernelConfig", m: int, n: int, k: int) -> Optional[str]:
+    """Why a valid wide config cannot launch at (m, n, k), or None (also for a ring tile).
+
+    The wide route runs JAX's full-K-resident single-K variant only: one K interval
+    (gk == 1); and it has no loads producer: TMA reads A (K % 8 == 0), B and B_t, and
+    stores C (N % 8 == 0).  The bases' 16-byte alignment is checked where the tensors are
+    known (``ops.matmul.check_operands``)."""
+    if not is_wide(cfg.bm, cfg.bn):
+        return None
+    block = f"the wide block {cfg.bm}x{cfg.bn}"
+    if cdiv(k, cfg.bk) > 1:
+        return (f"{block} runs one K interval only (gk == 1, bk >= K): bk={cfg.bk} < "
+                f"K={k}; a wide K carry is not ported")
+    if k % 8:
+        return (f"{block} reads A by TMA and has no loads producer: K={k} is not a "
+                "multiple of 8")
+    if n % 8:
+        return (f"{block} reads B and stores C by TMA and has no loads producer: N={n} is "
+                "not a multiple of 8")
+    return None
 
 
 def _vendor_for_xla(variant: str) -> str:
@@ -156,10 +236,18 @@ class KernelConfig:
     def from_json(s: str) -> "KernelConfig":
         return KernelConfig(**json.loads(s))
 
+    @property
+    def wide(self) -> bool:
+        """A wide block (``is_wide``), run by tl2_wgmma_wide.cu."""
+        return is_wide(self.bm, self.bn)
+
     def smem_bytes(self) -> int:
         """Shared memory of one CTA of the ring this config's launches take
         (``wgmma_smem_bytes``): ``carry_stages`` 64-deep stages for depth 0,
-        ``pipeline_depth`` of them for a staged config."""
+        ``pipeline_depth`` of them for a staged config.  A wide block's at K = bk, the
+        most a single-K launch of it holds (``wide_smem_bytes``)."""
+        if self.wide:
+            return wide_smem_bytes(self.bm, self.bk, wide_stages(self.bm, self.bk))
         return wgmma_smem_bytes(self.bm, self.bn, self.pipeline_depth or None)
 
     def validate(self) -> Optional[str]:
@@ -185,9 +273,13 @@ class KernelConfig:
         if self.pipeline_depth >= 2 and self.edge == "mask":
             return ("pipeline_depth requires edge='pad' (the staged kernel needs "
                     "block-divisible dims)")
-        if self.bm not in TILE_CHOICES:
+        if self.wide:
+            err = self._check_wide()
+            if err:
+                return err
+        elif self.bm not in TILE_CHOICES:
             return f"bm={self.bm} is not one of the kernel's tiles {TILE_CHOICES}"
-        if self.bn not in TILE_CHOICES:
+        elif self.bn not in TILE_CHOICES:
             return f"bn={self.bn} is not one of the kernel's tiles {TILE_CHOICES}"
         if self.bk <= 0 or self.bk % KSTEP:
             return (f"bk={self.bk} is not a positive multiple of {KSTEP}, half the ring's "
@@ -198,8 +290,24 @@ class KernelConfig:
             return f"bad grid_order {self.grid_order}"
         if self.rhs_layout not in ("kn", "nk"):
             return f"bad rhs_layout {self.rhs_layout}"
+        if self.wide and wide_stages(self.bm, self.bk) < WIDE_MIN_STAGES:
+            return (f"shared memory: the wide block's A strip of bk={self.bk} leaves less "
+                    f"than {WIDE_MIN_STAGES} B stages in the {SMEM_LIMIT}-byte limit")
         if self.smem_bytes() > SMEM_LIMIT:
             return f"shared memory {self.smem_bytes()} exceeds the {SMEM_LIMIT}-byte limit"
+        return None
+
+    def _check_wide(self) -> Optional[str]:
+        if not (self.bm in WGMMA_TILES or (self.bm % WIDE_SUB_N == 0
+                                           and self.bm <= WIDE_BM_MAX)):
+            return (f"bm={self.bm} is not a wide block's edge (64, 128 or a multiple of "
+                    f"{WIDE_SUB_N} up to {WIDE_BM_MAX})")
+        if not (self.bn % WIDE_SUB_N == 0 and self.bn <= WIDE_BN_MAX):
+            return (f"bn={self.bn} is not a wide block's edge (a multiple of {WIDE_SUB_N} "
+                    f"up to {WIDE_BN_MAX})")
+        if self.pipeline_depth:
+            return (f"pipeline_depth={self.pipeline_depth}: the staged kernel has no wide "
+                    "blocks (a wide block runs one K interval)")
         return None
 
     def padding_waste(self, m: int, n: int, k: int) -> float:
@@ -250,15 +358,19 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
 
     Tiles from TILE_CHOICES up to the problem; bk from the JAX package's rule (128..16384
     not above round_up(k, 128), plus the whole K rounded up to KSTEP); both raster orders
-    and RHS layouts; 'mask' beside 'pad' only where the blocks do not divide.  Configs
-    with more than 60% padding waste are dropped.
+    and RHS layouts; 'mask' beside 'pad' only where the blocks do not divide.  Then the
+    wide blocks (bm in WGMMA_TILES or WIDE_BM_CHOICES, bn in WIDE_SUB_N or
+    WIDE_BN_CHOICES, up to the problem rounded to WIDE_SUB_N, an edge above 128) with bk
+    the whole K, where they fit and can launch (``wide_launch_error``).  Configs with more
+    than 60% padding waste are dropped.
 
     The cost prior treats the kernel as bound by device-memory bytes, as the skinny and
     thin-K shapes are on the H100 (and nothing here reaches the tensor-core roof):
     least padding waste first (MMAs on zeros), then a grid that fills the card's NUM_SMS
     SMs, then the fewest bytes the CTAs read (each reads bm x K of A and K x bn of B, so
-    larger tiles read less), then bk nearest the heuristic's (bk moves neither bytes nor
-    MMAs on Hopper, so ties keep an untuned shape's rounding points), then 'mn' raster.
+    larger tiles read less; a wide CTA reads its B once per strip of ``wide_sub_m``
+    rows), then bk nearest the heuristic's (bk moves neither bytes nor MMAs on Hopper, so
+    ties keep an untuned shape's rounding points), then 'mn' raster.
     The first ``max_candidates`` are kept.
 
     Then the kStage axis as the JAX package gates it (``tpul2/config.py:503``): only on
@@ -283,29 +395,37 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
     bks = {c for c in _BK_CHOICES if c <= round_up(k, 128)}
     if k <= 2 * _BK_CHOICES[-1]:
         bks.add(round_up(k, KSTEP))  # whole K in one interval (gk == 1)
+    blocks = [(bm, bn, bk) for bm in tiles(m) for bn in tiles(n) for bk in sorted(bks)]
+    # the wide blocks: JAX's edges above 128 up to the problem, with the whole K in one
+    # interval (its "full-K-resident bk = k" variant)
+    blocks += [(bm, bn, round_up(k, KSTEP))
+               for bm in WGMMA_TILES + WIDE_BM_CHOICES if bm <= round_up(m, WIDE_SUB_N)
+               for bn in (WIDE_SUB_N,) + WIDE_BN_CHOICES if bn <= round_up(n, WIDE_SUB_N)
+               if is_wide(bm, bn)]
     out, seen = [], set()
-    for bm in tiles(m):
-        for bn in tiles(n):
-            for bk in sorted(bks):
-                for order in ("mn", "nm"):
-                    for rhs in ("kn", "nk"):
-                        edges = ("pad", "mask") if (m % bm or n % bn or k % bk) else ("pad",)
-                        for edge in edges:
-                            cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc_dtype,
-                                               grid_order=order, rhs_layout=rhs, edge=edge)
-                            if (cfg in seen or cfg.validate() is not None
-                                    or cfg.padding_waste(m, n, k) > 0.6):
-                                continue
-                            seen.add(cfg)
-                            out.append(cfg)
+    for bm, bn, bk in blocks:
+        for order in ("mn", "nm"):
+            for rhs in ("kn", "nk"):
+                edges = ("pad", "mask") if (m % bm or n % bn or k % bk) else ("pad",)
+                for edge in edges:
+                    cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc_dtype,
+                                       grid_order=order, rhs_layout=rhs, edge=edge)
+                    if (cfg in seen or cfg.validate() is not None
+                            or wide_launch_error(cfg, m, n, k) is not None
+                            or cfg.padding_waste(m, n, k) > 0.6):
+                        continue
+                    seen.add(cfg)
+                    out.append(cfg)
 
     heuristic_bk = _pick_bk(k)
 
     def prior(c: KernelConfig) -> tuple:
         gm, gn = cdiv(m, c.bm), cdiv(n, c.bn)
+        # a wide CTA reads its block's B once per strip of wide_sub_m rows
+        b_reads = c.bm // wide_sub_m(c.bm) if c.wide else 1
         return (round(c.padding_waste(m, n, k), 6),
                 -min(1.0, gm * gn / NUM_SMS),
-                gm * gn * (c.bm + c.bn) * round_up(k, c.bk),
+                gm * gn * (c.bm + b_reads * c.bn) * round_up(k, c.bk),
                 abs(math.log2(c.bk / heuristic_bk)),
                 0 if c.grid_order == "mn" else 1)
 

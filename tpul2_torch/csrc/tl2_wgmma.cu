@@ -15,7 +15,10 @@
 // i.e. bm and bn in {32, 64, 128} and bk a multiple of 32, runs here; the route names the
 // producer: 1 ('wgmma') where TMA can read both operands (16-byte aligned bases and rows of
 // a multiple of 16 bytes: K % 8 for A and B_t, N % 8 for B), 2 ('wgmma_lsu') where one of
-// them is read by the loads producer. The staged route (tl2_staged_route, mirrored by
+// them is read by the loads producer. A wide block (an edge above 128, up to 2048 x 16384)
+// takes 3 ('wgmma_wide', tl2_wgmma_wide.cu) with one K interval (bk >= K) on operands TMA
+// can read, N % 8 == 0 and a 16-byte aligned C (a launch of batch 1), and is refused
+// otherwise. The staged route (tl2_staged_route, mirrored by
 // ops/pipelined.py::staged_route) is the same without bk ('ring' / 'ring_lsu'). A launch is
 // refused (cudaErrorInvalidValue, before any work) outside them, never redirected; the
 // mma.sync bodies (tl2_matmul.cu, tl2_staged.cu) are on no route.
@@ -165,6 +168,24 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int batch
   return r == CUDA_SUCCESS;
 }
 
+// The output's rank-2 map for the wide route's TMA stores: (M, N) of bf16 or f32 in boxes of
+// 64 rows x 128 bytes, 128-byte swizzle; stores past M or N are clipped.
+bool make_out_map(CUtensorMap* map, void* c, int m, int n, bool f32) {
+  const EncodeTiled enc = encode_fn();
+  if (enc == nullptr) return false;
+  const int elem = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(ROW_BYTES / elem), 64};
+  const cuuint32_t step[2] = {1, 1};
+  const CUtensorMapDataType type =
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = enc(map, type, 2, c, dims, strides, box, step,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
 bool tile_ok(int t) { return t == 32 || t == 64 || t == 128; }
 
 // TMA can read a bf16 operand: a 16-byte aligned base and rows of a multiple of 16 bytes.
@@ -191,11 +212,23 @@ int staged_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const voi
   return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) ? 1 : 2;
 }
 
+// The wide route: 3 for a wide block with one K interval, whose A strip at K = bk leaves
+// WIDE_MIN_STAGES B stages (config.KernelConfig.validate), on operands TMA can read with
+// N % 8 == 0 (the output's rows by TMA too), else 0.
+int wide_route_code(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
+                    const void* b) {
+  if (m <= 0 || n <= 0 || k <= 0 || !wide_block_ok(bm, bn) || cdiv(k, bk) != 1 ||
+      wide_stages(bm, bk) < WIDE_MIN_STAGES)
+    return 0;
+  return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) && n % 8 == 0 ? 3 : 0;
+}
+
 // The same for the carry and single-K launches: bk must be a positive multiple of 32, so
 // that a rounding point falls on a stage's start or its middle.
 int route_code(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                const void* b) {
   if (bk <= 0 || bk % (KSTAGE / 2)) return 0;
+  if (wide_block(bm, bn)) return wide_route_code(m, n, k, bm, bn, bk, rhs_nk, a, b);
   return staged_route_code(m, n, k, bm, bn, rhs_nk, a, b);
 }
 
@@ -243,12 +276,40 @@ WgParams base_params(const void* a, const void* b, int m, int n, int k, long lon
   return p;
 }
 
+// A wide block's launch (route 3): batch 1, TMA for both operands and the output.
+int launch_wide(const void* a, const void* b, const void* bias, void* c, int m, int n, int k,
+                int bm, int bn, int rhs_nk, int act, int raster_nm, bool out_f32, int vec_a,
+                int vec_b, cudaStream_t stream) {
+  if (!vec_a || !vec_b || c == nullptr || reinterpret_cast<uintptr_t>(c) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long sa = (long long)m * k, sb = (long long)n * k;
+  CUtensorMap ta, tb, tc;
+  if (!make_maps(&ta, &tb, a, b, 1, m, n, k, sa, sb, wide_sub_m(bm), WIDE_SUB_N, rhs_nk, true,
+                 true) ||
+      !make_out_map(&tc, c, m, n, out_f32))
+    return (int)cudaErrorInvalidValue;
+  WgParams p = base_params(a, b, m, n, k, sa, sb, rhs_nk, true, true);
+  p.bias = static_cast<const float*>(bias);
+  p.c = c;
+  p.bk = k;
+  p.stages = wide_stages(bm, k);
+  p.split_steps = cdiv(k, KSTAGE);
+  p.act = act; p.raster_nm = raster_nm; p.out_f32 = out_f32;
+  p.wide_bm = bm; p.wide_bn = bn;
+  return (int)launch_wide_block(ta, tb, tc, p, rhs_nk, stream);
+}
+
 template <typename OutT>
 int launch(const void* a, const void* b, const void* bias, void* c, int batch, int m, int n,
            int k, long long sa, long long sb, long long sc, int bm, int bn, int bk, int rhs_nk,
            int acc_bf16, int act, int raster_nm, int vec_a, int vec_b, void* stream) {
-  if (batch <= 0 || batch > 65535 || !route_code(m, n, k, bm, bn, bk, rhs_nk, a, b))
-    return (int)cudaErrorInvalidValue;
+  const int route = route_code(m, n, k, bm, bn, bk, rhs_nk, a, b);
+  if (batch <= 0 || batch > 65535 || !route) return (int)cudaErrorInvalidValue;
+  if (route == 3) {
+    if (batch != 1) return (int)cudaErrorInvalidValue;
+    return launch_wide(a, b, bias, c, m, n, k, bm, bn, rhs_nk, act, raster_nm,
+                       sizeof(OutT) == 4, vec_a, vec_b, static_cast<cudaStream_t>(stream));
+  }
   const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
   CUtensorMap ta, tb;
   if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b))
@@ -413,8 +474,18 @@ int tl2_wgmma_smem_bytes(int bm, int bn, int stages) { return smem_bytes(bm, bn,
 // config.carry_stages.
 int tl2_wgmma_carry_stages(int bm, int bn) { return carry_stages(bm, bn); }
 
+// Shared memory of one wide CTA for a bm-row block at depth k with a B ring of `stages`;
+// mirrors config.wide_smem_bytes.
+int tl2_wgmma_wide_smem_bytes(int bm, int k, int stages) {
+  return wide_smem_bytes(bm, k, stages);
+}
+
+// The wide route's B ring depth for a bm-row block at depth k; mirrors config.wide_stages.
+int tl2_wgmma_wide_stages(int bm, int k) { return wide_stages(bm, k); }
+
 // The producer a launch takes: 1 TMA for both operands ('wgmma'), 2 the loads producer for
-// one or both ('wgmma_lsu'), 0 refused; mirrors ops/matmul.py::launch_route.
+// one or both ('wgmma_lsu'), 3 a wide block ('wgmma_wide'), 0 refused; mirrors
+// ops/matmul.py::launch_route (which raises where this says 0 for a wide block).
 int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                     const void* b) {
   return route_code(m, n, k, bm, bn, bk, rhs_nk, a, b);

@@ -1,7 +1,8 @@
 // tl2_wgmma.cuh — the TMA + wgmma ring kernel of tl2_wgmma.cu, shared by its instance files
 // (tl2_wgmma.cu: the 64/128 tiles and the host API; tl2_wgmma_n32.cu: the tiles with bn = 32;
-// tl2_wgmma_swap.cu: bm = 32 over bn 64/128). One nvcc runs per file, all side by side.
-// What the kernel computes, and the design, are in tl2_wgmma.cu's header.
+// tl2_wgmma_swap.cu: bm = 32 over bn 64/128; tl2_wgmma_wide.cu: the wide blocks' walk). One
+// nvcc runs per file, all side by side. What the kernel computes, and the design, are in
+// tl2_wgmma.cu's header (the wide blocks' in tl2_wgmma_wide.cu's).
 
 #pragma once
 
@@ -39,6 +40,18 @@ constexpr int PRODUCER_THREADS = 128;   // the producer warpgroup
 // error) instead of hanging the card.
 constexpr int SPIN_LIMIT = 1 << 26;
 
+// The wide blocks (tl2_wgmma_wide.cu; config.py mirrors each): bm 64, 128 or a multiple of
+// WIDE_SUB_N up to WIDE_BM_MAX, bn a multiple of WIDE_SUB_N up to WIDE_BN_MAX, an edge above
+// 128. A CTA walks its block in sub-tiles of wide_sub_m rows x WIDE_SUB_N columns; its B
+// ring is WIDE_STAGES deep where shared memory allows, WIDE_MIN_STAGES at least; each
+// consumer warpgroup stages C in WIDE_C_BYTES (64 rows x 128 columns of f32).
+constexpr int WIDE_SUB_N = 128;
+constexpr int WIDE_BM_MAX = 2048;
+constexpr int WIDE_BN_MAX = 16384;
+constexpr int WIDE_STAGES = 4;
+constexpr int WIDE_MIN_STAGES = 2;
+constexpr int WIDE_C_BYTES = 64 * WIDE_SUB_N * 4;
+
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
 
 struct WgParams {
@@ -55,6 +68,7 @@ struct WgParams {
   int act, raster_nm, out_f32, vec_out;
   int load_a, load_b;  // 0: TMA fills the operand; 8, 4, 2: the loads producer's copies
                        // of that many elements; 1: its gather path
+  int wide_bm, wide_bn;  // the wide route's block (tl2_wgmma_wide.cu); 0 on the ring tiles
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -95,6 +109,34 @@ inline int carry_stages(int bm, int bn) {
   const int fit = (SMEM_LIMIT - 1024) / ((bm + bn) * ROW_BYTES + 16);
   const int d = want > CARRY_STAGES ? want : CARRY_STAGES;
   return d < MAX_RING ? (d < fit ? d : fit) : (MAX_RING < fit ? MAX_RING : fit);
+}
+
+// A block the wide route takes (config.is_wide and KernelConfig._check_wide).
+inline bool wide_block(int bm, int bn) { return bm > 128 || bn > 128; }
+inline bool wide_block_ok(int bm, int bn) {
+  return wide_block(bm, bn) &&
+         (bm == 64 || bm == 128 || (bm % WIDE_SUB_N == 0 && bm <= WIDE_BM_MAX)) &&
+         bn % WIDE_SUB_N == 0 && bn <= WIDE_BN_MAX;
+}
+
+// Rows of a wide block's sub-tile and A strip (config.wide_sub_m).
+inline int wide_sub_m(int bm) { return bm == 64 ? 64 : 128; }
+
+// Shared memory of a wide CTA at depth K (config.wide_smem_bytes): the alignment slack, the
+// B ring, the resident A strip, the C staging of each consumer warpgroup, a full and an
+// empty mbarrier per B stage and for the strip.
+inline int wide_smem_bytes(int bm, int k, int stages) {
+  const int sm = wide_sub_m(bm);
+  return 1024 + stages * WIDE_SUB_N * ROW_BYTES + cdiv(k, KSTAGE) * sm * ROW_BYTES +
+         sm / 64 * WIDE_C_BYTES + (2 * stages + 2) * 8;
+}
+
+// The B ring's depth at depth K (config.wide_stages): 0 where no stage fits; below
+// WIDE_MIN_STAGES the block does not fit.
+inline int wide_stages(int bm, int k) {
+  const int free = SMEM_LIMIT - wide_smem_bytes(bm, k, 0);
+  const int fit = free < 0 ? 0 : free / (WIDE_SUB_N * ROW_BYTES + 16);
+  return fit < WIDE_STAGES ? fit : WIDE_STAGES;
 }
 
 __device__ __forceinline__ float act_fn(float x, int act) {
@@ -779,6 +821,11 @@ TL2_WGMMA_LAUNCHER(launch_wide);      // tl2_wgmma.cu: 64/128 tiles, TMA
 TL2_WGMMA_LAUNCHER(launch_wide_lsu);  // tl2_wgmma_lsu.cu: 64/128 tiles, loads producer
 TL2_WGMMA_LAUNCHER(launch_n32);       // tl2_wgmma_n32.cu: bn = 32, both producers
 TL2_WGMMA_LAUNCHER(launch_swap);      // tl2_wgmma_swap.cu: bm = 32 over 64/128, both
+// tl2_wgmma_wide.cu: a wide block (p.wide_bm x p.wide_bn, one K interval, TMA only; tc the
+// output's map); cudaErrorInvalidValue for a block it has no instance of.
+cudaError_t launch_wide_block(const CUtensorMap& ta, const CUtensorMap& tb,
+                              const CUtensorMap& tc, const WgParams& p, int rhs_nk,
+                              cudaStream_t s);
 
 }  // namespace tl2wg
 

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from tpul2_torch.autotune.db import default_db
-from tpul2_torch.config import KernelConfig, heuristic_config
+from tpul2_torch.config import KernelConfig, heuristic_config, wide_launch_error
 from tpul2_torch.ops import baselines
 from tpul2_torch.ops.matmul import (ACTIVATIONS, GemmVjp, cuda_matmul_fused, records_grad,
                                     refuse_out_under_grad)
@@ -53,7 +53,8 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     ``tpul2_torch/data/tunedb_h100.json``); the JAX package's ``tunedb_v5e.json`` is TPU
     data and is never read.  With no DB file, every shape takes the heuristic, which
     never returns the vendor sentinel.  A resolved config the kernel cannot run goes to
-    the sentinel (the role of the JAX out-dtype guard).  An explicit ``config=`` on the
+    the sentinel (the role of the JAX out-dtype guard): one ``validate`` refuses, or a wide
+    block that cannot launch at the shape (``wide_launch_error``).  An explicit ``config=`` on the
     entry points overrides all of this.
 
     The decision is kept in the DB's memo with the DB's version: a put or a load of the
@@ -79,7 +80,7 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
         cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
     if cfg is None:
         cfg = heuristic_config(m, n, k, acc)
-    if cfg.validate() is not None:
+    if cfg.validate() is not None or wide_launch_error(cfg, m, n, k) is not None:
         cfg = KernelConfig.vendor()
     if len(db.memo) >= MEMO_LIMIT:
         db.memo.clear()
@@ -215,7 +216,10 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
                    out_dtype: Optional[torch.dtype] = None,
                    config: Optional[KernelConfig] = None,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Tuned C[t] = A[t] @ B[t].  a (B, M, K), b (B, K, N).  Configs key on (M, N, K)."""
+    """Tuned C[t] = A[t] @ B[t].  a (B, M, K), b (B, K, N).  Configs key on (M, N, K).
+
+    The batched kernel has no wide blocks: a resolved wide config goes to the sentinel, as
+    any resolved config its kernel cannot run does; an explicit one raises."""
     from tpul2_torch.ops.batched import cuda_batched_matmul
     if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
             or a.shape[2] != b.shape[1]):
@@ -226,6 +230,8 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     if config is None:
         config = resolve_config(m, n, k, acc)
+        if config.wide:
+            config = KernelConfig.vendor()
     if config.use_vendor:
         if records_grad(a, b):
             refuse_out_under_grad(out, "batched_matmul")

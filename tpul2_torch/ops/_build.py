@@ -1,12 +1,12 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C interface.
 
 The role of ``tpul2/native/build.py``.  Every ``csrc/*.cu`` of the package is compiled
-for ``sm_90a`` into an object of its own (the ring kernel's instances are spread over four
-files that share ``csrc/tl2_wgmma.cuh``), all nvcc processes started together, then linked
-into ``tpul2_torch/_build/libtl2_kernels.so`` at first use (with the toolkit's cuBLASLt,
-``LINK_FLAGS``, for the auto-tuning baseline's search) and loaded with ctypes.  The
-build is redone whenever a source or the flags change (a sha256 stamp beside the
-library).  Only sources in the repository are compiled; nothing is fetched.
+for ``sm_90a`` into an object of its own (the ring kernel's instances are spread over five
+files that share ``csrc/tl2_wgmma.cuh``, the wide route's among them), all nvcc processes
+started together, then linked into ``tpul2_torch/_build/libtl2_kernels.so`` at first use
+(with the toolkit's cuBLASLt, ``LINK_FLAGS``, for the auto-tuning baseline's search) and
+loaded with ctypes.  The build is redone whenever a source or the flags change (a sha256
+stamp beside the library).  Only sources in the repository are compiled; nothing is fetched.
 """
 
 from __future__ import annotations
@@ -145,6 +145,10 @@ def load_library() -> ctypes.CDLL:
     lib.tl2_wgmma_smem_bytes.restype = ctypes.c_int
     lib.tl2_wgmma_carry_stages.argtypes = [_I, _I]
     lib.tl2_wgmma_carry_stages.restype = ctypes.c_int
+    lib.tl2_wgmma_wide_smem_bytes.argtypes = [_I, _I, _I]
+    lib.tl2_wgmma_wide_smem_bytes.restype = ctypes.c_int
+    lib.tl2_wgmma_wide_stages.argtypes = [_I, _I]
+    lib.tl2_wgmma_wide_stages.restype = ctypes.c_int
     # m, n, k, bm, bn, bk, rhs_nk, a, b
     lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P]
     lib.tl2_wgmma_route.restype = ctypes.c_int

@@ -6,7 +6,9 @@ Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 (wgmma warpgroups over a ring of 64-deep K stages) for the K carry and the single K
 interval alike, on every tile; ``launch_route`` names, from the shape before the launch,
 the producer that fills the ring: TMA ('wgmma') or, where TMA cannot read an operand, the
-loads producer ('wgmma_lsu').  A launch that fails raises.  For a CPU tensor it runs
+loads producer ('wgmma_lsu').  A wide block (an edge above 128, the JAX space's thin-K
+stripes) takes ``csrc/tl2_wgmma_wide.cu`` ('wgmma_wide'): one K interval on operands TMA
+reads, or the call raises with the reason.  A launch that fails raises.  For a CPU tensor it runs
 ``matmul_reference``, the plain version of the same semantics.  Nothing falls back from a
 kernel to another kernel or to the plain version.
 
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 
 # the ring's constants and shared-memory model, read through this module too
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
-                                KernelConfig, carry_stages, wgmma_smem_bytes)
+                                KernelConfig, carry_stages, wgmma_smem_bytes,
+                                wide_launch_error)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -55,6 +58,8 @@ LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_WGMMA_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
 LAUNCHES_SINGLE_K_WGMMA_LSU = 0
+#: Launches of the wide route (``_kernel_single_k`` at a wide block, tl2_wgmma_wide.cu).
+LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
 #: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn 32),
 #: of a swapped tile (bm 32 over bn 64 / 128), and of a bf16-family carry that rounds in
 #: the middle of a stage (bk % 64 == 32).
@@ -200,13 +205,35 @@ def operand_producers(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
             rhs.data_ptr() % 16 == 0 and (k if cfg.rhs_layout == "nk" else n) % 8 == 0)
 
 
+def wide_refusal(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor, m: int, n: int,
+                 k: int, out: Optional[torch.Tensor] = None) -> Optional[str]:
+    """Why the wide route cannot take this launch, or None: ``config.wide_launch_error``
+    at the shape, then the bases TMA reads (A, the RHS) and writes (``out=``), which must
+    be 16-byte aligned: the route has no loads producer."""
+    err = wide_launch_error(cfg, m, n, k)
+    if err is None and not all(operand_producers(cfg, a, rhs, n, k)):
+        err = (f"the wide block {cfg.bm}x{cfg.bn} reads A and the RHS by TMA and has no "
+               "loads producer: an operand's base is not 16-byte aligned")
+    if err is None and out is not None and out.data_ptr() % 16:
+        err = (f"the wide block {cfg.bm}x{cfg.bn} stores C by TMA: out= does not start "
+               "16-byte aligned")
+    return err
+
+
 def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                  m: int, n: int, k: int) -> str:
     """The producer of a launch's ring, from the shape before the launch
-    (``tl2_wgmma_route`` mirrors it: 1 and 2): 'wgmma' where TMA can read both operands
+    (``tl2_wgmma_route`` mirrors it: 1, 2 and 3): 'wgmma' where TMA can read both operands
     (``operand_producers``), else 'wgmma_lsu' (the loads producer reads the operand TMA
-    cannot).  Every valid config takes one of them, at any bk: a carry's rounding point
-    falls on a stage's start or, where bk % 64 == 32, its middle."""
+    cannot).  Every valid ring tile takes one of them, at any bk: a carry's rounding point
+    falls on a stage's start or, where bk % 64 == 32, its middle.  A wide block takes
+    'wgmma_wide' (tl2_wgmma_wide.cu) or raises ``ValueError`` with ``wide_refusal``'s
+    reason (C: 0, refused)."""
+    if cfg.wide:
+        err = wide_refusal(cfg, a, rhs, m, n, k)
+        if err:
+            raise ValueError(f"invalid kernel config {cfg} at {m}x{n}x{k}: {err}")
+        return "wgmma_wide"
     return "wgmma" if all(operand_producers(cfg, a, rhs, n, k)) else "wgmma_lsu"
 
 
@@ -263,6 +290,11 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
             and (bias is None or bias.is_contiguous())
             and (out is None or out.is_contiguous())):
         raise ValueError("the kernel takes contiguous tensors only")
+    if cfg.wide:
+        err = ("the batched kernel has no wide blocks (only the 2-D single-K kernel's are "
+               "ported)" if batched else wide_refusal(cfg, a, rhs, m, n, k, out))
+        if err:
+            raise ValueError(f"invalid kernel config {cfg} at {m}x{n}x{k}: {err}")
     return batch, m, n, k
 
 
@@ -292,8 +324,8 @@ _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16
 def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                   batch: int, m: int, n: int, k: int) -> str:
     """Launch the ring on the current stream, writing ``out``; return the route
-    (``launch_route``: 'wgmma' or 'wgmma_lsu').  Counts the width-32, swapped and mid-stage
-    launches.
+    (``launch_route``: 'wgmma', 'wgmma_lsu' or, for a wide block, 'wgmma_wide').  Counts
+    the width-32, swapped and mid-stage launches.
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
@@ -310,13 +342,15 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
         LAUNCHES_SWAPPED += 1
     if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
         LAUNCHES_MIDSTAGE += 1
+    if cfg.wide:
+        return "wgmma_wide"
     # launch_route's answer, read off the launch's own vec_a and vec_b
     return "wgmma" if args[18] and args[19] else "wgmma_lsu"
 
 
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
     global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_WGMMA_LSU
-    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU
+    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU, LAUNCHES_SINGLE_K_WGMMA_WIDE
     if records_grad(a, rhs, bias):
         refuse_out_under_grad(out, "matmul")
         return GemmVjp.apply(a, rhs, bias, lambda a_, rhs_, bias_: _matmul(
@@ -332,7 +366,9 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
-    if cdiv(k, cfg.bk) > 1:
+    if route == "wgmma_wide":
+        LAUNCHES_SINGLE_K_WGMMA_WIDE += 1
+    elif cdiv(k, cfg.bk) > 1:
         if route == "wgmma":
             LAUNCHES_MULTI_K_WGMMA += 1
         else:
