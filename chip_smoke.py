@@ -16,10 +16,11 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      them), all nine tiles, bk (96 and 160, single intervals included), layouts and
      operand alignments, and tl2_staged_route with ops.pipelined.staged_route over
      shapes, tiles, depths, layouts and alignments; the wide route's models
-     (config.wide_stages and wide_smem_bytes against tl2_wgmma_wide_stages and
-     _smem_bytes, validate against the stages that fit) and its route (3 'wgmma_wide'
-     where launch_route takes it, 0 where it raises) over wide blocks, bk, layouts and
-     alignments.  The mma.sync bodies' C entries
+     (config.wide_streamed, wide_stages and wide_smem_bytes in both modes against
+     tl2_wgmma_wide_streamed, _stages and _smem_bytes, validate taking every block) and
+     its route (3 'wgmma_wide', 4 'wgmma_wide_lsu', launch_route against tl2_wgmma_route)
+     over wide blocks up to 16384 rows, bk, layouts and the alignments of A, the RHS and
+     the output.  The mma.sync bodies' C entries
      (tl2_matmul_*out, tl2_staged) are wrapped to count every call made through the
      library: the package makes none (the "mma_sync" count of every path must be 0), and
      this script launches them only through the unwrapped functions
@@ -72,12 +73,17 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      shapes with K % 8 != 0, which TMA cannot read, with one K interval and with several,
      at decode shapes (the swapped and width-32 tiles, 2-D and batched), with a bf16
      config whose bk is 96 (a rounding point mid-stage), dispatch.matmul with a wide block
-     (256x1024, one interval, 'kn' and 'nk', bias + relu, M and N off the block) and with
+     (256x1024, one interval, 'kn' and 'nk', bias + relu, M and N off the block), with
+     the other wide variants (the bf16 family's carry with a resident and a streamed A, a
+     4096-row block, batched at one interval and with a carry, the loads producer at
+     K % 8 != 0 and with A 2 bytes off 16, 2-D and batched) and with
      staged configs (a 32-edge tile and a ring tile whose few tiles split K, an A base 2
      bytes off 16): exact on 0/1 inputs
   4  the launch counters, zeroed just before phase 3, must show that each body ran with
-     both producers, single-K and multi-K, 2-D and batched, the wide route, the width-32,
-     swapped and mid-stage launches, and the staged ring with both producers, a split and
+     both producers, single-K and multi-K, 2-D and batched, the wide route with both
+     producers, single-K and multi-K, 2-D and batched, a streamed A and a block above
+     2048 rows, the width-32, swapped and mid-stage launches, and the staged ring with
+     both producers, a split and
      a 32-edge tile; and no mma.sync launch: the bring-up shapes and the gate's batched variants
      take TMA (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0
      shapes the loads producer
@@ -145,7 +151,8 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      side stream returned with no wait, a helper thread left running, a Tensor subclass
      and a meta output, an fp16 output, a patched torch.cuda.Event.elapsed_time), with
      each run's event and sync ms, ratio and floor; each `python -m tpul2_torch.harness`
-     subcommand as a subprocess at 1000^3 (exit 0, JSON out); the lean engine
+     subcommand at 1000^3 (exit 0, JSON out), the first as a subprocess, the other five
+     through the CLI's main() in this process; the lean engine
      (harness.campaign) over the stratified grid's first 24 shapes plus 4096^3 and
      16384^3 through the committed DB, both families offline, the first 4 at 100 qps,
      with the seconds per shape, and at 4096^3 through the heuristic the median of 3
@@ -189,6 +196,25 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      over the retuned shapes through the committed DB and the copy: each shape's speedup
      against torch.matmul and config (wide, ring or sentinel) before and after; the
      counters (zeroed before the retune) must show the wide route launched
+  wide  the JAX space's wide blocks everywhere (tl2_wgmma_wide.cu and its seven sibling
+     instance files): (a) each variant against its plain version in both output dtypes,
+     0/1 inputs exact and normal inputs within allowed_error (a bf16 carry's element
+     beyond it on the ring-order reference's bits): the K carry with a resident A
+     (1024x2048x512, both families) and a streamed A (12288^3 at the JAX entry's 512x2048
+     bk 4096, f32; 2048^3 bf16 'nk'), one interval with a streamed A (1024^3, both
+     families), rounding points mid-stage (bk 96), a 16384-row block, batched at gk 1
+     and gk 2 (4x1024x2048x512), and the loads producer and predicated stores (K = 60,
+     N = 4095, A 2 bytes off 16 with a streamed carry, out= off 16 bytes, batched at
+     K = 1001), each launched once on its route's counter; the loads producer forced on
+     aligned operands gives TMA's bits; (b) the main path: a DB copy of the JAX DB's 212
+     kernel entries that validate (from_jax; the two bm = 16 ones are refused with their
+     reason) through scripts/correctness_campaign_torch.py --no_demote (all pass, no guard
+     hit), then dispatch.matmul at each entry's shape through the copy (every entry
+     resolves to its own config, every wide one launches the wide route: no sentinel),
+     dispatch.batched_matmul at four entries and dispatch.matmul with A 2 bytes off 16
+     (the loads producer) at three, exact against the plain version; (c) each new row
+     alone (CUDA graphs of direct launches, two turns) beside torch.matmul or torch.bmm
+     alone, the plain version and the bound
   model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
      8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
      block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
@@ -388,7 +414,8 @@ def _ring_source(cfg, route: str) -> str:
 
 
 #: The C route codes of each route name.
-ROUTE_CODES = {"wgmma": 1, "wgmma_lsu": 2, "ring": 1, "ring_lsu": 2}
+ROUTE_CODES = {"wgmma": 1, "wgmma_lsu": 2, "ring": 1, "ring_lsu": 2, "wgmma_wide": 3,
+               "wgmma_wide_lsu": 4}
 
 
 def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
@@ -414,7 +441,7 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
                                 py = route == "wgmma"
                                 c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
                                                         int(layout == "nk"), a.data_ptr(),
-                                                        b.data_ptr())
+                                                        b.data_ptr(), None)
                                 if ROUTE_CODES[route] != c:
                                     raise AssertionError(
                                         f"route rule differs at {m}x{nn}x{k} {cfg} "
@@ -425,50 +452,55 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
 
 
 def _check_wide_mirror(torch, lib, mm, config) -> tuple:
-    """The wide route's models against the kernel's: ``config.wide_stages`` and
-    ``wide_smem_bytes`` against tl2_wgmma_wide_stages / _smem_bytes, ``validate`` against
-    the stages that fit; then tl2_wgmma_route against ops.matmul.launch_route for wide
-    blocks over shapes (K and N off 8 among them), blocks, bk (one interval and several),
-    layouts and operand alignments: 'wgmma_wide' where the C side says 3, a ValueError
-    where it says 0.  Returns (route cases, wide launches among them)."""
-    for bm in (64, 128, 256, 2048):
-        for k in (32, 64, 128, 256, 512, 576, 1024, 1280, 1344, 4096):
+    """The wide route's models against the kernel's: ``config.wide_streamed``,
+    ``wide_stages`` and ``wide_smem_bytes`` (both modes, every depth) against
+    tl2_wgmma_wide_streamed / _stages / _smem_bytes, and ``validate`` taking every block
+    (one mode always fits); then tl2_wgmma_route against ops.matmul.launch_route for wide
+    blocks over shapes (K and N off 8 among them), blocks (up to 16384 rows), bk (one
+    interval and several, 96 mid-stage), layouts and the alignments of A, the RHS and the
+    output: 3 'wgmma_wide' or 4 'wgmma_wide_lsu' on both sides.  Returns (route cases, TMA
+    cases among them)."""
+    for bm in (64, 128, 256, 2048, 16384):
+        for k in (32, 64, 128, 256, 512, 576, 1024, 1280, 1344, 4096, 16384):
             stages = lib.tl2_wgmma_wide_stages(bm, k)
-            kernel = lib.tl2_wgmma_wide_smem_bytes(bm, k, stages)
+            streamed = lib.tl2_wgmma_wide_streamed(bm, k)
             cfg = config.KernelConfig(bm=bm, bn=256, bk=k)
-            if (stages != config.wide_stages(bm, k)
-                    or kernel != config.wide_smem_bytes(bm, k, stages)
-                    or (cfg.validate() is None) != (stages >= config.WIDE_MIN_STAGES)
-                    or (stages >= config.WIDE_MIN_STAGES and kernel > config.SMEM_LIMIT)):
+            same = all(lib.tl2_wgmma_wide_smem_bytes(bm, k, s, mode)
+                       == config.wide_smem_bytes(bm, k, s, bool(mode))
+                       for s in range(config.WIDE_STAGES + 1) for mode in (0, 1))
+            kernel = lib.tl2_wgmma_wide_smem_bytes(bm, k, stages, streamed)
+            if (stages != config.wide_stages(bm, k) or bool(streamed) != config.wide_streamed(
+                    bm, k) or not same or cfg.validate() is not None
+                    or stages < config.WIDE_MIN_STAGES or kernel > config.SMEM_LIMIT):
                 raise AssertionError(f"the wide smem model differs from the kernel at bm {bm} "
-                                     f"k {k}: {stages} stages, {kernel} bytes")
+                                     f"k {k}: {stages} stages, streamed {streamed}, {kernel} "
+                                     "bytes")
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((16384, 16384, 64), (8192, 16384, 512), (1000, 1000, 200), (200, 264, 128),
-              (2048, 2048, 100), (2048, 1001, 64), (128, 4096, 1024))
-    n = n_wide = 0
+              (2048, 2048, 100), (2048, 1001, 64), (128, 4096, 1024), (16384, 256, 60))
+    n = n_tma = 0
     for off_a in (0, 1):
         for off_b in (0, 8):
-            a, b = buf[off_a:], buf[off_b:]
-            for m, nn, k in shapes:
-                for bm, bn in ((64, 256), (128, 2048), (256, 128), (2048, 16384), (512, 512)):
-                    for bk in (64, 96, 128, 256, 512, 1024):
-                        for layout in ("kn", "nk"):
-                            cfg = config.KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
-                            c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk, int(layout == "nk"),
-                                                    a.data_ptr(), b.data_ptr())
-                            try:
-                                route = mm.launch_route(cfg, a, b, m, nn, k)
-                            except ValueError:
-                                route = None
-                            if cfg.validate() is not None:
-                                route = None
-                            if (route == "wgmma_wide") != (c == 3) or c not in (0, 3):
-                                raise AssertionError(f"wide route differs at {m}x{nn}x{k} {cfg} "
-                                                     f"offsets {off_a}, {off_b}: python "
-                                                     f"{route}, C {c}")
-                            n += 1
-                            n_wide += c == 3
-    return n, n_wide
+            for off_c in (0, 4):
+                a, b, c = buf[off_a:], buf[off_b:], buf[off_c:]
+                for m, nn, k in shapes:
+                    for bm, bn in ((64, 256), (128, 2048), (256, 128), (2048, 16384),
+                                   (512, 512), (16384, 256)):
+                        for bk in (64, 96, 256, 1024):
+                            for layout in ("kn", "nk"):
+                                cfg = config.KernelConfig(bm=bm, bn=bn, bk=bk,
+                                                          rhs_layout=layout)
+                                code = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
+                                                           int(layout == "nk"), a.data_ptr(),
+                                                           b.data_ptr(), c.data_ptr())
+                                route = mm.launch_route(cfg, a, b, m, nn, k, c)
+                                if cfg.validate() is not None or ROUTE_CODES[route] != code:
+                                    raise AssertionError(
+                                        f"wide route differs at {m}x{nn}x{k} {cfg} offsets "
+                                        f"{off_a}, {off_b}, {off_c}: python {route}, C {code}")
+                                n += 1
+                                n_tma += code == 3
+    return n, n_tma
 
 
 def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
@@ -544,9 +576,10 @@ def _ring_order_reference(torch, mm, a, rhs, bk, rhs_layout, bias=None, act=None
 
 
 def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one,
-                offsets=(0, 0)):
+                offsets=(0, 0), out_offset=0):
     """Run kernel and plain version on the same inputs (A and the RHS ``offsets``
-    elements into their allocations); return (max |diff|, the elements beyond
+    elements into their allocations; with ``out_offset`` the kernel writes through out=
+    that many elements into its allocation); return (max |diff|, the elements beyond
     allowed_error that carry the ring-order reference's bits).  Raises if out of
     tolerance."""
     KernelConfig, mm, bmm = mods
@@ -562,19 +595,23 @@ def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one,
     if act is not None:
         bias = (torch.randint(0, 2, (n,), generator=gen, device="cuda").float() if zero_one
                 else torch.randn((n,), generator=gen, device="cuda"))
+    out = None
+    if out_offset:
+        out = _offset(torch, torch.zeros((batch, m, n) if batched else (m, n), dtype=out_dtype,
+                                         device="cuda"), out_offset)
     if batched:
-        got = bmm.cuda_batched_matmul(a, rhs, cfg, out_dtype=out_dtype)
+        got = bmm.cuda_batched_matmul(a, rhs, cfg, out_dtype=out_dtype, out=out)
         want = bmm.batched_matmul_reference(a, rhs, cfg.bk, cfg.acc_dtype, out_dtype)
     elif act is None:
         wrapper = mm.cuda_matmul_tn if cfg.rhs_layout == "nk" else mm.cuda_matmul
-        got = wrapper(a, rhs, cfg, out_dtype=out_dtype)
+        got = wrapper(a, rhs, cfg, out_dtype=out_dtype, out=out)
         want = mm.matmul_reference(a, rhs, cfg.bk, cfg.acc_dtype, cfg.rhs_layout,
                                    out_dtype=out_dtype)
     else:
         b = rhs.t().contiguous() if cfg.rhs_layout == "nk" else rhs
         got = mm.cuda_matmul_fused(a, b, bias=bias, activation=act, config=cfg,
-                                   out_dtype=out_dtype, b_t=rhs if cfg.rhs_layout == "nk"
-                                   else None)
+                                   out_dtype=out_dtype, out=out,
+                                   b_t=rhs if cfg.rhs_layout == "nk" else None)
         want = mm.matmul_reference(a, rhs, cfg.bk, cfg.acc_dtype, cfg.rhs_layout, bias, act,
                                    out_dtype)
     torch.cuda.synchronize()
@@ -1576,7 +1613,7 @@ def _heal_demo(campaign, out: Path, db_path: Path, shape: tuple) -> dict:
 
 def _campaign_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple:
     """Phase campaign: the integrity defenses on the honest candidate and on five cheats,
-    each CLI subcommand as a subprocess, the lean engine over a prefix of the stratified
+    each CLI subcommand (the first as a subprocess), the lean engine over a prefix of the stratified
     grid (and its agreement with ``_run_mode`` at 4096^3), and the heal at FFN-1's shape.
     Returns (record, the launches of the phase)."""
     import json
@@ -1709,7 +1746,9 @@ def _campaign_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple
         raise AssertionError(f"the patched elapsed_time was not flagged or not restored: {res}")
     del big
 
-    # ---- 2. the CLI: each subcommand once at 1000^3, as a subprocess ----
+    # ---- 2. the CLI: each subcommand once at 1000^3; the first as a subprocess (the
+    # `python -m` entry), the others through the same main() in this process, which saves
+    # a process start (~8 s on the card's host) each ----
     shape = ["--mnk", "1000", "1000", "1000"]
     base = work / "cli"
     cmds = {
@@ -1723,23 +1762,31 @@ def _campaign_phase(torch, repo: Path, counters, zero_counters, use_db) -> tuple
         "summarize": ["summarize", "--base_dir", str(base)],
         "defend": ["defend", *shape],
     }
+    from tpul2_torch.harness import __main__ as harness_cli
     rec["cli"] = {}
     t0 = time.perf_counter()
-    for name, argv in cmds.items():
+    for i, (name, argv) in enumerate(cmds.items()):
         t1 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "tpul2_torch.harness", *argv], cwd=repo,
-                              capture_output=True, text=True, timeout=300)
+        if i == 0:
+            proc = subprocess.run([sys.executable, "-m", "tpul2_torch.harness", *argv],
+                                  cwd=repo, capture_output=True, text=True, timeout=300)
+            rc, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+        else:
+            printed, errs = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(errs):
+                rc = harness_cli.main(argv)
+            stdout, stderr = printed.getvalue(), errs.getvalue()
         try:
-            out = json.loads(proc.stdout)
+            out = json.loads(stdout)
         except json.JSONDecodeError:
             out = None
-        rec["cli"][name] = {"rc": proc.returncode, "json": out is not None,
+        rec["cli"][name] = {"rc": rc, "json": out is not None, "subprocess": i == 0,
                             "seconds": time.perf_counter() - t1}
-        print(f"  cli {name}: rc {proc.returncode}, JSON {out is not None}, "
-              f"{rec['cli'][name]['seconds']:.1f} s")
-        if proc.returncode != 0 or out is None:
+        print(f"  cli {name}{' (subprocess)' if i == 0 else ''}: rc {rc}, JSON "
+              f"{out is not None}, {rec['cli'][name]['seconds']:.1f} s")
+        if rc != 0 or out is None:
             raise AssertionError(f"python -m tpul2_torch.harness {name} failed:\n"
-                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
     rec["cli_seconds"] = time.perf_counter() - t0
 
     # ---- 3. the lean engine ----
@@ -2039,6 +2086,21 @@ def _grid_tune_phase(repo: Path, counters, zero_counters) -> tuple:
     return rec, total
 
 
+#: Phase 3's entry-point calls with the wide variants: (batch, (m, n, k), config, A's offset
+#: in elements): the bf16 family's carry with a resident and a streamed A, a 4096-row
+#: block, batched at one interval and with a carry, and the loads producer (K % 8 != 0 and
+#: an A base 2 bytes off 16) 2-D and batched, one interval and a carry.
+PHASE3_WIDE = [
+    (1, (512, 1024, 512), dict(bm=256, bn=512, bk=128, acc_dtype="bfloat16"), 0),
+    (1, (512, 1024, 2048), dict(bm=256, bn=1024, bk=512, acc_dtype="bfloat16"), 0),
+    (1, (4096, 256, 64), dict(bm=4096, bn=256, bk=64), 0),
+    (2, (256, 1024, 512), dict(bm=256, bn=512, bk=512), 0),
+    (2, (256, 1024, 512), dict(bm=256, bn=512, bk=256, acc_dtype="bfloat16"), 0),
+    (1, (300, 1024, 1001), dict(bm=256, bn=512, bk=1024), 0),
+    (1, (300, 1024, 512), dict(bm=256, bn=512, bk=128), 1),
+    (2, (300, 1024, 1001), dict(bm=256, bn=512, bk=1024), 0),
+    (2, (300, 1024, 1001), dict(bm=256, bn=512, bk=256, acc_dtype="bfloat16"), 0),
+]
 #: Phase thin-K: the write-allocate probe's bytes, its passes of each kind, and the wide
 #: route's cases against its plain version: (name, m, n, k, cfg kwargs, activation, out
 #: dtype name).  The bm > 128 walks, both layouts and output dtypes, bias + gelu and the
@@ -2256,6 +2318,315 @@ def _thin_k_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_ti
     return rec, rows, keys, launches
 
 
+#: Phase wide (a): each variant of the wide route against its plain version: (name, batch,
+#: m, n, k, cfg kwargs, activation, (A offset, RHS offset, out offset) in elements, its
+#: route, its counter key), each in both output dtypes.
+WIDE_CASES = [
+    ("resident carry, bf16 family", 1, 1024, 2048, 512,
+     dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16"), None, (0, 0, 0), "wgmma_wide",
+     "multi_k_wgmma_wide"),
+    ("resident carry, f32 family, nk, bias + gelu", 1, 1024, 2048, 512,
+     dict(bm=1024, bn=2048, bk=256, rhs_layout="nk"), "gelu", (0, 0, 0), "wgmma_wide",
+     "multi_k_wgmma_wide"),
+    ("streamed carry, f32 family (the JAX entry of 12288^3)", 1, 12288, 12288, 12288,
+     dict(bm=512, bn=2048, bk=4096), None, (0, 0, 0), "wgmma_wide", "multi_k_wgmma_wide"),
+    ("streamed carry, bf16 family, nk, bias + relu", 1, 2048, 2048, 2048,
+     dict(bm=512, bn=1024, bk=512, acc_dtype="bfloat16", rhs_layout="nk"), "relu",
+     (0, 0, 0), "wgmma_wide", "multi_k_wgmma_wide"),
+    ("streamed single-K 1024^3", 1, 1024, 1024, 1024, dict(bm=1024, bn=1024, bk=1024),
+     None, (0, 0, 0), "wgmma_wide", "single_k_wgmma_wide"),
+    ("streamed single-K, bf16 family (one interval: the f32 sum)", 1, 1024, 1024, 1024,
+     dict(bm=1024, bn=1024, bk=1024, acc_dtype="bfloat16"), None, (0, 0, 0), "wgmma_wide",
+     "single_k_wgmma_wide"),
+    ("mid-stage rounding bk 96, bf16 family", 1, 300, 520, 1000,
+     dict(bm=256, bn=256, bk=96, acc_dtype="bfloat16"), None, (0, 0, 0), "wgmma_wide",
+     "multi_k_wgmma_wide"),
+    ("bm 16384", 1, 16384, 256, 128, dict(bm=16384, bn=256, bk=128), None, (0, 0, 0),
+     "wgmma_wide", "single_k_wgmma_wide"),
+    ("batched gk 1", 4, 1024, 2048, 512, dict(bm=1024, bn=2048, bk=512), None, (0, 0, 0),
+     "wgmma_wide", "batched_single_k_wgmma_wide"),
+    ("batched gk 2, bf16 family", 4, 1024, 2048, 512,
+     dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16"), None, (0, 0, 0), "wgmma_wide",
+     "batched_multi_k_wgmma_wide"),
+    ("loads producer: K = 60, kn", 1, 4096, 4096, 60, dict(bm=256, bn=1024, bk=64), None,
+     (0, 0, 0), "wgmma_wide_lsu", "single_k_wgmma_wide_lsu"),
+    ("loads producer, predicated stores: N = 4095", 1, 4096, 4095, 64,
+     dict(bm=256, bn=1024, bk=64), "relu", (0, 0, 0), "wgmma_wide_lsu",
+     "single_k_wgmma_wide_lsu"),
+    ("loads producer: A 2 bytes off 16, streamed carry, bf16 family, nk", 1, 1000, 1024, 1500,
+     dict(bm=256, bn=512, bk=256, acc_dtype="bfloat16", rhs_layout="nk"), None, (1, 0, 0),
+     "wgmma_wide_lsu", "multi_k_wgmma_wide_lsu"),
+    ("predicated stores: out= 2 elements off 16 bytes", 1, 1000, 1024, 200,
+     dict(bm=256, bn=512, bk=224), "gelu", (0, 0, 2), "wgmma_wide_lsu",
+     "single_k_wgmma_wide_lsu"),
+    ("loads producer batched, K = 1001, carry", 3, 300, 1024, 1001,
+     dict(bm=256, bn=512, bk=256), None, (0, 0, 0), "wgmma_wide_lsu",
+     "batched_multi_k_wgmma_wide_lsu"),
+]
+#: Phase wide (c): the rows timed alone: (name, batch, m, n, k, cfg kwargs, A offset, out
+#: dtype name, source file, the replaced Pallas function's file:line, counter key).
+WIDE_TIMED = [
+    ("K carry, resident A, 1024x2048 bk 256, bf16 family", 1, 1024, 2048, 512,
+     dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16"), 0, "bfloat16",
+     "tl2_wgmma_wide_bf16.cu", "tpul2/ops/matmul.py:96", "multi_k_wgmma_wide"),
+    ("K carry, streamed A, 512x2048 bk 4096, f32 family", 1, 12288, 12288, 12288,
+     dict(bm=512, bn=2048, bk=4096), 0, "float32", "tl2_wgmma_wide_stream.cu",
+     "tpul2/ops/matmul.py:96", "wide_streamed"),
+    ("single-K, streamed A, 1024x1024", 1, 1024, 1024, 1024,
+     dict(bm=1024, bn=1024, bk=1024), 0, "float32", "tl2_wgmma_wide_stream.cu",
+     "tpul2/ops/matmul.py:136", "wide_streamed"),
+    ("single-K, bm 16384, 16384x256", 1, 16384, 256, 128, dict(bm=16384, bn=256, bk=128), 0,
+     "bfloat16", "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_tall"),
+    ("batched, gk 1, 1024x2048", 4, 1024, 2048, 512, dict(bm=1024, bn=2048, bk=512), 0,
+     "bfloat16", "tl2_wgmma_wide.cu", "tpul2/ops/batched.py:40",
+     "batched_single_k_wgmma_wide"),
+    ("batched, gk 2, 1024x2048 bk 256, bf16 family", 4, 1024, 2048, 512,
+     dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16"), 0, "bfloat16",
+     "tl2_wgmma_wide_bf16.cu", "tpul2/ops/batched.py:25", "batched_multi_k_wgmma_wide"),
+    ("loads producer, K = 60, 256x1024", 1, 4096, 4096, 60, dict(bm=256, bn=1024, bk=64), 0,
+     "bfloat16", "tl2_wgmma_wide_lsu.cu", "tpul2/ops/matmul.py:136",
+     "single_k_wgmma_wide_lsu"),
+    ("loads producer, A 2 bytes off 16, K carry, 256x1024 bk 256, bf16 family", 1, 4096,
+     4096, 1024, dict(bm=256, bn=1024, bk=256, acc_dtype="bfloat16"), 1, "bfloat16",
+     "tl2_wgmma_wide_lsu_bf16_stream.cu", "tpul2/ops/matmul.py:96", "multi_k_wgmma_wide_lsu"),
+]
+#: Phase wide (b): dispatch.batched_matmul through the DB copy at the JAX entries of these
+#: shapes and families, batch WIDE_DB_BATCH; dispatch.matmul with A 2 bytes off 16 (the
+#: loads producer) at these.
+WIDE_DB_BATCHED = [((1024, 2048, 512), "bfloat16"), ((1024, 2048, 512), "float32"),
+                   ((2048, 4096, 128), "float32"), ((1024, 1024, 1024), "float32")]
+WIDE_DB_BATCH = 2
+WIDE_DB_UNALIGNED = [((1024, 2048, 512), "bfloat16"), ((2048, 8192, 64), "float32"),
+                     ((512, 12288, 512), "float32")]
+
+
+def _jax_db_entries(repo: Path, KernelConfig) -> list:
+    """((m, n, k), acc, KernelConfig.from_jax(config)) of every kernel entry of the JAX
+    package's tuned DB, read as data (tpul2/data/tunedb_v5e.json; no JAX import)."""
+    entries = json.loads((repo / "tpul2" / "data" / "tunedb_v5e.json").read_text())["entries"]
+    out = []
+    for key, entry in sorted(entries.items()):
+        if entry["config"].get("use_xla"):
+            continue
+        shape, acc = key.split("/")[:2]  # M_N_K / acc / input dtype
+        out.append((tuple(map(int, shape.split("_"))), acc,
+                    KernelConfig.from_jax(entry["config"])))
+    return out
+
+
+def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time) -> tuple:
+    """Phase wide: the JAX space's wide blocks everywhere (tl2_wgmma_wide.cu and its
+    instance files).  (a) each variant against its plain version, both output dtypes, and
+    the loads producer forced on aligned operands against TMA's bits; (b) the main path: a
+    DB copy of the JAX DB's kernel entries through scripts/correctness_campaign_torch.py
+    --no_demote, then dispatch.matmul at each entry's shape through it (and batched
+    dispatch, and the loads producer, at a few); (c) each new row alone in a CUDA graph
+    beside torch.matmul / torch.bmm, the plain version and the bound.  Returns (record,
+    kernel rows, their counter keys, the launches of (b))."""
+    import shutil
+
+    from tpul2_torch import dispatch
+    from tpul2_torch.autotune import db as db_mod
+    from tpul2_torch.ops._build import check_launch
+    KernelConfig, mm, bmm = mods
+    t_phase = time.perf_counter()
+    rec = {"cases": []}
+    work = repo / "runs" / "chip_smoke" / "wide"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+
+    # ---- (a) each variant against its plain version ----
+    for name, batch, m, n, k, kw, act, offs, route, key in WIDE_CASES:
+        cfg = KernelConfig(**kw)
+        probe_a = _offset(torch, torch.zeros(8, dtype=torch.bfloat16, device="cuda"), offs[0])
+        probe_c = _offset(torch, torch.zeros(8, device="cuda"), offs[2])
+        got_route = mm.launch_route(cfg, probe_a, probe_a, m, n, k, probe_c if offs[2] else None)
+        if got_route != route:
+            raise AssertionError(f"{name}: route {got_route}, expected {route}")
+        for out_name in ("bfloat16", "float32"):
+            before = counters()[key]
+            errs = []
+            for zero_one in (True, False):
+                err, witnessed = _check_case(torch, mods, gen, batch, m, n, k, cfg, act,
+                                             out_name, zero_one, offs[:2], offs[2])
+                errs.append(err)
+            if counters()[key] - before != 2:
+                raise AssertionError(f"{name}: {counters()[key] - before} launches on {key}")
+            rec["cases"].append({"name": name, "out": out_name, "config": kw, "route": route,
+                                 "zero_one_diff": errs[0], "normal_max_abs_err": errs[1],
+                                 "ring_order_witnessed": witnessed})
+            print(f"  (a) {name} ({batch}x{m}x{n}x{k}, {cfg.bm}x{cfg.bn} bk={cfg.bk}, {route}, "
+                  f"{out_name} out): 0/1 diff {errs[0]}, normal max |diff| {errs[1]:.6g} within "
+                  f"allowed_error" + (f" ({witnessed} elements on the ring-order bits)"
+                                      if witnessed else ""))
+    # the loads producer forced on aligned operands (vec_a / vec_b = 0): TMA's bits
+    for m, n, k, kw in ((1024, 2048, 512, dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16")),
+                        (2048, 2048, 2048, dict(bm=512, bn=1024, bk=512, rhs_layout="nk"))):
+        cfg = KernelConfig(**kw)
+        a = _inputs(torch, gen, (m, k), False)
+        rhs = _inputs(torch, gen, (n, k) if cfg.rhs_layout == "nk" else (k, n), False)
+        outs = []
+        for vec in (1, 0):
+            out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+            args = list(mm.launch_args(a, rhs, cfg, out, None, None, 1, m, n, k))
+            args[18] = args[19] = vec
+            check_launch(lib.tl2_wgmma_f32out(*args), "tl2_wgmma (wide)")
+            outs.append(out)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"the wide loads producer differs from TMA at {m}x{n}x{k}")
+        print(f"  (a) {m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} {cfg.rhs_layout}: the loads "
+              "producer forced on aligned operands gives TMA's bits")
+
+    # ---- (b) the main path: the JAX DB's entries through a DB copy ----
+    entries = _jax_db_entries(repo, KernelConfig)
+    runnable = [(s, acc, cfg) for s, acc, cfg in entries if cfg.validate() is None]
+    refused = [(s, acc, cfg.validate()) for s, acc, cfg in entries if cfg.validate()]
+    db_path = work / "jax_db.json"
+    db = db_mod.TuneDB(path=db_path)
+    for (m, n, k), acc, cfg in runnable:
+        db.put(m, n, k, cfg, 0.0, acc=acc, extra={"scope": "from_jax"})
+    db.save()
+    print(f"  (b) {len(entries)} kernel entries of the JAX DB: {len(runnable)} validate, "
+          f"{len(refused)} refused: " + "; ".join(f"{s} {acc}: {err}" for s, acc, err in refused))
+    if len(runnable) != JAX_DB_RUNNABLE:
+        raise AssertionError(f"{len(runnable)} JAX entries validate, not {JAX_DB_RUNNABLE}")
+    gate = _script(repo, "correctness_campaign_torch")
+    zero_counters()
+    t0 = time.perf_counter()
+    printed, errs = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(printed), contextlib.redirect_stderr(errs):
+        rc = gate.main(["--db", str(db_path), "--no_demote", "--jsonl", str(work / "gate.jsonl"),
+                        "--out", str(work / "gate.json")])
+    (work / "gate.log").write_text(errs.getvalue())
+    summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+    rec["campaign"] = {"summary": summary, "seconds": time.perf_counter() - t0}
+    print(f"  (b) correctness campaign --no_demote over the copy: {summary['passed']} of "
+          f"{summary['total_kernel_entries']} kernel entries pass, failed "
+          f"{len(summary['failed'])}, guard hits {summary['guard_hits']} "
+          f"({rec['campaign']['seconds']:.1f} s)")
+    if (rc != 0 or summary["failed"] or summary["guard_hits"]
+            or summary["passed"] != len(runnable)):
+        raise AssertionError(f"the campaign over the JAX entries failed: {summary}\n"
+                             + errs.getvalue()[-4000:])
+    campaign_counts = counters()
+    os.environ[db_mod.ENV_VAR] = str(db_path)
+    db_mod.reset_default_db()
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        sentinels = []
+        for (m, n, k), acc, cfg in runnable:
+            got_cfg = dispatch.resolve_config(m, n, k, acc)
+            if got_cfg != cfg:
+                sentinels.append(((m, n, k), acc, got_cfg))
+                continue
+            a = _inputs(torch, gen, (m, k), True)
+            b = _inputs(torch, gen, (k, n), True)
+            out = dispatch.matmul(a, b, acc=acc, out_dtype=torch.float32)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"dispatch at {m}x{n}x{k} {acc}: non-finite output")
+            del a, b, out
+        torch.cuda.synchronize()
+        dispatch_counts = counters()
+        wide_launches = sum(v for key, v in dispatch_counts.items() if "_wgmma_wide" in key)
+        rec["dispatch"] = {"launches": dispatch_counts, "wide_launches": wide_launches,
+                           "sentinels": [str(x) for x in sentinels],
+                           "seconds": time.perf_counter() - t0}
+        print(f"  (b) dispatch.matmul at the {len(runnable)} shapes through the copy: "
+              f"{wide_launches} wide launches, {len(sentinels)} resolved to another config; "
+              "launches " + json.dumps({k: v for k, v in dispatch_counts.items() if v}))
+        ring_entries = sum(1 for _, _, cfg in runnable if not cfg.wide)
+        if sentinels or wide_launches != len(runnable) - ring_entries:
+            raise AssertionError(f"dispatch through the copy: {sentinels[:5]}, "
+                                 f"{wide_launches} wide launches")
+        # batched dispatch and the loads producer through the same DB
+        for (m, n, k), acc in WIDE_DB_BATCHED:
+            cfg = dispatch.resolve_config(m, n, k, acc)
+            a = _inputs(torch, gen, (WIDE_DB_BATCH, m, k), True)
+            b = _inputs(torch, gen, (WIDE_DB_BATCH, k, n), True)
+            got = dispatch.batched_matmul(a, b, acc=acc, out_dtype=torch.float32)
+            if not cfg.wide or not torch.equal(got, bmm.batched_matmul_reference(
+                    a, b, cfg.bk, cfg.acc_dtype, torch.float32)):
+                raise AssertionError(f"batched dispatch at {m}x{n}x{k} {acc} ({cfg})")
+            print(f"  (b) dispatch.batched_matmul {WIDE_DB_BATCH}x{m}x{n}x{k} {acc}: "
+                  f"{cfg.bm}x{cfg.bn} bk={cfg.bk}, exact against its plain version")
+        for (m, n, k), acc in WIDE_DB_UNALIGNED:
+            cfg = dispatch.resolve_config(m, n, k, acc)
+            a = _offset(torch, _inputs(torch, gen, (m, k), True), 1)
+            b = _inputs(torch, gen, (k, n), True)
+            route = mm.launch_route(cfg, a, b, m, n, k)
+            got = dispatch.matmul(a, b, acc=acc, out_dtype=torch.float32)
+            if route != "wgmma_wide_lsu" or not torch.equal(got, mm.matmul_reference(
+                    a, b, cfg.bk, cfg.acc_dtype, out_dtype=torch.float32)):
+                raise AssertionError(f"unaligned dispatch at {m}x{n}x{k} {acc} ({route})")
+            print(f"  (b) dispatch.matmul {m}x{n}x{k} {acc}, A 2 bytes off 16: {route}, "
+                  "exact against its plain version")
+    finally:
+        os.environ.pop(db_mod.ENV_VAR, None)
+        db_mod.reset_default_db()
+    launches = {key: campaign_counts[key] + v for key, v in counters().items()}
+    rec["launches"] = launches
+    print("  (b) launches of the campaign and the dispatch " + json.dumps(launches))
+    missing = [key for key in ("multi_k_wgmma_wide", "single_k_wgmma_wide", "wide_streamed",
+                               "wide_tall", "batched_single_k_wgmma_wide",
+                               "batched_multi_k_wgmma_wide", "single_k_wgmma_wide_lsu",
+                               "multi_k_wgmma_wide_lsu") if launches[key] <= 0]
+    if missing or launches["mma_sync"]:
+        raise AssertionError(f"the main path launched none of {missing} (or an mma.sync body)")
+
+    # ---- (c) alone: each new row beside torch.matmul / torch.bmm and the plain version ----
+    rows, keys = [], []
+    rec["timed"] = []
+    for name, batch, m, n, k, kw, a_off, out_name, src, replaces, key in WIDE_TIMED:
+        cfg = KernelConfig(**kw)
+        lead = (batch,) if batch > 1 else ()
+        a = _offset(torch, _inputs(torch, gen, (*lead, m, k), False), a_off)
+        b = _inputs(torch, gen, (*lead, k, n), False)
+        out_dtype = getattr(torch, out_name)
+        out = torch.empty((*lead, m, n), dtype=out_dtype, device="cuda")
+        fn = lib.tl2_wgmma_f32out if out_name == "float32" else lib.tl2_wgmma_bf16out
+
+        def make(a=a, b=b, out=out, cfg=cfg, batch=batch, m=m, n=n, k=k, fn=fn):
+            call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
+            return lambda: check_launch(fn(*call), "tl2_wgmma (wide)")
+
+        turns = [host_time.alone_ms(torch, make) for _ in range(2)]
+        library = host_time.alone_ms(torch, lambda a=a, b=b: (lambda: torch.matmul(a, b)))
+        plain_ms = _time_ms(torch, lambda a=a, b=b, cfg=cfg: mm.matmul_reference(
+            a, b, cfg.bk, cfg.acc_dtype, out_dtype=out_dtype), reps=3)
+        # `out` holds the kernel's result on these inputs (every timed launch wrote it)
+        err = (out.float() - mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype,
+                                                 out_dtype=out_dtype).float()).abs().max().item()
+        bound_ms, bound_by = _bound(batch, m, n, k, 4 if out_name == "float32" else 2)
+        row = {"name": name, "mnk": [batch, m, n, k], "turns_ms": turns, "max_abs_err": err,
+               "ms": sum(turns) / 2, "torch_alone_ms": library, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "route": mm.launch_route(cfg, a[0] if batch > 1 else a,
+                                        b[0] if batch > 1 else b, m, n, k)}
+        rec["timed"].append(row)
+        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({row['route']}, {out_name} out) alone ms "
+              f"{json.dumps(turns)}; torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, "
+              f"plain {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by})")
+        rows.append({"name": f"tl2_wgmma_wide ({name}, {batch}x{m}x{n}x{k})" if batch > 1
+                     else f"tl2_wgmma_wide ({name}, {m}x{n}x{k})",
+                     "route": "cuda", "source": f"tpul2_torch/csrc/{src}", "replaces": replaces,
+                     "max_abs_err": err, "ms": row["ms"], "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library})
+        keys.append(key)
+        del a, b, out
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase wide: {rec['seconds']:.1f} s")
+    return rec, rows, keys, launches
+
+
+#: The JAX DB's kernel entries that validate after from_jax: all 214 but the two bm = 16
+#: ones (tests/test_torch_wide_carry.py holds the same count on the CPU).
+JAX_DB_RUNNABLE = 212
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2350,7 +2721,7 @@ def main(argv=None) -> int:
         print(f"  carry ring depths {json.dumps(depths)}; smem models and route rules agree "
               f"with the kernels ({n_route[0]} route cases, {n_route[1]} of them TMA; "
               f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA; {n_wide[0]} wide "
-              f"route cases, {n_wide[1]} of them launched)")
+              f"route cases, {n_wide[1]} of them TMA)")
         record["carry_stages"] = depths
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds
@@ -2648,6 +3019,25 @@ def main(argv=None) -> int:
                 raise AssertionError(f"entry point at {m}x{n}x{k} (wide) is not exact")
             print(f"  entry point {m}x{n}x{k} {layout} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
                   f"({mm.launch_route(cfg, a, b, m, n, k)}), bias + relu: exact on 0/1 inputs")
+        # the entry points with the other wide variants: a K carry (resident and streamed
+        # A, the bf16 family's rounding), a block above 2048 rows, batched (one interval and
+        # a carry), and the loads producer (K % 8, a base 2 bytes off 16) on each
+        for batch, (m, n, k), kw, off in PHASE3_WIDE:
+            cfg = KernelConfig(**kw)
+            lead = (batch,) if batch > 1 else ()
+            a = _offset(torch, _inputs(torch, gen, (*lead, m, k), True), off)
+            b = _inputs(torch, gen, (*lead, k, n), True)
+            if batch > 1:
+                got = dispatch.batched_matmul(a, b, config=cfg, out_dtype=torch.float32)
+            else:
+                got = dispatch.matmul(a, b, config=cfg, out_dtype=torch.float32)
+            want = mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype, out_dtype=torch.float32)
+            if not torch.equal(got, want):
+                raise AssertionError(f"entry point at {batch}x{m}x{n}x{k} {cfg} is not exact")
+            route = mm.launch_route(cfg, a[0] if batch > 1 else a, b[0] if batch > 1 else b,
+                                    m, n, k)
+            print(f"  entry point {batch}x{m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
+                  f"{cfg.acc_dtype} ({route}): exact on 0/1 inputs")
         # the entry point with staged configs: a 32-edge tile over few output tiles (a
         # split), a ring tile whose one output tile splits K 48 ways, and A's base 2 bytes
         # off 16 (the loads producer)
@@ -3306,6 +3696,11 @@ def main(argv=None) -> int:
             torch, repo, lib, mods, counters, zero_counters, host_time)
         kernels += thin_rows
         kernel_keys += thin_keys
+    with phase("wide"):
+        record["wide"], wide_rows, wide_keys, wide_launches = _wide_phase(
+            torch, repo, lib, mods, counters, zero_counters, host_time)
+        kernels += wide_rows
+        kernel_keys += wide_keys
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
     with phase("parallel"):
@@ -3315,7 +3710,7 @@ def main(argv=None) -> int:
     # thin-K retune's, the model path's, the parallel layer's and the seq-16 block's; no
     # path launched an mma.sync body
     paths = {"campaign": campaign_launches, "grid tune": grid_tune_launches,
-             "thin-K": thin_k_launches, "model": model_launches,
+             "thin-K": thin_k_launches, "wide": wide_launches, "model": model_launches,
              "parallel": parallel_launches, "decode block": decode_launches}
     for name, got in paths.items():
         if got["mma_sync"]:

@@ -3,6 +3,7 @@
 device time of each kernel body alone.
 
     python scripts/host_time_torch.py [--root DIR] [--reps 7] [--json_out PATH]
+    python scripts/host_time_torch.py [--root DIR] --alone M,N,K,BM,BN,BK [--alone ...]
 
 Imports the ``tpul2_torch`` package under ``--root`` (default: this checkout), so that
 two trees can be compared on one card, each in a process of its own.  For each bring-up
@@ -48,6 +49,11 @@ device time per call:
                   CUDA events, so that no host time enters;
   torch_alone_ms  torch.matmul (torch.bmm) the same way.
 Prints one JSON object per shape, then the card's nvidia-smi name and power limit.
+
+With ``--alone`` it times only the named configs (the f32 family, 'kn', bf16 output, no
+epilogue, normal inputs), each body alone as above through the tree's tl2_wgmma launcher:
+one JSON object per config with its ``alone_ms``.  A wide block takes the tree's wide
+route, so two trees' wide kernels compare on one card.
 """
 
 from __future__ import annotations
@@ -161,6 +167,8 @@ def main(argv=None) -> int:
                     help="checkout whose tpul2_torch is measured")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--json_out", default=None)
+    ap.add_argument("--alone", action="append", default=[], metavar="M,N,K,BM,BN,BK",
+                    help="time only this config's kernel alone (repeatable)")
     args = ap.parse_args(argv)
 
     import torch
@@ -170,7 +178,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     from tpul2_torch import dispatch
     from tpul2_torch.autotune.db import default_db
-    from tpul2_torch.config import heuristic_config
+    from tpul2_torch.config import KernelConfig, heuristic_config
     from tpul2_torch.ops import baselines
     from tpul2_torch.ops import matmul as mm
     from tpul2_torch.ops._build import check_launch, load_library
@@ -183,6 +191,25 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
+    for spec in args.alone:
+        m, n, k, bm, bn, bk = map(int, spec.split(","))
+        cfg = KernelConfig(bm=bm, bn=bn, bk=bk)
+        a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+
+        def make(a=a, b=b, out=out, cfg=cfg, m=m, n=n, k=k):
+            call = _launch_args(torch, a, b, cfg, out, 1, m, n, k)
+            return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
+
+        row = {"root": str(Path(args.root).resolve()), "mnk": [m, n, k],
+               "config": f"{bm}x{bn} bk={bk}", "alone_ms": alone_ms(torch, make)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del a, b, out
+    if args.alone:
+        print(info["nvidia_smi"])
+        return 0
     for (batch, m, n, k), acc in SHAPES:
         batched = batch > 1
         cfg = dispatch.resolve_config(m, n, k, acc)
@@ -207,8 +234,11 @@ def main(argv=None) -> int:
                "torch_matmul_ms": _device_ms(torch, lambda: library(a, b))}
         call = _launch_args(torch, a, rhs, cfg, out, batch, m, n, k)
         bodies = {"tl2_matmul": lib.tl2_matmul_bf16out}
+        # the output's base joined the route's arguments with the wide route's predicated
+        # stores; a tree from before takes the operands only
+        out_arg = (None,) * (len(lib.tl2_wgmma_route.argtypes) - 9)
         if lib.tl2_wgmma_route(m, n, k, cfg.bm, cfg.bn, cfg.bk, int(cfg.rhs_layout == "nk"),
-                               a.data_ptr(), rhs.data_ptr()):
+                               a.data_ptr(), rhs.data_ptr(), *out_arg):
             bodies["tl2_wgmma"] = lib.tl2_wgmma_bf16out
         row["direct_host_ms"] = {
             name: _host_ms(torch, lambda fn=fn, name=name: check_launch(fn(*call), name),

@@ -63,9 +63,11 @@ def test_candidates_are_valid_and_distinct(m, n, k, acc):
     assert bool(kernels) == ((m, n, k) != (1, 1, 1))
     assert all(c.acc_dtype == acc for c in kernels)
     assert all(c.padding_waste(m, n, k) <= 0.6 for c in kernels)
-    # a ring tile, or a wide block (an edge above 128) with the whole K in one interval
-    assert all((c.bm in TILE_CHOICES and c.bn in TILE_CHOICES
-                or c.wide and c.bk == round_up(k, KSTEP)) and c.bk % KSTEP == 0
+    # a ring tile, or a wide block (an edge above 128), at a bk of the set: the JAX
+    # package's 128..16384 up to round_up(k, 128), or the whole K
+    bks = {c for c in (128, 256, 512, 1024, 2048, 4096, 8192, 16384) if c <= round_up(k, 128)}
+    assert all((c.bm in TILE_CHOICES and c.bn in TILE_CHOICES or c.wide)
+               and c.bk in bks | {round_up(k, KSTEP)} and c.bk % KSTEP == 0
                for c in kernels)
     # 'mask' only where a block does not divide its dim
     assert all(m % c.bm or n % c.bn or k % c.bk for c in kernels if c.edge == "mask")

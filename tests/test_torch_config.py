@@ -71,16 +71,24 @@ def test_validate_rejects(kw, needle):
 
 
 def test_wide_block_at_gk_above_one_is_refused_at_its_launch():
-    """A wide block (an edge above 128) validates without a shape; at a K beyond its bk
-    (more than one interval) the launch refuses it with the reason, on every path."""
+    """A wide block (an edge above 128) validates without a shape, and at a K beyond its bk
+    (more than one interval) it launches with the K carry on the wide route, equal to the
+    plain version at its bk.  What its launch still refuses, on every path, is a block the
+    wide route has no instance of: bm = 16, the JAX space's full-dim cover of M <= 16."""
+    from tpul2_torch import dispatch
     from tpul2_torch.ops import matmul as mm
-    cfg = KernelConfig(bm=128, bn=256, bk=64)
+    cfg = KernelConfig(bm=128, bn=256, bk=64, acc_dtype="bfloat16")
     assert cfg.validate() is None
-    a, b = torch.zeros(128, 128, dtype=torch.bfloat16), torch.zeros(128, 256,
-                                                                     dtype=torch.bfloat16)
-    for call in (lambda: mm.cuda_matmul(a, b, cfg), lambda: mm.launch_route(cfg, a, b, 128,
-                                                                             256, 128)):
-        with pytest.raises(ValueError, match="one K interval"):
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(128, 128, generator=gen).bfloat16()
+    b = torch.randn(128, 256, generator=gen).bfloat16()
+    assert mm.launch_route(cfg, a, b, 128, 256, 128) == "wgmma_wide"
+    assert torch.equal(mm.cuda_matmul(a, b, cfg),
+                       mm.matmul_reference(a, b, 64, "bfloat16"))
+    short = KernelConfig(bm=16, bn=256, bk=64)
+    for call in (lambda: mm.cuda_matmul(a[:16], b, short),
+                 lambda: dispatch.matmul(a[:16], b, config=short)):
+        with pytest.raises(ValueError, match="bm=16"):
             call()
 
 

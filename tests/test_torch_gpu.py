@@ -189,8 +189,8 @@ def test_wgmma_refused_launch_raises(cuda):
     assert cfg.validate() is not None
     a, b = _01((m, k), 22).to(cuda), _01((k, n), 23).to(cuda)
     out = torch.empty((m, n), dtype=torch.float32, device=cuda)
-    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr()) == 2
-    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 48, 0, a.data_ptr(), b.data_ptr()) == 0
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr(), None) == 2
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 48, 0, a.data_ptr(), b.data_ptr(), None) == 0
     err = lib.tl2_wgmma_f32out(*mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
     with pytest.raises(LaunchRefused, match="launch failed"):
         check_launch(err, "tl2_wgmma")
@@ -595,3 +595,63 @@ def test_wide_route_matches_its_plain_version(cuda, bm, bn, layout, out_dtype, a
     assert mm.LAUNCHES_SINGLE_K_WGMMA_WIDE == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, "float32", layout, bias, act, out_dtype)
     assert torch.equal(got, want)
+
+
+#: (batch, m, n, k, config, A off 16 bytes, out= off 16 bytes, route, counter key): each
+#: variant of the wide route.
+WIDE_VARIANTS = [
+    (1, 1024, 2048, 512, dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16"), False, False,
+     "wgmma_wide", "multi_k_wgmma_wide"),                       # the carry, resident A
+    (1, 1024, 1024, 2048, dict(bm=512, bn=1024, bk=512), False, False,
+     "wgmma_wide", "multi_k_wgmma_wide"),                       # the carry, streamed A
+    (1, 1024, 1024, 1024, dict(bm=1024, bn=1024, bk=1024), False, False,
+     "wgmma_wide", "single_k_wgmma_wide"),                      # one interval, streamed A
+    (1, 300, 520, 1000, dict(bm=256, bn=256, bk=96, acc_dtype="bfloat16"), False, False,
+     "wgmma_wide", "multi_k_wgmma_wide"),                       # rounding points mid-stage
+    (1, 16384, 256, 128, dict(bm=16384, bn=256, bk=128), False, False,
+     "wgmma_wide", "single_k_wgmma_wide"),                      # above 2048 rows
+    (3, 1000, 1024, 512, dict(bm=1024, bn=512, bk=512), False, False,
+     "wgmma_wide", "batched_single_k_wgmma_wide"),
+    (3, 1000, 1024, 512, dict(bm=256, bn=512, bk=256, acc_dtype="bfloat16"), False, False,
+     "wgmma_wide", "batched_multi_k_wgmma_wide"),
+    (1, 1000, 1000, 60, dict(bm=256, bn=512, bk=64), False, False,
+     "wgmma_wide_lsu", "single_k_wgmma_wide_lsu"),              # K % 8, N % 8
+    (1, 700, 1024, 1500, dict(bm=256, bn=256, bk=256, acc_dtype="bfloat16"), True, True,
+     "wgmma_wide_lsu", "multi_k_wgmma_wide_lsu"),               # bases off 16, streamed
+    (3, 300, 1000, 300, dict(bm=128, bn=512, bk=128), False, False,
+     "wgmma_wide_lsu", "batched_multi_k_wgmma_wide_lsu"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_VARIANTS)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_wide_variants_match_their_plain_version(cuda, case, out_dtype):
+    """Each wide variant on 0/1 inputs: its route, one launch on its counter, and the plain
+    version's bits at the config's bk."""
+    from tpul2_torch.ops import launch_counts
+    batch, m, n, k, kw, a_off, out_off, route, key = case
+    cfg = KernelConfig(**kw)
+    lead = (batch,) if batch > 1 else ()
+
+    def placed(t, off):
+        if not off:
+            return t
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    a = placed(_01((*lead, m, k), 6).to(cuda), a_off)
+    b = _01((*lead, k, n), 7).to(cuda)
+    out = placed(torch.zeros((*lead, m, n), dtype=out_dtype, device=cuda), out_off)
+    assert mm.launch_route(cfg, a[0] if batch > 1 else a, b[0] if batch > 1 else b, m, n, k,
+                           out[0] if batch > 1 else out) == route
+    before = launch_counts()[key]
+    if batch > 1:
+        bmm.cuda_batched_matmul(a, b, cfg, out=out)
+    else:
+        mm.cuda_matmul(a, b, cfg, out=out)
+    torch.cuda.synchronize()
+    assert launch_counts()[key] == before + 1
+    want = mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype, out_dtype=out_dtype)
+    assert torch.equal(out, want)

@@ -19,8 +19,8 @@ from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.autotune import search
 from tpul2_torch.autotune.transfer import _adapt, neighbor_seed_configs
 from tpul2_torch.config import (KSTEP, SMEM_LIMIT, TILE_CHOICES, WIDE_MIN_STAGES, KernelConfig,
-                                candidate_configs, wide_launch_error, wide_smem_bytes,
-                                wide_stages)
+                                candidate_configs, wide_smem_bytes, wide_stages,
+                                wide_streamed)
 from tpul2_torch.harness import bench_utils
 from tpul2_torch.harness.profiling import DEVICE_PEAKS
 from tpul2_torch.ops import batched
@@ -246,26 +246,27 @@ def test_retune_dry_run_tunes_nothing(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("bm,bn", [(64, 256), (128, 2048), (256, 128), (2048, 16384),
                                    (384, 1280)])
 def test_wide_blocks_validate_within_their_shared_memory(bm, bn):
-    for bk in (64, 256, 512, 1024, 1280, 1344):
+    for bk in (64, 256, 512, 1024, 1280, 1344, 16384):
         cfg = KernelConfig(bm=bm, bn=bn, bk=bk)
-        fits = wide_stages(bm, bk) >= WIDE_MIN_STAGES
-        assert (cfg.validate() is None) == fits
-        if fits:
-            assert cfg.smem_bytes() == wide_smem_bytes(bm, bk, wide_stages(bm, bk))
-            assert cfg.smem_bytes() <= SMEM_LIMIT
-    # a 128-row strip holds K <= 512, a 64-row one K <= 1280
-    assert KernelConfig(bm=bm, bn=bn, bk=512).validate() is None
-    assert (KernelConfig(bm=bm, bn=bn, bk=576).validate() is None) == (bm == 64)
+        stages, streamed = wide_stages(bm, bk), wide_streamed(bm, bk)
+        # every K fits in one mode: A resident where it leaves two ring stages, else A
+        # streamed through the ring
+        assert stages >= WIDE_MIN_STAGES and cfg.validate() is None
+        assert cfg.smem_bytes() == wide_smem_bytes(bm, bk, stages, streamed)
+        assert cfg.smem_bytes() <= SMEM_LIMIT
+    # a 128-row strip holds K <= 512 resident, a 64-row one K <= 1280; beyond, A streams
+    assert not wide_streamed(bm, 512) and not wide_streamed(bm, 1280 if bm == 64 else 512)
+    assert wide_streamed(bm, 576) == (bm != 64) and wide_streamed(bm, 1344)
 
 
 @pytest.mark.parametrize("kw,needle", [
     (dict(bm=32, bn=256), "bm=32"),
     (dict(bm=192, bn=256), "bm=192"),
-    (dict(bm=4096, bn=256), "bm=4096"),
+    (dict(bm=16, bn=256), "bm=16"),
     (dict(bm=256, bn=64), "bn=64"),
     (dict(bm=128, bn=32768), "bn=32768"),
     (dict(bm=256, bn=256, pipeline_depth=2), "pipeline_depth"),
-    (dict(bm=256, bn=256, bk=1024), "shared memory"),
+    (dict(bm=32768, bn=256, bk=1024), "bm=32768"),
 ])
 def test_validate_rejects_wide_blocks_it_cannot_build(kw, needle):
     err = KernelConfig(**{"bk": 64, **kw}).validate()
@@ -280,7 +281,9 @@ def _01(seed, m, n, k):
 
 def test_wide_block_launches_only_at_one_interval_on_tma_operands():
     """gk > 1, K or N off 8, a base off 16 bytes, out= off 16 bytes and the batched kernel
-    each raise with the reason; nothing falls back to another tile or the plain version."""
+    each launch: the K carry on the wide route, and the loads producer ('wgmma_wide_lsu')
+    where TMA cannot read an operand or write C; each equals the plain version at the
+    config's bk (here, on the CPU, it is that version)."""
     cfg = KernelConfig(bm=256, bn=512, bk=64)
     a_np, b_np = _01(0, 300, 1024, 64)
     a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()
@@ -288,65 +291,74 @@ def test_wide_block_launches_only_at_one_interval_on_tma_operands():
     assert torch.equal(mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32),
                        torch.from_numpy(a_np @ b_np))
     cases = [
-        (dict(bk=32), (300, 1024, 64), "one K interval"),
-        (dict(), (300, 1024, 60), "K=60 is not a multiple of 8"),
-        (dict(bk=128), (300, 1020, 128), "N=1020 is not a multiple of 8"),
+        (dict(bk=32), (300, 1024, 64), "wgmma_wide"),
+        (dict(), (300, 1024, 60), "wgmma_wide_lsu"),
+        (dict(bk=128), (300, 1020, 128), "wgmma_wide_lsu"),
     ]
-    for change, (m, n, k), reason in cases:
+    for change, (m, n, k), route in cases:
         c = dataclasses.replace(cfg, **change)
-        assert reason in wide_launch_error(c, m, n, k)
-        x, y = torch.zeros(m, k, dtype=torch.bfloat16), torch.zeros(k, n, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match=reason):
-            mm.launch_route(c, x, y, m, n, k)
-        with pytest.raises(ValueError, match=reason):
-            mm.cuda_matmul(x, y, c)
-        with pytest.raises(ValueError, match=reason):
-            dispatch.matmul(x, y, config=c)
+        x_np, y_np = _01(1, m, n, k)
+        x, y = torch.from_numpy(x_np).bfloat16(), torch.from_numpy(y_np).bfloat16()
+        assert mm.launch_route(c, x, y, m, n, k) == route
+        want = mm.matmul_reference(x, y, c.bk, out_dtype=torch.float32)
+        assert torch.equal(want, torch.from_numpy(x_np @ y_np))
+        assert torch.equal(mm.cuda_matmul(x, y, c, out_dtype=torch.float32), want)
+        assert torch.equal(dispatch.matmul(x, y, config=c, out_dtype=torch.float32), want)
     off = torch.zeros(300 * 64 + 1, dtype=torch.bfloat16)[1:].view(300, 64)
-    with pytest.raises(ValueError, match="not 16-byte aligned"):
-        mm.cuda_matmul(off, b, cfg)
-    with pytest.raises(ValueError, match="not 16-byte aligned"):
-        mm.launch_route(cfg, off, b, 300, 1024, 64)
+    off.copy_(a)
+    assert mm.launch_route(cfg, off, b, 300, 1024, 64) == "wgmma_wide_lsu"
+    assert torch.equal(mm.cuda_matmul(off, b, cfg, out_dtype=torch.float32),
+                       torch.from_numpy(a_np @ b_np))
     out = torch.zeros(300 * 1024 + 1, dtype=torch.float32)[1:].view(300, 1024)
-    with pytest.raises(ValueError, match="out= does not start 16-byte aligned"):
-        mm.cuda_matmul(a, b, cfg, out=out)
-    with pytest.raises(ValueError, match="batched kernel has no wide blocks"):
-        batched.cuda_batched_matmul(a[None], b[None], cfg)
-    with pytest.raises(ValueError, match="batched kernel has no wide blocks"):
-        dispatch.batched_matmul(a[None], b[None], config=cfg)
+    assert mm.launch_route(cfg, a, b, 300, 1024, 64, out) == "wgmma_wide_lsu"
+    mm.cuda_matmul(a, b, cfg, out=out)
+    assert torch.equal(out, torch.from_numpy(a_np @ b_np))
+    want = torch.from_numpy(a_np @ b_np)[None].expand(2, -1, -1)
+    assert torch.equal(batched.cuda_batched_matmul(
+        torch.stack([a, a]), torch.stack([b, b]), cfg, out_dtype=torch.float32), want)
+    assert torch.equal(dispatch.batched_matmul(torch.stack([a, a]), torch.stack([b, b]),
+                                               config=cfg, out_dtype=torch.float32), want)
 
 
 @pytest.mark.parametrize("m,n,k", [(16384, 16384, 64), (8192, 8192, 256), (4096, 16384, 512),
                                    (2048, 16384, 128), (4096, 4096, 64)])
 def test_candidates_keep_wide_blocks_in_the_band(m, n, k):
-    """The band's large shapes keep wide blocks within the retune's 32 candidates; every
-    one launches at the shape, with the whole K in one interval."""
+    """The band's large shapes keep wide blocks within the retune's 32 candidates, each
+    at a bk of the candidate set (a K carry where bk < K); the K step of the set and the
+    JAX space's bks alike, nothing staged."""
     cands = candidate_configs(m, n, k, "float32", max_candidates=32)
     wide = [c for c in cands if not c.use_vendor and c.wide]
     assert len(wide) >= 8
+    bks = {c for c in (128, 256, 512, 1024, 2048, 4096, 8192, 16384) if c <= round_up(k, 128)}
     for c in wide:
-        assert c.validate() is None and wide_launch_error(c, m, n, k) is None
-        assert c.bk == round_up(k, KSTEP) and c.pipeline_depth == 0
-    # none where they cannot launch: K off 8, N off 8 or K past a strip
+        assert c.validate() is None and c.pipeline_depth == 0
+        assert c.bk in bks | {round_up(k, KSTEP)}
+    # where K or N is off 8, or K past a resident strip, wide blocks of every height stay
+    # (the loads producer, a streamed A), carried ones among them
     for shape in ((16384, 16384, 60), (16384, 16380, 64), (16384, 16384, 1024)):
-        assert not [c for c in candidate_configs(*shape, max_candidates=10000)
-                    if not c.use_vendor and c.wide and c.bm > 64]
-        assert all(wide_launch_error(c, *shape) is None
-                   for c in candidate_configs(*shape, max_candidates=10000) if not c.use_vendor)
+        big = [c for c in candidate_configs(*shape, max_candidates=10000)
+               if not c.use_vendor and c.wide]
+        assert {c.bm for c in big} >= {64, 128, 256, 512, 1024, 2048}
+        assert all(c.validate() is None for c in big)
+    assert any(c.bk < 1024 for c in candidate_configs(16384, 16384, 1024, max_candidates=10000)
+               if c.wide)
 
 
 def test_neighbour_transfer_never_hands_a_wide_block_to_a_shape_it_cannot_launch(
         tmp_path, monkeypatch):
+    """Every shape can launch a carried wide block now (a K carry, the loads producer): it
+    carries over to them all, dispatch keeps it, and the batched entry point runs the
+    kernel at a resolved wide config, as JAX's does."""
     wide = KernelConfig(bm=128, bn=2048, bk=64)
     src = (16384, 16384, 64)
-    # where it can launch, it carries over
+    # where TMA reads it, and where K or N is off 8 (the loads producer)
     assert _adapt(wide, src, (16384, 8192, 64)) == wide
-    # K off 8, N off 8, and a K carry (bk below K: the source's bk is not its whole K)
-    assert _adapt(wide, src, (16384, 16384, 60)) is None
-    assert _adapt(wide, src, (16384, 16380, 64)) is None
+    assert _adapt(wide, src, (16384, 16384, 60)) == wide
+    assert _adapt(wide, src, (16384, 16380, 64)) == wide
+    # a K carry: the source's bk is not its whole K, so it stays bk 64 at K = 96
     carried = KernelConfig(bm=128, bn=2048, bk=64)
-    assert _adapt(carried, (16384, 16384, 128), (16384, 16384, 96)) is None
-    # through the DB: dispatch takes the sentinel, the seeds skip it
+    assert _adapt(carried, (16384, 16384, 128), (16384, 16384, 96)) == carried
+    # through the DB: dispatch keeps it, the seeds hand it on
     path = tmp_path / "db.json"
     db = db_mod.TuneDB(path=path)
     db.put(*src, wide, 300.0, acc="float32", extra={"speedup_vs_torch_matmul": 1.5})
@@ -357,22 +369,29 @@ def test_neighbour_transfer_never_hands_a_wide_block_to_a_shape_it_cannot_launch
         assert dispatch.resolve_config(*src) == wide
         assert dispatch.resolve_config(16384, 8192, 64) == wide
         for shape in ((16384, 16384, 60), (16384, 16380, 64)):
-            assert dispatch.resolve_config(*shape) == KernelConfig.vendor()
-            assert wide not in neighbor_seed_configs(db_mod.default_db(), *shape)
-        # the batched entry point has no wide blocks: its resolved config is the sentinel
-        a, b = torch.ones(2, 64, 64, dtype=torch.bfloat16), torch.ones(2, 64, 2048,
-                                                                        dtype=torch.bfloat16)
-        db.put(64, 2048, 64, KernelConfig(bm=64, bn=2048, bk=64), 1.0, acc="float32")
+            assert dispatch.resolve_config(*shape) == wide
+            assert wide in neighbor_seed_configs(db_mod.default_db(), *shape)
+        # the batched entry point runs the kernel at its resolved wide config: here the
+        # plain version at that config's bk, whose bf16 carry rounds where the sentinel's
+        # f32 sum does not
+        rng = np.random.default_rng(3)
+        a = torch.from_numpy(rng.standard_normal((2, 64, 512), np.float32)).bfloat16()
+        b = torch.from_numpy(rng.standard_normal((2, 512, 2048), np.float32)).bfloat16()
+        carry = KernelConfig(bm=64, bn=2048, bk=128, acc_dtype="bfloat16")
+        db.put(64, 2048, 512, carry, 1.0, acc="bfloat16")
         db.save()
         db_mod.reset_default_db()
-        assert torch.equal(dispatch.batched_matmul(a, b).float(), torch.full((2, 64, 2048), 64.))
+        got = dispatch.batched_matmul(a, b, acc="bfloat16", out_dtype=torch.float32)
+        want = batched.batched_matmul_reference(a, b, 128, "bfloat16", torch.float32)
+        assert torch.equal(got, want)
+        assert not torch.equal(got, a.float() @ b.float())
     finally:
         db_mod.reset_default_db()
 
 
 #: The JAX DB's kernel entries that launch at their own shape after from_jax: before the
-#: wide blocks (edges up to 128 only) and after.
-JAX_DB_LAUNCHABLE = {"before": 11, "after": 153}
+#: wide blocks (edges up to 128 only) and after (every entry but the two bm = 16 ones).
+JAX_DB_LAUNCHABLE = {"before": 11, "after": 212}
 
 
 def test_from_jax_carries_the_jax_dbs_wide_single_k_entries():
@@ -386,7 +405,7 @@ def test_from_jax_carries_the_jax_dbs_wide_single_k_entries():
         cfg = KernelConfig.from_jax(entry["config"])
         valid = cfg.validate() is None
         before += valid and cfg.bm in TILE_CHOICES and cfg.bn in TILE_CHOICES
-        after += valid and wide_launch_error(cfg, m, n, k) is None
+        after += valid
     assert kernels == 214
     assert {"before": before, "after": after} == JAX_DB_LAUNCHABLE
 

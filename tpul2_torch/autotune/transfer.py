@@ -2,8 +2,9 @@
 
 Counterpart of ``tpul2/autotune/transfer.py``.  A tuned neighbour's tiling is re-fitted
 onto the destination shape and onto the kernel's TILE_CHOICES; a config that the kernel
-cannot run afterwards (``validate``, and for a wide block ``wide_launch_error`` at the
-destination shape) is dropped.
+cannot run afterwards (``validate``) is dropped.  A wide block that carries over launches
+at every destination shape (at any bk, with the loads producer where TMA cannot read an
+operand), so nothing else is checked.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 import math
 from typing import Optional
 
-from tpul2_torch.config import KSTEP, TILE_CHOICES, KernelConfig, wide_launch_error
+from tpul2_torch.config import KSTEP, TILE_CHOICES, KernelConfig
 from tpul2_torch.utils.padding import round_up
 
 
@@ -22,9 +23,10 @@ def _adapt(cfg: KernelConfig, src: tuple, dst: tuple) -> Optional[KernelConfig]:
     Tiles: a tile that covered its whole source dim, or exceeds the destination dim,
     becomes the smallest TILE_CHOICES tile that covers the destination dim (or the
     largest tile); others carry over.  bk: a whole-K cover stays whole-K (rounded up to
-    KSTEP); an oversized bk clamps the same way; others carry over.  A wide block that
-    carries over must launch at the destination (one K interval, TMA-readable rows):
-    where it cannot, None, as for any config ``validate`` refuses."""
+    KSTEP); an oversized bk clamps the same way; others carry over.  A carried wide block
+    (an edge that neither covered its source dim nor exceeds the destination's) is kept as
+    it is, with a K carry where its bk is below the destination's K; None only where
+    ``validate`` refuses the result."""
     sm, sn, sk = src
     m, n, k = dst
 
@@ -40,7 +42,7 @@ def _adapt(cfg: KernelConfig, src: tuple, dst: tuple) -> Optional[KernelConfig]:
 
     adapted = dataclasses.replace(cfg, bm=fit_tile(cfg.bm, sm, m), bn=fit_tile(cfg.bn, sn, n),
                                   bk=fit_bk(cfg.bk))
-    if adapted.validate() is not None or wide_launch_error(adapted, m, n, k) is not None:
+    if adapted.validate() is not None:
         return None
     return adapted
 

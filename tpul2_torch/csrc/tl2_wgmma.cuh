@@ -1,8 +1,9 @@
 // tl2_wgmma.cuh — the TMA + wgmma ring kernel of tl2_wgmma.cu, shared by its instance files
 // (tl2_wgmma.cu: the 64/128 tiles and the host API; tl2_wgmma_n32.cu: the tiles with bn = 32;
-// tl2_wgmma_swap.cu: bm = 32 over bn 64/128; tl2_wgmma_wide.cu: the wide blocks' walk). One
-// nvcc runs per file, all side by side. What the kernel computes, and the design, are in
-// tl2_wgmma.cu's header (the wide blocks' in tl2_wgmma_wide.cu's).
+// tl2_wgmma_swap.cu: bm = 32 over bn 64/128) and by the wide route's kernel
+// (tl2_wgmma_wide.cuh, built in the eight tl2_wgmma_wide*.cu files). One nvcc runs per file,
+// all side by side. What the kernel computes, and the design, are in tl2_wgmma.cu's header
+// (the wide blocks' in tl2_wgmma_wide.cu's).
 
 #pragma once
 
@@ -11,12 +12,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tl2_wgmma_model.cuh"  // KSTAGE, ROW_BYTES, SMEM_LIMIT, cdiv and the wide model
+
 namespace tl2wg {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int KSTAGE = 64;              // K depth of one ring stage: one 128-byte bf16 row
-constexpr int ROW_BYTES = KSTAGE * 2;   // the 128-byte swizzle span
 // Ring depth of the carry and single-K launches on the 64/128 tiles, from H100 runs at
 // 4096^3 (128 x 128, bk 1024): 3 stages ran 5% slower than 4, and 5 or 6 no faster
 // (PERF.md, the multi-K redesign's findings). A staged launch gives its own depth,
@@ -29,8 +30,6 @@ constexpr int MAX_STAGES = 8;
 // (carry_stages below; config.carry_stages mirrors it).
 constexpr int RING_BYTES = 65536;
 constexpr int MAX_RING = 16;
-// Shared memory one block may use on the H100 (227 KB)
-constexpr int SMEM_LIMIT = 232448;
 // setmaxnreg with two consumer warpgroups: ptxas allocates 168 registers a thread at entry
 // (384 threads), so 4 producer warps at 40 and 8 consumer warps at 232 use the same total
 constexpr int PRODUCER_REGS = 40;
@@ -39,18 +38,6 @@ constexpr int PRODUCER_THREADS = 128;   // the producer warpgroup
 // A wait that outlasts this many polls is a fault of the ring protocol: trap (a launch
 // error) instead of hanging the card.
 constexpr int SPIN_LIMIT = 1 << 26;
-
-// The wide blocks (tl2_wgmma_wide.cu; config.py mirrors each): bm 64, 128 or a multiple of
-// WIDE_SUB_N up to WIDE_BM_MAX, bn a multiple of WIDE_SUB_N up to WIDE_BN_MAX, an edge above
-// 128. A CTA walks its block in sub-tiles of wide_sub_m rows x WIDE_SUB_N columns; its B
-// ring is WIDE_STAGES deep where shared memory allows, WIDE_MIN_STAGES at least; each
-// consumer warpgroup stages C in WIDE_C_BYTES (64 rows x 128 columns of f32).
-constexpr int WIDE_SUB_N = 128;
-constexpr int WIDE_BM_MAX = 2048;
-constexpr int WIDE_BN_MAX = 16384;
-constexpr int WIDE_STAGES = 4;
-constexpr int WIDE_MIN_STAGES = 2;
-constexpr int WIDE_C_BYTES = 64 * WIDE_SUB_N * 4;
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
 
@@ -69,9 +56,9 @@ struct WgParams {
   int load_a, load_b;  // 0: TMA fills the operand; 8, 4, 2: the loads producer's copies
                        // of that many elements; 1: its gather path
   int wide_bm, wide_bn;  // the wide route's block (tl2_wgmma_wide.cu); 0 on the ring tiles
+  int wide_stream;       // the wide route: 1 where A streams through the ring beside B
+  int tma_c;             // the wide route: 1 where TMA stores C, 0 predicated stores
 };
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The tile's shape on the tensor cores. wgmma takes 64 rows and a width that is a multiple
 // of 8, so:
@@ -109,34 +96,6 @@ inline int carry_stages(int bm, int bn) {
   const int fit = (SMEM_LIMIT - 1024) / ((bm + bn) * ROW_BYTES + 16);
   const int d = want > CARRY_STAGES ? want : CARRY_STAGES;
   return d < MAX_RING ? (d < fit ? d : fit) : (MAX_RING < fit ? MAX_RING : fit);
-}
-
-// A block the wide route takes (config.is_wide and KernelConfig._check_wide).
-inline bool wide_block(int bm, int bn) { return bm > 128 || bn > 128; }
-inline bool wide_block_ok(int bm, int bn) {
-  return wide_block(bm, bn) &&
-         (bm == 64 || bm == 128 || (bm % WIDE_SUB_N == 0 && bm <= WIDE_BM_MAX)) &&
-         bn % WIDE_SUB_N == 0 && bn <= WIDE_BN_MAX;
-}
-
-// Rows of a wide block's sub-tile and A strip (config.wide_sub_m).
-inline int wide_sub_m(int bm) { return bm == 64 ? 64 : 128; }
-
-// Shared memory of a wide CTA at depth K (config.wide_smem_bytes): the alignment slack, the
-// B ring, the resident A strip, the C staging of each consumer warpgroup, a full and an
-// empty mbarrier per B stage and for the strip.
-inline int wide_smem_bytes(int bm, int k, int stages) {
-  const int sm = wide_sub_m(bm);
-  return 1024 + stages * WIDE_SUB_N * ROW_BYTES + cdiv(k, KSTAGE) * sm * ROW_BYTES +
-         sm / 64 * WIDE_C_BYTES + (2 * stages + 2) * 8;
-}
-
-// The B ring's depth at depth K (config.wide_stages): 0 where no stage fits; below
-// WIDE_MIN_STAGES the block does not fit.
-inline int wide_stages(int bm, int k) {
-  const int free = SMEM_LIMIT - wide_smem_bytes(bm, k, 0);
-  const int fit = free < 0 ? 0 : free / (WIDE_SUB_N * ROW_BYTES + 16);
-  return fit < WIDE_STAGES ? fit : WIDE_STAGES;
 }
 
 __device__ __forceinline__ float act_fn(float x, int act) {
@@ -821,11 +780,27 @@ TL2_WGMMA_LAUNCHER(launch_wide);      // tl2_wgmma.cu: 64/128 tiles, TMA
 TL2_WGMMA_LAUNCHER(launch_wide_lsu);  // tl2_wgmma_lsu.cu: 64/128 tiles, loads producer
 TL2_WGMMA_LAUNCHER(launch_n32);       // tl2_wgmma_n32.cu: bn = 32, both producers
 TL2_WGMMA_LAUNCHER(launch_swap);      // tl2_wgmma_swap.cu: bm = 32 over 64/128, both
-// tl2_wgmma_wide.cu: a wide block (p.wide_bm x p.wide_bn, one K interval, TMA only; tc the
-// output's map); cudaErrorInvalidValue for a block it has no instance of.
+// tl2_wgmma_wide.cu: a wide block (p.wide_bm x p.wide_bn over `batch` problems; tc the
+// output's map where p.tma_c). acc_bf16: the bf16 family's K carry (gk > 1). Dispatches to
+// the instance file of the family, the producer and A's mode (p.wide_stream):
+// cudaErrorInvalidValue for a block it has no instance of.
 cudaError_t launch_wide_block(const CUtensorMap& ta, const CUtensorMap& tb,
-                              const CUtensorMap& tc, const WgParams& p, int rhs_nk,
-                              cudaStream_t s);
+                              const CUtensorMap& tc, const WgParams& p, int batch, int rhs_nk,
+                              int acc_bf16, cudaStream_t s);
+// Each wide instance file's launcher (tl2_wgmma_wide.cuh's TL2_WIDE_INSTANCES): the file
+// tl2_wgmma_wide{_bf16}{_lsu}{_stream}.cu of NAME's parts (tma: TMA; lsu: the loads
+// producer and predicated stores; bf16: the bf16 carry; stream: a streamed A).
+#define TL2_WIDE_LAUNCHER(NAME)                                                          \
+  cudaError_t NAME(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,  \
+                   const WgParams& p, int batch, int rhs_nk, cudaStream_t s)
+TL2_WIDE_LAUNCHER(wide_tma);
+TL2_WIDE_LAUNCHER(wide_tma_stream);
+TL2_WIDE_LAUNCHER(wide_tma_bf16);
+TL2_WIDE_LAUNCHER(wide_tma_bf16_stream);
+TL2_WIDE_LAUNCHER(wide_lsu);
+TL2_WIDE_LAUNCHER(wide_lsu_stream);
+TL2_WIDE_LAUNCHER(wide_lsu_bf16);
+TL2_WIDE_LAUNCHER(wide_lsu_bf16_stream);
 
 }  // namespace tl2wg
 

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from tpul2_torch.autotune.db import default_db
-from tpul2_torch.config import KernelConfig, heuristic_config, wide_launch_error
+from tpul2_torch.config import KernelConfig, heuristic_config
 from tpul2_torch.ops import baselines
 from tpul2_torch.ops.matmul import (ACTIVATIONS, GemmVjp, cuda_matmul_fused, records_grad,
                                     refuse_out_under_grad)
@@ -53,9 +53,10 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     ``tpul2_torch/data/tunedb_h100.json``); the JAX package's ``tunedb_v5e.json`` is TPU
     data and is never read.  With no DB file, every shape takes the heuristic, which
     never returns the vendor sentinel.  A resolved config the kernel cannot run goes to
-    the sentinel (the role of the JAX out-dtype guard): one ``validate`` refuses, or a wide
-    block that cannot launch at the shape (``wide_launch_error``).  An explicit ``config=`` on the
-    entry points overrides all of this.
+    the sentinel (the role of the JAX out-dtype guard): one ``validate`` refuses, such as a
+    wide block with bm = 16 (the JAX space's full-dim cover of M <= 16, which the wide
+    route has no instance of).  Every config ``validate`` takes launches at every shape, 2-D
+    and batched.  An explicit ``config=`` on the entry points overrides all of this.
 
     The decision is kept in the DB's memo with the DB's version: a put or a load of the
     DB, ``reset_default_db()`` or a change of ``TPUL2_TORCH_TUNEDB`` (a new default DB)
@@ -80,7 +81,7 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
         cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
     if cfg is None:
         cfg = heuristic_config(m, n, k, acc)
-    if cfg.validate() is not None or wide_launch_error(cfg, m, n, k) is not None:
+    if cfg.validate() is not None:
         cfg = KernelConfig.vendor()
     if len(db.memo) >= MEMO_LIMIT:
         db.memo.clear()
@@ -218,8 +219,9 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Tuned C[t] = A[t] @ B[t].  a (B, M, K), b (B, K, N).  Configs key on (M, N, K).
 
-    The batched kernel has no wide blocks: a resolved wide config goes to the sentinel, as
-    any resolved config its kernel cannot run does; an explicit one raises."""
+    The resolved config runs the batched kernel, a wide block included (as JAX's
+    ``batched_matmul`` runs its Pallas kernel at any resolved config), with the config's bk
+    and so its rounding points; only the sentinel goes to the library's bmm."""
     from tpul2_torch.ops.batched import cuda_batched_matmul
     if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
             or a.shape[2] != b.shape[1]):
@@ -230,8 +232,6 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
     if config is None:
         config = resolve_config(m, n, k, acc)
-        if config.wide:
-            config = KernelConfig.vendor()
     if config.use_vendor:
         if records_grad(a, b):
             refuse_out_under_grad(out, "batched_matmul")

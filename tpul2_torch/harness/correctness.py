@@ -154,9 +154,7 @@ def gate_kernel_variants(m: int, n: int, k: int,
                          mode: str = "offline") -> dict:
     """Exactness over every kernel entry point: plain NN, TN (b_t read directly), fused
     bias + relu (integer-exact on 0/1 inputs) and batched, each against the CPU f32 truth,
-    each writing into a guarded buffer.  A wide block has no batched kernel (the batched
-    entry point never runs one): its batched check is left out, with the reason under
-    ``batched_skipped``."""
+    each writing into a guarded buffer, for every config, a wide block included."""
     from tpul2_torch.ops.batched import cuda_batched_matmul
     from tpul2_torch.ops.matmul import cuda_matmul, cuda_matmul_fused, cuda_matmul_tn
 
@@ -191,16 +189,12 @@ def gate_kernel_variants(m: int, n: int, k: int,
         lambda c: cuda_matmul_fused(a, b, bias=bias, activation="relu", config=cfg_nn,
                                     out=c),
         (m, n), np.maximum(truth + bias_np, 0.0))
-    skipped = {}
-    if cfg.wide:
-        skipped["batched_skipped"] = "wide block: the batched kernel has no wide blocks"
-    else:
-        ab_np, bb_np = _draw_01(rng, (batch, m, k), p), _draw_01(rng, (batch, k, n), p)
-        ab, bb = _to(ab_np, device), _to(bb_np, device)
-        checks["batched"] = exact(lambda c: cuda_batched_matmul(ab, bb, cfg_nn, out=c),
-                                  (batch, m, n), np.matmul(ab_np, bb_np))
+    ab_np, bb_np = _draw_01(rng, (batch, m, k), p), _draw_01(rng, (batch, k, n), p)
+    ab, bb = _to(ab_np, device), _to(bb_np, device)
+    checks["batched"] = exact(lambda c: cuda_batched_matmul(ab, bb, cfg_nn, out=c),
+                              (batch, m, n), np.matmul(ab_np, bb_np))
     ok = all(checks.values()) and guard_hits == 0
-    return {"pass": ok, "guard_hits": guard_hits, **checks, **skipped}
+    return {"pass": ok, "guard_hits": guard_hits, **checks}
 
 
 def run_correctness_check(m: int, n: int, k: int,

@@ -2,20 +2,20 @@
 
 #: Every wrapper's launch counter (each adds one where it launches its kernel), by key:
 #: (module under tpul2_torch.ops, attribute).  The 2-D and batched multi-K and single-K
-#: bodies on each route (TMA or the loads producer); the 2-D single-K body at a wide block
-#: (tl2_wgmma_wide.cu); the width-32, swapped and mid-stage launches of either; the staged
+#: bodies on each route (the ring with TMA or the loads producer; a wide block,
+#: tl2_wgmma_wide.cu, with TMA or with the loads producer and predicated stores); the
+#: width-32, swapped, mid-stage, streamed-A and tall-block launches of either; the staged
 #: kernel's launches on each route, with a split and on a 32-edge tile.
 COUNTERS = {
     **{f"{prefix}{body}_k_{route}": (mod, f"LAUNCHES_{body.upper()}_K_{route.upper()}")
        for prefix, mod in (("", "matmul"), ("batched_", "batched"))
-       for body in ("multi", "single") for route in ("wgmma", "wgmma_lsu")},
-    "single_k_wgmma_wide": ("matmul", "LAUNCHES_SINGLE_K_WGMMA_WIDE"),
-    **{key: ("matmul", f"LAUNCHES_{key.upper()}") for key in ("width32", "swapped",
-                                                              "midstage")},
+       for body in ("multi", "single")
+       for route in ("wgmma", "wgmma_lsu", "wgmma_wide", "wgmma_wide_lsu")},
+    **{key: ("matmul", f"LAUNCHES_{key.upper()}")
+       for key in ("width32", "swapped", "midstage", "wide_streamed", "wide_tall")},
     **{f"staged_{key}": ("pipelined", f"LAUNCHES_STAGED_{key.upper()}")
        for key in ("ring", "ring_lsu", "split", "narrow")},
 }
-
 
 def _modules() -> dict:
     from tpul2_torch.ops import batched, matmul, pipelined

@@ -1,13 +1,13 @@
 """Batched GEMM C[t] = A[t] @ B[t] on the same Hopper kernels.
 
 Counterpart of ``tpul2/ops/batched.py`` (``_bmm_kernel`` and ``_bmm_kernel_single_k``):
-the batch index is the ring kernel's ``blockIdx.z`` and each batch element reuses the 2-D
+the batch index is the kernels' ``blockIdx.z`` and each batch element reuses the 2-D
 tiling and route (``ops.matmul.launch_route``: the ring for the K carry and the single
-interval alike, filled by TMA or by the loads producer), with the same bk rounding
-points.  As in the JAX kernel there is no bias, no activation
-and no 'nk' layout.  For a CUDA tensor
-the wrapper launches a kernel or raises; for a CPU tensor it runs
-``batched_matmul_reference``.  Under autograd the call goes through ``ops.matmul.GemmVjp``
+interval alike, filled by TMA or by the loads producer, and a wide block on
+tl2_wgmma_wide.cu at any bk), with the same bk rounding points.  As in the JAX kernel
+there is no bias, no activation and no 'nk' layout.  For a CUDA tensor the wrapper launches
+a kernel or raises; for a CPU tensor it runs ``batched_matmul_reference``, the plain
+version of every route.  Under autograd the call goes through ``ops.matmul.GemmVjp``
 (the JAX package's ``_bmm_bwd``).
 """
 
@@ -18,17 +18,23 @@ from typing import Optional
 import torch
 
 from tpul2_torch.config import KernelConfig
-from tpul2_torch.ops.matmul import (GemmVjp, _with_layout, check_operands, launch_kernel,
-                                    matmul_reference, records_grad, refuse_out_under_grad)
-from tpul2_torch.utils.padding import cdiv
+from tpul2_torch.ops.matmul import (COUNTER_OF, GemmVjp, _with_layout, check_operands,
+                                    launch_kernel, matmul_reference, records_grad,
+                                    refuse_out_under_grad)
 
 #: Launches of the batched kernels with more than one bk interval (``_bmm_kernel``) and
-#: with one (``_bmm_kernel_single_k``), each with the TMA producer or the loads producer,
-#: counted where a kernel is launched.
+#: with one (``_bmm_kernel_single_k``), each on the ring with the TMA producer or the
+#: loads producer, or at a wide block with TMA or the loads producer, counted where a
+#: kernel is launched.
 LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_WGMMA_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
 LAUNCHES_SINGLE_K_WGMMA_LSU = 0
+LAUNCHES_MULTI_K_WGMMA_WIDE = 0
+LAUNCHES_MULTI_K_WGMMA_WIDE_LSU = 0
+LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
+LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
+_GLOBALS = globals()
 
 
 def batched_matmul_reference(a: torch.Tensor, b: torch.Tensor, bk: int,
@@ -43,8 +49,6 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
                         out_dtype: Optional[torch.dtype] = None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[t] = A[t] @ B[t]; a (B, M, K), b (B, K, N), both bf16."""
-    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_WGMMA_LSU
-    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU
     cfg = _with_layout(config, "kn")
     if records_grad(a, b):
         refuse_out_under_grad(out, "batched_matmul")
@@ -60,13 +64,5 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
     if out is None:
         out = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, b, cfg, out, None, None, batch, m, n, k)
-    if cdiv(k, cfg.bk) > 1:
-        if route == "wgmma":
-            LAUNCHES_MULTI_K_WGMMA += 1
-        else:
-            LAUNCHES_MULTI_K_WGMMA_LSU += 1
-    elif route == "wgmma":
-        LAUNCHES_SINGLE_K_WGMMA += 1
-    else:
-        LAUNCHES_SINGLE_K_WGMMA_LSU += 1
+    _GLOBALS[COUNTER_OF[k > cfg.bk, route]] += 1
     return out

@@ -6,11 +6,14 @@ Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 (wgmma warpgroups over a ring of 64-deep K stages) for the K carry and the single K
 interval alike, on every tile; ``launch_route`` names, from the shape before the launch,
 the producer that fills the ring: TMA ('wgmma') or, where TMA cannot read an operand, the
-loads producer ('wgmma_lsu').  A wide block (an edge above 128, the JAX space's thin-K
-stripes) takes ``csrc/tl2_wgmma_wide.cu`` ('wgmma_wide'): one K interval on operands TMA
-reads, or the call raises with the reason.  A launch that fails raises.  For a CPU tensor it runs
-``matmul_reference``, the plain version of the same semantics.  Nothing falls back from a
-kernel to another kernel or to the plain version.
+loads producer ('wgmma_lsu').  A wide block (an edge above 128, the JAX space's wide
+stripes and blocks) takes ``csrc/tl2_wgmma_wide.cu`` at any bk: 'wgmma_wide' where TMA reads
+both operands and writes C, else 'wgmma_wide_lsu' (the loads producer, predicated stores).
+A config ``KernelConfig.validate`` refuses raises with its reason, and a launch that fails
+raises.  For a CPU tensor it runs ``matmul_reference``, the plain version of the same
+semantics, of every route and variant (a block's values depend only on bk, ``acc_dtype``
+and the K tail).  Nothing falls back from a kernel to another kernel or to the plain
+version.
 
 The kernel predicates its own edges, so ``edge='pad'`` and ``edge='mask'`` are the same
 launch: no padding copy, no output slice, and with ``out=`` the kernel writes straight
@@ -31,8 +34,8 @@ import torch.nn.functional as F
 
 # the ring's constants and shared-memory model, read through this module too
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
-                                KernelConfig, carry_stages, wgmma_smem_bytes,
-                                wide_launch_error)
+                                WIDE_BM_CHOICES, KernelConfig, carry_stages, wgmma_smem_bytes,
+                                wide_streamed)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -51,21 +54,34 @@ _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 #: Launches of the 2-D kernels, by K-loop length and route: more than one bk interval
-#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each with the
-#: TMA producer or the loads producer.  Counted where a kernel is launched and nowhere
-#: else.
+#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each on the
+#: ring with the TMA producer or the loads producer, or at a wide block
+#: (tl2_wgmma_wide.cu) with TMA or with the loads producer and predicated stores.  Counted
+#: where a kernel is launched and nowhere else.
 LAUNCHES_MULTI_K_WGMMA = 0
 LAUNCHES_MULTI_K_WGMMA_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA = 0
 LAUNCHES_SINGLE_K_WGMMA_LSU = 0
-#: Launches of the wide route (``_kernel_single_k`` at a wide block, tl2_wgmma_wide.cu).
+LAUNCHES_MULTI_K_WGMMA_WIDE = 0
+LAUNCHES_MULTI_K_WGMMA_WIDE_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
+LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
 #: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn 32),
-#: of a swapped tile (bm 32 over bn 64 / 128), and of a bf16-family carry that rounds in
-#: the middle of a stage (bk % 64 == 32).
+#: of a swapped tile (bm 32 over bn 64 / 128), of a bf16-family carry that rounds in
+#: the middle of a stage (bk % 64 == 32), of a wide block whose A streams through its
+#: ring (``config.wide_streamed``), and of a wide block taller than WIDE_BM_CHOICES' largest
+#: (bm above 2048, the JAX DB's tall blocks).
 LAUNCHES_WIDTH32 = 0
 LAUNCHES_SWAPPED = 0
 LAUNCHES_MIDSTAGE = 0
+LAUNCHES_WIDE_STREAMED = 0
+LAUNCHES_WIDE_TALL = 0
+
+#: The counter of each (more than one K interval, route), in this module and in
+#: ``ops.batched``.
+COUNTER_OF = {(gk, route): f"LAUNCHES_{'MULTI' if gk else 'SINGLE'}_K_{route.upper()}"
+              for gk in (True, False)
+              for route in ("wgmma", "wgmma_lsu", "wgmma_wide", "wgmma_wide_lsu")}
 
 
 def records_grad(a: torch.Tensor, rhs: torch.Tensor,
@@ -205,36 +221,25 @@ def operand_producers(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
             rhs.data_ptr() % 16 == 0 and (k if cfg.rhs_layout == "nk" else n) % 8 == 0)
 
 
-def wide_refusal(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor, m: int, n: int,
-                 k: int, out: Optional[torch.Tensor] = None) -> Optional[str]:
-    """Why the wide route cannot take this launch, or None: ``config.wide_launch_error``
-    at the shape, then the bases TMA reads (A, the RHS) and writes (``out=``), which must
-    be 16-byte aligned: the route has no loads producer."""
-    err = wide_launch_error(cfg, m, n, k)
-    if err is None and not all(operand_producers(cfg, a, rhs, n, k)):
-        err = (f"the wide block {cfg.bm}x{cfg.bn} reads A and the RHS by TMA and has no "
-               "loads producer: an operand's base is not 16-byte aligned")
-    if err is None and out is not None and out.data_ptr() % 16:
-        err = (f"the wide block {cfg.bm}x{cfg.bn} stores C by TMA: out= does not start "
-               "16-byte aligned")
-    return err
+def c_by_tma(n: int, out: Optional[torch.Tensor] = None) -> bool:
+    """TMA can store a wide block's C: N % 8 == 0 and ``out=`` (where given) 16-byte
+    aligned; a fresh output is.  Where not, the wide route stores C by predicated stores."""
+    return n % 8 == 0 and (out is None or out.data_ptr() % 16 == 0)
 
 
 def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
-                 m: int, n: int, k: int) -> str:
+                 m: int, n: int, k: int, out: Optional[torch.Tensor] = None) -> str:
     """The producer of a launch's ring, from the shape before the launch
-    (``tl2_wgmma_route`` mirrors it: 1, 2 and 3): 'wgmma' where TMA can read both operands
+    (``tl2_wgmma_route`` mirrors it: codes 1 to 4): 'wgmma' where TMA can read both operands
     (``operand_producers``), else 'wgmma_lsu' (the loads producer reads the operand TMA
     cannot).  Every valid ring tile takes one of them, at any bk: a carry's rounding point
-    falls on a stage's start or, where bk % 64 == 32, its middle.  A wide block takes
-    'wgmma_wide' (tl2_wgmma_wide.cu) or raises ``ValueError`` with ``wide_refusal``'s
-    reason (C: 0, refused)."""
+    falls on a stage's start or, where bk % 64 == 32, its middle.  A wide block
+    (tl2_wgmma_wide.cu) takes 'wgmma_wide' where TMA can also store C (``c_by_tma``), else
+    'wgmma_wide_lsu', at any bk and batch."""
+    tma = all(operand_producers(cfg, a, rhs, n, k))
     if cfg.wide:
-        err = wide_refusal(cfg, a, rhs, m, n, k)
-        if err:
-            raise ValueError(f"invalid kernel config {cfg} at {m}x{n}x{k}: {err}")
-        return "wgmma_wide"
-    return "wgmma" if all(operand_producers(cfg, a, rhs, n, k)) else "wgmma_lsu"
+        return "wgmma_wide" if tma and c_by_tma(n, out) else "wgmma_wide_lsu"
+    return "wgmma" if tma else "wgmma_lsu"
 
 
 def _vector_ok(t: torch.Tensor, row_len: int) -> bool:
@@ -290,11 +295,6 @@ def check_operands(a, rhs, cfg: KernelConfig, out_dtype, bias, activation, out,
             and (bias is None or bias.is_contiguous())
             and (out is None or out.is_contiguous())):
         raise ValueError("the kernel takes contiguous tensors only")
-    if cfg.wide:
-        err = ("the batched kernel has no wide blocks (only the 2-D single-K kernel's are "
-               "ported)" if batched else wide_refusal(cfg, a, rhs, m, n, k, out))
-        if err:
-            raise ValueError(f"invalid kernel config {cfg} at {m}x{n}x{k}: {err}")
     return batch, m, n, k
 
 
@@ -317,6 +317,8 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
             torch._C._cuda_getCurrentRawStream(a.get_device()))
 
 
+#: This module's counters, written through by ``_matmul``.
+_GLOBALS = globals()
 #: The C launcher of each output dtype.
 _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16out"}
 
@@ -324,12 +326,14 @@ _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16
 def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
                   batch: int, m: int, n: int, k: int) -> str:
     """Launch the ring on the current stream, writing ``out``; return the route
-    (``launch_route``: 'wgmma', 'wgmma_lsu' or, for a wide block, 'wgmma_wide').  Counts
-    the width-32, swapped and mid-stage launches.
+    (``launch_route``: 'wgmma', 'wgmma_lsu' or, for a wide block, 'wgmma_wide' or
+    'wgmma_wide_lsu').  Counts the width-32, swapped, mid-stage, streamed-A and tall
+    launches.
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
     global LAUNCHES_WIDTH32, LAUNCHES_SWAPPED, LAUNCHES_MIDSTAGE
+    global LAUNCHES_WIDE_STREAMED, LAUNCHES_WIDE_TALL
     name = _LAUNCHERS[out.dtype]
     args = launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k)
     with torch.cuda.device(a.get_device()):  # an int index: the cheap way in
@@ -342,15 +346,16 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
         LAUNCHES_SWAPPED += 1
     if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
         LAUNCHES_MIDSTAGE += 1
-    if cfg.wide:
-        return "wgmma_wide"
     # launch_route's answer, read off the launch's own vec_a and vec_b
-    return "wgmma" if args[18] and args[19] else "wgmma_lsu"
+    tma = args[18] and args[19]
+    if cfg.wide:
+        LAUNCHES_WIDE_STREAMED += wide_streamed(cfg.bm, k)
+        LAUNCHES_WIDE_TALL += cfg.bm > WIDE_BM_CHOICES[-1]
+        return "wgmma_wide" if tma and c_by_tma(n, out) else "wgmma_wide_lsu"
+    return "wgmma" if tma else "wgmma_lsu"
 
 
 def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=None):
-    global LAUNCHES_MULTI_K_WGMMA, LAUNCHES_MULTI_K_WGMMA_LSU
-    global LAUNCHES_SINGLE_K_WGMMA, LAUNCHES_SINGLE_K_WGMMA_LSU, LAUNCHES_SINGLE_K_WGMMA_WIDE
     if records_grad(a, rhs, bias):
         refuse_out_under_grad(out, "matmul")
         return GemmVjp.apply(a, rhs, bias, lambda a_, rhs_, bias_: _matmul(
@@ -366,17 +371,7 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
-    if route == "wgmma_wide":
-        LAUNCHES_SINGLE_K_WGMMA_WIDE += 1
-    elif cdiv(k, cfg.bk) > 1:
-        if route == "wgmma":
-            LAUNCHES_MULTI_K_WGMMA += 1
-        else:
-            LAUNCHES_MULTI_K_WGMMA_LSU += 1
-    elif route == "wgmma":
-        LAUNCHES_SINGLE_K_WGMMA += 1
-    else:
-        LAUNCHES_SINGLE_K_WGMMA_LSU += 1
+    _GLOBALS[COUNTER_OF[k > cfg.bk, route]] += 1
     return out
 
 
