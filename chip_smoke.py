@@ -76,15 +76,18 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      (256x1024, one interval, 'kn' and 'nk', bias + relu, M and N off the block), with
      the other wide variants (the bf16 family's carry with a resident and a streamed A, a
      4096-row block, batched at one interval and with a carry, the loads producer at
-     K % 8 != 0 and with A 2 bytes off 16, 2-D and batched) and with
-     staged configs (a 32-edge tile and a ring tile whose few tiles split K, an A base 2
-     bytes off 16): exact on 0/1 inputs
+     K % 8 != 0 and with A 2 bytes off 16, 2-D and batched), with the JAX space's edges (a
+     ring block narrower than its tile, 2-D and batched, the swapped wide walk, narrow
+     columns, an unaligned cover, bn above 16384) and with staged configs (a 32-edge tile
+     and a ring tile whose few tiles split K, an A base 2 bytes off 16, a staged wide
+     block): exact on 0/1 inputs
   4  the launch counters, zeroed just before phase 3, must show that each body ran with
      both producers, single-K and multi-K, 2-D and batched, the wide route with both
      producers, single-K and multi-K, 2-D and batched, a streamed A and a block above
-     2048 rows, the width-32, swapped and mid-stage launches, and the staged ring with
-     both producers, a split and
-     a 32-edge tile; and no mma.sync launch: the bring-up shapes and the gate's batched variants
+     2048 rows, the width-32, swapped and mid-stage launches, the JAX space's narrow and
+     unaligned edges (every counter of ops.COUNTERS), and the staged ring with both
+     producers, a split, a 32-edge tile and a wide block; and no mma.sync launch: the
+     bring-up shapes and the gate's batched variants
      take TMA (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0
      shapes the loads producer
   tune  `python -m tpul2_torch.autotune` (its main()) for each tuning shape (64x8192x8192,
@@ -206,15 +209,33 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      and gk 2 (4x1024x2048x512), and the loads producer and predicated stores (K = 60,
      N = 4095, A 2 bytes off 16 with a streamed carry, out= off 16 bytes, batched at
      K = 1001), each launched once on its route's counter; the loads producer forced on
-     aligned operands gives TMA's bits; (b) the main path: a DB copy of the JAX DB's 212
-     kernel entries that validate (from_jax; the two bm = 16 ones are refused with their
-     reason) through scripts/correctness_campaign_torch.py --no_demote (all pass, no guard
-     hit), then dispatch.matmul at each entry's shape through the copy (every entry
+     aligned operands gives TMA's bits; (b) the main path: a DB copy of the JAX DB's 214
+     kernel entries, all of which validate (from_jax; the two bm = 16 ones on the swapped
+     wide walk) through scripts/correctness_campaign_torch.py --no_demote (all pass, no
+     guard hit), then dispatch.matmul at each entry's shape through the copy (every entry
      resolves to its own config, every wide one launches the wide route: no sentinel),
      dispatch.batched_matmul at four entries and dispatch.matmul with A 2 bytes off 16
      (the loads producer) at three, exact against the plain version; (c) each new row
      alone (CUDA graphs of direct launches, two turns) beside torch.matmul or torch.bmm
      alone, the plain version and the bound
+  jax space  every block edge of the JAX space (the ring's blocks narrower than their tile,
+     the swapped wide walk of bm <= 32, narrow columns beside a wide bm, unaligned covers,
+     bn above 16384, staged wide blocks): (a) at 1x4096x4096, 8x4096x4096, 16x11008x4096,
+     32x4096x14336, 48x4096x4096, 8192x1x4096, 1024x64x64, 12288x64x64, 1000^3,
+     4096x24576x64 and 64x32000x4096, every distinct (bm, bn, bk, depth, rhs) of the port's
+     uncapped candidate space (which holds the JAX tuner's) in both families, one launch
+     each on 0/1 inputs held to the f32 truth by the gate's comparison and one on normal
+     inputs within allowed_error of its plain version (one per shape, family, bk and
+     staging; a bf16 carry's element beyond it on the ring-order bits); (b) the main path:
+     a DB copy of tests/data/jax_decode_db.json (the JAX heuristic's configs at the decode
+     shapes of Llama-3-8B's projections, 16x11008x4096 and the flagship block's GEMMs at
+     seq 16), the JAX DB's two bm = 16 entries and one block per remaining variant (bn 64
+     beside bm 256, the 1000^3 cover, bn 24576, the staged 64x32000 pick), each through
+     dispatch.matmul / dispatch.batched_matmul on its own config and exact against its
+     plain version, then the block's forward at seq 16 through the copy against a CPU copy
+     (rtol = atol = 0.05); every new variant's counter must be > 0; (c) each new variant
+     alone (CUDA graphs of direct launches, two turns) beside torch.matmul / torch.bmm, the
+     plain version and the bound
   model  the flagship block (tpul2_torch.models.entry: d_model 1024, d_ff 4096, seq 512,
      8 heads) through the committed DB: 8 forward requests one at a time (p50/p99), 5
      block_train_steps on a fixed seeded (x, y) whose loss must be finite and fall, 3 FFN
@@ -420,9 +441,10 @@ ROUTE_CODES = {"wgmma": 1, "wgmma_lsu": 2, "ring": 1, "ring_lsu": 2, "wgmma_wide
 
 def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
     """tl2_wgmma_route against ops.matmul.launch_route over shapes (decode-size M and N
-    among them), tiles, bk (one interval and several, mid-stage rounding points
-    included), layouts and operand alignments (views 2, 8 and 16 bytes into one
-    allocation); return (cases, TMA cases).  Raises on the first disagreement."""
+    among them), ring blocks (the tiles and the narrower blocks of the JAX space), bk (one
+    interval and several, mid-stage rounding points included), layouts and operand
+    alignments (views 2, 8 and 16 bytes into one allocation); return (cases, TMA cases).
+    Raises on the first disagreement."""
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((256, 256, 1024), (200, 1001, 328), (64, 8192, 8192), (96, 160, 1004),
               (128, 128, 64), (8192, 128, 64), (1000, 1000, 1000), (1, 4096, 4096),
@@ -432,8 +454,8 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
         for off_b in (0, 4):
             a, b = buf[off_a:], buf[off_b:]
             for m, nn, k in shapes:
-                for bm in (32, 64, 128):
-                    for bn in (32, 64, 128):
+                for bm in (1, 16, 32, 48, 64, 128):
+                    for bn in (1, 16, 32, 64, 128):
                         for bk in (64, 96, 128, 160, 256, 1024, 8192):
                             for layout in ("kn", "nk"):
                                 cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
@@ -453,21 +475,23 @@ def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
 
 def _check_wide_mirror(torch, lib, mm, config) -> tuple:
     """The wide route's models against the kernel's: ``config.wide_streamed``,
-    ``wide_stages`` and ``wide_smem_bytes`` (both modes, every depth) against
+    ``wide_stages`` and ``wide_smem_bytes`` (both modes, every depth up to a staged
+    launch's 8, the swapped walk's height and unaligned heights included) against
     tl2_wgmma_wide_streamed / _stages / _smem_bytes, and ``validate`` taking every block
     (one mode always fits); then tl2_wgmma_route against ops.matmul.launch_route for wide
-    blocks over shapes (K and N off 8 among them), blocks (up to 16384 rows), bk (one
+    blocks over shapes (K and N off 8 among them), blocks (up to 16384 rows and 32000
+    columns, the swapped walk, narrow columns and unaligned covers among them), bk (one
     interval and several, 96 mid-stage), layouts and the alignments of A, the RHS and the
     output: 3 'wgmma_wide' or 4 'wgmma_wide_lsu' on both sides.  Returns (route cases, TMA
     cases among them)."""
-    for bm in (64, 128, 256, 2048, 16384):
+    for bm in (1, 16, 32, 48, 64, 100, 128, 256, 1000, 2048, 16384):
         for k in (32, 64, 128, 256, 512, 576, 1024, 1280, 1344, 4096, 16384):
             stages = lib.tl2_wgmma_wide_stages(bm, k)
             streamed = lib.tl2_wgmma_wide_streamed(bm, k)
             cfg = config.KernelConfig(bm=bm, bn=256, bk=k)
             same = all(lib.tl2_wgmma_wide_smem_bytes(bm, k, s, mode)
                        == config.wide_smem_bytes(bm, k, s, bool(mode))
-                       for s in range(config.WIDE_STAGES + 1) for mode in (0, 1))
+                       for s in range(config.PIPELINE_DEPTHS[-1] + 1) for mode in (0, 1))
             kernel = lib.tl2_wgmma_wide_smem_bytes(bm, k, stages, streamed)
             if (stages != config.wide_stages(bm, k) or bool(streamed) != config.wide_streamed(
                     bm, k) or not same or cfg.validate() is not None
@@ -477,7 +501,8 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
                                      "bytes")
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((16384, 16384, 64), (8192, 16384, 512), (1000, 1000, 200), (200, 264, 128),
-              (2048, 2048, 100), (2048, 1001, 64), (128, 4096, 1024), (16384, 256, 60))
+              (2048, 2048, 100), (2048, 1001, 64), (128, 4096, 1024), (16384, 256, 60),
+              (16, 11008, 4096), (4096, 24576, 64), (8192, 1, 4096), (300, 500, 256))
     n = n_tma = 0
     for off_a in (0, 1):
         for off_b in (0, 8):
@@ -485,7 +510,9 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
                 a, b, c = buf[off_a:], buf[off_b:], buf[off_c:]
                 for m, nn, k in shapes:
                     for bm, bn in ((64, 256), (128, 2048), (256, 128), (2048, 16384),
-                                   (512, 512), (16384, 256)):
+                                   (512, 512), (16384, 256), (16, 11008), (1, 512),
+                                   (256, 64), (2048, 1), (1000, 1000), (200, 300),
+                                   (128, 24576), (48, 32000)):
                         for bk in (64, 96, 256, 1024):
                             for layout in ("kn", "nk"):
                                 cfg = config.KernelConfig(bm=bm, bn=bn, bk=bk,
@@ -504,9 +531,9 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
 
 
 def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
-    """tl2_staged_route against ops.pipelined.staged_route over shapes, tiles, depths,
-    layouts and operand alignments; return (cases, TMA cases).  Raises on the first
-    disagreement."""
+    """tl2_staged_route against ops.pipelined.staged_route over shapes, ring blocks (narrow
+    ones included) and wide blocks (codes 3 and 4), depths, layouts and operand
+    alignments; return (cases, TMA cases).  Raises on the first disagreement."""
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((64, 8192, 8192), (64, 64, 12288), (96, 160, 1004), (128, 100, 2048),
               (128, 128, 2080), (32, 14336, 4096), (16, 4096, 4096))
@@ -515,14 +542,14 @@ def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
         for off_b in (0, 4):
             a, b = buf[off_a:], buf[off_b:]
             for m, nn, k in shapes:
-                for bm in (32, 64, 128):
-                    for bn in (32, 64, 128):
+                for bm in (16, 32, 64, 128, 256):
+                    for bn in (16, 32, 64, 128, 11008):
                         for depth in (2, 3, 4, 6, 8):
                             for layout in ("kn", "nk"):
                                 cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
                                                    pipeline_depth=depth)
                                 route = pl.staged_route(cfg, a, b, m, nn, k)
-                                py = route == "ring"
+                                py = route in ("ring", "wgmma_wide")
                                 c = lib.tl2_staged_route(m, nn, k, bm, bn,
                                                          int(layout == "nk"), a.data_ptr(),
                                                          b.data_ptr())
@@ -727,7 +754,8 @@ def _check_producers_agree(torch, lib, mm, KernelConfig, gen) -> int:
 
 def _staged_cases(candidate_configs, KernelConfig, wgmma_tiles):
     """(name, m, n, k, cfg kwargs, out dtype name, route, A's offset) of phase 2b;
-    ``route`` is the staged ring's producer the case must take ('ring' or 'ring_lsu'), or
+    ``route`` is the staged ring's producer the case must take ('ring' or 'ring_lsu'),
+    'wide' for a wide block (JAX's kStage pick: the wide walk's staged sum, unsplit), or
     None where gk == 1 takes the single-K kernel."""
     cases = []
     i = 0
@@ -774,7 +802,8 @@ def _staged_cases(candidate_configs, KernelConfig, wgmma_tiles):
                           pipeline_depth=4)
                 cases.append((f"staged-lsu/{acc}/{layout}/{bm}x{bn}", 128, 128, 2048, kw,
                               "float32", "ring_lsu", 1))
-    # the staged candidates of the tuning shapes and of 32-token decode (32-edge tiles)
+    # the staged candidates of the tuning shapes and of 32-token decode (32-edge tiles, and
+    # JAX's own pick there: the 32 x 14336 cover on the wide walk)
     for m, n, k in TUNE_SHAPES + [DECODE_STAGED_SHAPE]:
         for c in candidate_configs(m, n, k, "float32"):
             if c.pipeline_depth >= 2:
@@ -782,7 +811,7 @@ def _staged_cases(candidate_configs, KernelConfig, wgmma_tiles):
                                                  "pipeline_depth", "grid_order")}
                 cases.append((f"staged-tune/{m}x{n}x{k}/{c.bm}x{c.bn}/{c.grid_order}/"
                               f"{c.rhs_layout}/d{c.pipeline_depth}", m, n, k, kw, "bfloat16",
-                              "ring", 0))
+                              "wide" if c.wide else "ring", 0))
     return cases
 
 
@@ -2089,7 +2118,10 @@ def _grid_tune_phase(repo: Path, counters, zero_counters) -> tuple:
 #: Phase 3's entry-point calls with the wide variants: (batch, (m, n, k), config, A's offset
 #: in elements): the bf16 family's carry with a resident and a streamed A, a 4096-row
 #: block, batched at one interval and with a carry, and the loads producer (K % 8 != 0 and
-#: an A base 2 bytes off 16) 2-D and batched, one interval and a carry.
+#: an A base 2 bytes off 16) 2-D and batched, one interval and a carry; then the JAX
+#: space's edges: a ring block narrower than its tile (bm 16, 2-D, and 16 x 16 batched),
+#: the swapped wide walk (bm 16, the bf16 carry), narrow columns (bn 64 beside bm 256), an
+#: unaligned cover (200 x 300) and bn above 16384.
 PHASE3_WIDE = [
     (1, (512, 1024, 512), dict(bm=256, bn=512, bk=128, acc_dtype="bfloat16"), 0),
     (1, (512, 1024, 2048), dict(bm=256, bn=1024, bk=512, acc_dtype="bfloat16"), 0),
@@ -2100,6 +2132,12 @@ PHASE3_WIDE = [
     (1, (300, 1024, 512), dict(bm=256, bn=512, bk=128), 1),
     (2, (300, 1024, 1001), dict(bm=256, bn=512, bk=1024), 0),
     (2, (300, 1024, 1001), dict(bm=256, bn=512, bk=256, acc_dtype="bfloat16"), 0),
+    (1, (48, 300, 256), dict(bm=16, bn=128, bk=128), 0),
+    (8, (16, 16, 128), dict(bm=16, bn=16, bk=128), 0),
+    (1, (16, 1024, 512), dict(bm=16, bn=512, bk=128, acc_dtype="bfloat16"), 0),
+    (1, (512, 64, 64), dict(bm=256, bn=64, bk=64), 0),
+    (1, (300, 500, 256), dict(bm=200, bn=300, bk=128), 0),
+    (1, (64, 16512, 64), dict(bm=64, bn=16512, bk=64), 0),
 ]
 #: Phase thin-K: the write-allocate probe's bytes, its passes of each kind, and the wide
 #: route's cases against its plain version: (name, m, n, k, cfg kwargs, activation, out
@@ -2490,7 +2528,7 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
         db.put(m, n, k, cfg, 0.0, acc=acc, extra={"scope": "from_jax"})
     db.save()
     print(f"  (b) {len(entries)} kernel entries of the JAX DB: {len(runnable)} validate, "
-          f"{len(refused)} refused: " + "; ".join(f"{s} {acc}: {err}" for s, acc, err in refused))
+          f"{len(refused)} refused" + "".join(f"; {s} {acc}: {err}" for s, acc, err in refused))
     if len(runnable) != JAX_DB_RUNNABLE:
         raise AssertionError(f"{len(runnable)} JAX entries validate, not {JAX_DB_RUNNABLE}")
     gate = _script(repo, "correctness_campaign_torch")
@@ -2622,9 +2660,320 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
     return rec, rows, keys, launches
 
 
-#: The JAX DB's kernel entries that validate after from_jax: all 214 but the two bm = 16
-#: ones (tests/test_torch_wide_carry.py holds the same count on the CPU).
-JAX_DB_RUNNABLE = 212
+#: The JAX DB's kernel entries that validate after from_jax: all 214, the two bm = 16 ones
+#: on the swapped wide walk (tests/test_torch_wide_carry.py holds the same count on the CPU).
+JAX_DB_RUNNABLE = 214
+
+
+#: Phase jax space (a): the shapes whose whole uncapped candidate space (the JAX space's,
+#: tests/test_torch_jax_space.py) is launched: decode sizes of Llama-3-8B and Llama-2-7B,
+#: M = 48, N = 1, N = 64 at two heights, 1000^3, a bn cover above 16384, a 32000 vocab.
+JAX_SPACE_SHAPES = [(1, 4096, 4096), (8, 4096, 4096), (16, 11008, 4096), (32, 4096, 14336),
+                    (48, 4096, 4096), (8192, 1, 4096), (1024, 64, 64), (12288, 64, 64),
+                    (1000, 1000, 1000), (4096, 24576, 64), (64, 32000, 4096)]
+#: Phase jax space (b): the DB copy's main path beside tests/data/jax_decode_db.json (the JAX
+#: heuristic at the decode shapes and the block's at seq 16) and the JAX DB's two bm = 16
+#: entries: one JAX-space block per variant the decode shapes do not reach, f32 family.
+JAX_SPACE_DB_EXTRA = [((1024, 64, 64), dict(bm=256, bn=64, bk=64)),
+                      ((1000, 1000, 1000), dict(bm=1000, bn=1000, bk=1024)),
+                      ((4096, 24576, 64), dict(bm=128, bn=24576, bk=64)),
+                      ((64, 32000, 4096), dict(bm=64, bn=32000, bk=512, pipeline_depth=2))]
+#: Phase jax space (c): one row per new variant, timed alone: (name, batch, m, n, k, cfg
+#: kwargs, source file, the replaced Pallas function's file:line, counter key).
+JAX_SPACE_TIMED = [
+    ("narrow ring block 16x128 (the swapped 32x128 tile), bk 1024", 1, 16, 4096, 4096,
+     dict(bm=16, bn=128, bk=1024), "tl2_wgmma_swap.cu", "tpul2/ops/matmul.py:96",
+     "ring_narrow"),
+    ("batched narrow ring block 16x16 (the block's scores at seq 16)", 8, 16, 16, 128,
+     dict(bm=16, bn=16, bk=128), "tl2_wgmma_n32.cu", "tpul2/ops/batched.py:40",
+     "ring_narrow"),
+    ("swapped wide walk 1x512, bk 1024 (the JAX heuristic)", 1, 1, 4096, 4096,
+     dict(bm=1, bn=512, bk=1024), "tl2_wgmma_wide_swap.cu", "tpul2/ops/matmul.py:96",
+     "wide_swapped"),
+    ("swapped wide walk 16x256, bk 4096, bf16 family (the JAX DB's entry)", 1, 16, 11008,
+     4096, dict(bm=16, bn=256, bk=4096, acc_dtype="bfloat16"), "tl2_wgmma_wide_swap.cu",
+     "tpul2/ops/matmul.py:136", "wide_swapped"),
+    ("narrow columns 256x64", 1, 1024, 64, 64, dict(bm=256, bn=64, bk=64),
+     "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_narrow_n"),
+    ("clipped cover 1000x1000, one interval", 1, 1000, 1000, 1000,
+     dict(bm=1000, bn=1000, bk=1024), "tl2_wgmma_wide_stream.cu", "tpul2/ops/matmul.py:136",
+     "wide_clipped"),
+    ("bn above 16384: 128x24576", 1, 4096, 24576, 64, dict(bm=128, bn=24576, bk=64),
+     "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_long"),
+    ("staged wide 16x11008, depth 2 (JAX's kStage pick)", 1, 16, 11008, 4096,
+     dict(bm=16, bn=11008, bk=1024, pipeline_depth=2), "tl2_wgmma_wide_swap.cu",
+     "tpul2/ops/pipelined.py:39", "staged_wide"),
+]
+#: The counters of the new variants, each of which the main path must launch.
+JAX_SPACE_KEYS = ("ring_narrow", "wide_swapped", "wide_narrow_n", "wide_clipped", "wide_long",
+                  "staged_wide")
+
+
+def _jax_space_sweep(torch, mods, pl, gen, m: int, n: int, k: int, acc: str,
+                     blocks: list) -> dict:
+    """Phase jax space (a) at one shape and family: each block (one config per (bm, bn,
+    bk, depth, rhs)) launched on 0/1 inputs, held to the f32 truth by the gate's comparison
+    (harness.correctness: its density, every element within the family's exact bound
+    equal), and on normal inputs within allowed_error of its plain version, one plain
+    output per (bk, staged).  A bf16 carry's element beyond the tolerance must carry the
+    ring-order reference's bits.  Returns the counts."""
+    from tpul2_torch.harness.correctness import EXACT_BOUND, zero_one_density
+    KernelConfig, mm, bmm = mods
+    p = zero_one_density(k, "float32" if acc == "float32" else acc)
+    a01 = (torch.rand((m, k), generator=gen, device="cuda") < p).to(torch.bfloat16)
+    b01 = (torch.rand((k, n), generator=gen, device="cuda") < p).to(torch.bfloat16)
+    an = _inputs(torch, gen, (m, k), False)
+    bn_ = _inputs(torch, gen, (k, n), False)
+    rhs = {True: {"kn": b01, "nk": b01.t().contiguous()},
+           False: {"kn": bn_, "nk": bn_.t().contiguous()}}
+    truth = a01.float() @ b01.float()
+    out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    plain, tols = {}, {}
+    pending = []
+    for cfg in blocks:
+        staged = cfg.pipeline_depth >= 2
+        key = (k if staged else cfg.bk, staged)
+        if key not in plain:
+            bk, fam = key[0], "float32" if staged else acc
+            plain[key] = mm.matmul_reference(an, bn_, bk, fam, out_dtype=torch.float32)
+            tols[key] = mm.allowed_error(an, bn_, bk, fam, "kn", torch.float32)
+        bound = EXACT_BOUND["float32" if staged or acc == "float32" else acc]
+        for zero_one in (True, False):
+            a = a01 if zero_one else an
+            r = rhs[zero_one][cfg.rhs_layout]
+            if staged:
+                pl.cuda_matmul_pipelined(a, r, cfg, out=out)
+            else:
+                (mm.cuda_matmul_tn if cfg.rhs_layout == "nk" else mm.cuda_matmul)(
+                    a, r, cfg, out=out)
+            if zero_one:
+                bad = ((out != truth) & (truth.abs() <= bound)).sum()
+            else:
+                bad = ((out - plain[key]).abs() > tols[key]).sum()
+            pending.append((cfg, zero_one, bad))
+    torch.cuda.synchronize()
+    witnessed = ring_tile_bits = 0
+    orders = {}
+    for cfg, zero_one, bad in pending:
+        nbad = int(bad.item())
+        if not nbad:
+            continue
+        if zero_one or cfg.pipeline_depth or acc != "bfloat16" or -(-k // cfg.bk) <= 1:
+            raise AssertionError(f"jax space {m}x{n}x{k} {acc} {cfg}: {nbad} elements wrong "
+                                 f"on {'0/1' if zero_one else 'normal'} inputs")
+        # the bf16 carry's neighbour rounding (phase 2's rule): the ring-order bits, in
+        # either of its f32 orders (each 64-deep stage exact, or its four k16 steps
+        # chained); an element off both must carry the bits of the 128 x 128 ring tile at
+        # the same bk, which the tensor cores' own order gives
+        r = rhs[False][cfg.rhs_layout]
+        wrapper = mm.cuda_matmul_tn if cfg.rhs_layout == "nk" else mm.cuda_matmul
+        if (cfg.bk, cfg.rhs_layout) not in orders:
+            orders[cfg.bk, cfg.rhs_layout] = (
+                _ring_order_reference(torch, mm, an, bn_, cfg.bk, "kn"),
+                _ring_order_reference(torch, mm, an, bn_, cfg.bk, "kn", chain16=True),
+                wrapper(an, r, KernelConfig(bm=128, bn=128, bk=cfg.bk, acc_dtype="bfloat16",
+                                            rhs_layout=cfg.rhs_layout),
+                        out_dtype=torch.float32))
+        ring, ring16, tile = orders[cfg.bk, cfg.rhs_layout]
+        got = wrapper(an, r, cfg, out_dtype=torch.float32)
+        beyond = (got - plain[(cfg.bk, False)]).abs() > tols[(cfg.bk, False)]
+        off = beyond & (got != ring) & (got != ring16)
+        if bool((off & (got != tile)).any()):
+            raise AssertionError(f"jax space {m}x{n}x{k} {acc} {cfg}: elements beyond "
+                                 "allowed_error off the ring-order bits and the ring tile's")
+        witnessed += int((beyond & ~off).sum().item())
+        ring_tile_bits += int(off.sum().item())
+    return {"blocks": len(blocks), "launches": 2 * len(blocks), "plain_outputs": len(plain),
+            "ring_order_witnessed": witnessed, "ring_tile_bits": ring_tile_bits}
+
+
+def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time) -> tuple:
+    """Phase jax space: every block edge of the JAX space on the card.  (a) at each of
+    JAX_SPACE_SHAPES, every distinct block of the port's uncapped candidate space (which
+    holds the JAX tuner's, tests/test_torch_jax_space.py) in both families, against the
+    truth and its plain version; (b) the main path: a DB copy holding the JAX heuristic's
+    configs at the decode shapes and the block's at seq 16 (tests/data/jax_decode_db.json),
+    the JAX DB's two bm = 16 entries and one block per remaining variant, through
+    dispatch.matmul / dispatch.batched_matmul (each resolving to its own config) and the
+    block's forward at seq 16; (c) each new variant alone in a CUDA graph beside
+    torch.matmul / torch.bmm, the plain version and the bound.  Returns (record, kernel
+    rows, their counter keys, the launches of (b))."""
+    import numpy as np
+
+    from tpul2_torch import dispatch
+    from tpul2_torch.autotune import db as db_mod
+    from tpul2_torch.config import candidate_configs
+    from tpul2_torch.models import BlockParams, block_forward
+    from tpul2_torch.models.entry import N_HEADS
+    from tpul2_torch.models.entry import entry as block_entry
+    from tpul2_torch.ops import pipelined as pl
+    from tpul2_torch.ops._build import check_launch
+    KernelConfig, mm, bmm = mods
+    t_phase = time.perf_counter()
+    rec = {"sweep": []}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+
+    # ---- (a) the JAX space at the sample shapes ----
+    zero_counters()
+    total = 0
+    for m, n, k in JAX_SPACE_SHAPES:
+        for acc in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            blocks, seen = [], set()
+            for cfg in candidate_configs(m, n, k, acc, max_candidates=10**6):
+                key = (cfg.bm, cfg.bn, cfg.bk, cfg.pipeline_depth, cfg.rhs_layout)
+                if cfg.use_vendor or key in seen:
+                    continue
+                if cfg.validate() is not None:
+                    raise AssertionError(f"jax space {m}x{n}x{k}: {cfg} refused")
+                seen.add(key)
+                blocks.append(cfg)
+            got = _jax_space_sweep(torch, mods, pl, gen, m, n, k, acc, blocks)
+            got.update(mnk=[m, n, k], acc=acc, seconds=time.perf_counter() - t0)
+            rec["sweep"].append(got)
+            total += got["blocks"]
+            print(f"  (a) {m}x{n}x{k} {acc}: {got['blocks']} blocks, {got['launches']} launches "
+                  f"correct ({got['plain_outputs']} plain outputs; beyond allowed_error: "
+                  f"{got['ring_order_witnessed']} elements on the ring-order bits, "
+                  f"{got['ring_tile_bits']} on the 128x128 ring tile's; "
+                  f"{got['seconds']:.1f} s)", flush=True)
+    sweep_counts = counters()
+    rec["sweep_launches"] = {key: v for key, v in sweep_counts.items() if v}
+    print(f"  (a) {total} blocks of the JAX space, 0 refused, every launch correct; launches "
+          + json.dumps(rec["sweep_launches"]))
+    if sweep_counts["mma_sync"] or any(sweep_counts[key] <= 0 for key in JAX_SPACE_KEYS):
+        raise AssertionError(f"the sweep missed a variant: {rec['sweep_launches']}")
+
+    # ---- (b) the main path through a DB copy ----
+    work = repo / "runs" / "chip_smoke" / "jax_space"
+    work.mkdir(parents=True, exist_ok=True)
+    db_path = work / "decode_db.json"
+    db_path.unlink(missing_ok=True)
+    db = db_mod.TuneDB(path=db_path)
+    rows = json.loads((repo / "tests" / "data" / "jax_decode_db.json").read_text())["rows"]
+    want = {}
+    for row in rows:
+        cfg = KernelConfig(**row["config"])
+        db.put(row["m"], row["n"], row["k"], cfg, 0.0, acc=row["acc"],
+               extra={"scope": "jax_heuristic"})
+        want[(row["m"], row["n"], row["k"], row["acc"])] = (cfg, row["batch"])
+    for (m, n, k), acc, cfg in _jax_db_entries(repo, KernelConfig):
+        if cfg.bm == 16:  # the JAX DB's bm = 16 entries
+            db.put(m, n, k, cfg, 0.0, acc=acc, extra={"scope": "from_jax"})
+            want[(m, n, k, acc)] = (cfg, 1)
+    for (m, n, k), kw in JAX_SPACE_DB_EXTRA:
+        cfg = KernelConfig(**kw)
+        db.put(m, n, k, cfg, 0.0, acc="float32", extra={"scope": "jax_space"})
+        want[(m, n, k, "float32")] = (cfg, 1)
+    db.save()
+    os.environ[db_mod.ENV_VAR] = str(db_path)
+    db_mod.reset_default_db()
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        for (m, n, k, acc), (cfg, batch) in want.items():
+            got_cfg = dispatch.resolve_config(m, n, k, acc)
+            if got_cfg != cfg:
+                raise AssertionError(f"{m}x{n}x{k} {acc} resolved to {got_cfg}, not {cfg}")
+            lead = (batch,) if batch > 1 else ()
+            a = _inputs(torch, gen, (*lead, m, k), True)
+            b = _inputs(torch, gen, (*lead, k, n), True)
+            if batch > 1:
+                got = dispatch.batched_matmul(a, b, acc=acc, out_dtype=torch.float32)
+                plain = bmm.batched_matmul_reference(a, b, cfg.bk, acc, torch.float32)
+            else:
+                got = dispatch.matmul(a, b, acc=acc, out_dtype=torch.float32)
+                plain = (pl.pipelined_reference(a, b, "kn", torch.float32)
+                         if cfg.pipeline_depth else
+                         mm.matmul_reference(a, b, cfg.bk, acc, out_dtype=torch.float32))
+            if not torch.equal(got, plain):
+                raise AssertionError(f"dispatch at {m}x{n}x{k} {acc} ({cfg}) differs from its "
+                                     "plain version")
+        torch.cuda.synchronize()
+        dispatch_seconds = time.perf_counter() - t0
+        # the flagship block's forward at seq 16 through the copy, against a CPU copy
+        _, (params, x) = block_entry()
+        x16 = x[:16].contiguous()
+        got = block_forward(params, x16, N_HEADS)
+        torch.cuda.synchronize()
+        plain = block_forward(BlockParams(*(t.cpu() for t in params)), x16.cpu(), N_HEADS)
+        err = (got.float().cpu() - plain.float()).abs()
+        beyond = int((err > 0.05 + 0.05 * plain.float().abs()).sum())
+        launches = counters()
+    finally:
+        os.environ.pop(db_mod.ENV_VAR, None)
+        db_mod.reset_default_db()
+    rec["main_path"] = {"entries": len(want), "dispatch_seconds": dispatch_seconds,
+                        "block_seq16_max_abs_diff_vs_plain": err.max().item(),
+                        "block_seq16_beyond_tol": beyond,
+                        "launches": {key: v for key, v in launches.items() if v}}
+    print(f"  (b) {len(want)} entries of the DB copy (the JAX heuristic at the decode shapes, "
+          f"the JAX DB's bm = 16 entries, one per remaining variant) through dispatch, each "
+          f"on its own config and exact against its plain version ({dispatch_seconds:.1f} s); "
+          f"the block at seq 16 through the copy: max |diff| vs plain {err.max().item():.4g}, "
+          f"{beyond} beyond rtol = atol = 0.05; launches "
+          + json.dumps(rec["main_path"]["launches"]))
+    missing = [key for key in JAX_SPACE_KEYS if launches[key] <= 0]
+    if beyond or not torch.isfinite(got.float()).all() or missing or launches["mma_sync"]:
+        raise AssertionError(f"the main path: {beyond} block elements beyond tolerance, "
+                             f"variants {missing} not launched, {launches['mma_sync']} mma.sync")
+
+    # ---- (c) each new variant alone ----
+    rows_out, keys = [], []
+    rec["timed"] = []
+    for name, batch, m, n, k, kw, src, replaces, key in JAX_SPACE_TIMED:
+        cfg = KernelConfig(**kw)
+        lead = (batch,) if batch > 1 else ()
+        a = _inputs(torch, gen, (*lead, m, k), False)
+        b = _inputs(torch, gen, (*lead, k, n), False)
+        out = torch.empty((*lead, m, n), dtype=torch.bfloat16, device="cuda")
+        if cfg.pipeline_depth:
+            depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk)
+
+            def make(a=a, b=b, out=out, cfg=cfg, m=m, n=n, k=k, depth=depth):
+                stream = torch._C._cuda_getCurrentRawStream(a.get_device())
+                return lambda: check_launch(lib.tl2_wgmma_staged(
+                    a.data_ptr(), b.data_ptr(), out.data_ptr(), None, m, n, k, cfg.bm, cfg.bn,
+                    depth, 1, 0, 0, 0, stream), "tl2_wgmma_staged (wide)")
+
+            def reference(a=a, b=b):
+                return pl.pipelined_reference(a, b, "kn", torch.bfloat16)
+        else:
+            def make(a=a, b=b, out=out, cfg=cfg, batch=batch, m=m, n=n, k=k):
+                call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
+                return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
+
+            def reference(a=a, b=b, cfg=cfg):
+                return mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype, out_dtype=torch.bfloat16)
+        turns = [host_time.alone_ms(torch, make) for _ in range(2)]
+        library = host_time.alone_ms(torch, lambda a=a, b=b: (lambda: torch.matmul(a, b)))
+        plain_ms = _time_ms(torch, reference, reps=3)
+        # `out` holds the kernel's result on these inputs (every timed launch wrote it)
+        err = (out.float() - reference().float()).abs().max().item()
+        bound_ms, bound_by = _bound(batch, m, n, k, 2)
+        route = (pl.staged_route(cfg, a, b, m, n, k) if cfg.pipeline_depth else
+                 mm.launch_route(cfg, a[0] if batch > 1 else a, b[0] if batch > 1 else b,
+                                 m, n, k))
+        row = {"name": name, "mnk": [batch, m, n, k], "turns_ms": turns, "max_abs_err": err,
+               "ms": sum(turns) / 2, "torch_alone_ms": library, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "route": route}
+        rec["timed"].append(row)
+        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({route}, bfloat16 out) alone ms "
+              f"{json.dumps(turns)}; torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, "
+              f"plain {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), max |err| {err:.4g}")
+        label = f"{batch}x{m}x{n}x{k}" if batch > 1 else f"{m}x{n}x{k}"
+        rows_out.append({"name": f"{'tl2_wgmma_staged' if cfg.pipeline_depth else 'tl2_wgmma'} "
+                                 f"({name}, {label})",
+                         "route": "cuda", "source": f"tpul2_torch/csrc/{src}",
+                         "replaces": replaces, "max_abs_err": err, "ms": row["ms"],
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library})
+        keys.append(key)
+        del a, b, out
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase jax space: {rec['seconds']:.1f} s")
+    return rec, rows_out, keys, launches
 
 
 def main(argv=None) -> int:
@@ -2696,10 +3045,11 @@ def main(argv=None) -> int:
         for name, fn in mma.items():
             setattr(lib, name, counted(fn))
         depths = {}
-        for bm in (32, 64, 128):
-            for bn in (32, 64, 128):
+        for bm in (1, 16, 32, 48, 64, 100, 128):
+            for bn in (1, 16, 32, 48, 64, 100, 128):
                 stages = lib.tl2_wgmma_carry_stages(bm, bn)
-                depths[f"{bm}x{bn}"] = stages
+                if bm in (32, 64, 128) and bn in (32, 64, 128):
+                    depths[f"{bm}x{bn}"] = stages
                 kernel = lib.tl2_wgmma_smem_bytes(bm, bn, stages)
                 if stages != mm.carry_stages(bm, bn) or kernel != KernelConfig(
                         bm=bm, bn=bn).smem_bytes() or kernel > SMEM_LIMIT:
@@ -2875,7 +3225,8 @@ def main(argv=None) -> int:
         for name, m, n, k, kw, out, route, off_a in cases:
             cfg = KernelConfig(**kw)
             depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk)
-            splits = pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth) if route else 1
+            splits = (pl.staged_splits(m, n, k, cfg.bm, cfg.bn, depth)
+                      if route and route != "wide" else 1)
             narrow = 32 in (cfg.bm, cfg.bn)
             before = counters()
             errs = [_check_staged(torch, mm, pl, gen, m, n, k, cfg, out, zero_one, splits,
@@ -2884,13 +3235,15 @@ def main(argv=None) -> int:
             moved = {key: v - before[key] for key, v in counters().items() if v != before[key]}
             if route is None:  # gk == 1: one single-K launch per input set
                 want = {key: 2 for key in moved if key.startswith("single_k")} or {"single_k": 2}
+            elif route == "wide":
+                want = {"staged_wide": 2}
             else:  # a split case runs its normal inputs twice
                 runs = 3 if splits > 1 else 2
                 want = ({f"staged_{route}": runs} | ({"staged_split": runs} if splits > 1 else {})
                         | ({"staged_narrow": runs} if narrow else {}))
             if moved != want:
                 raise AssertionError(f"{name}: launches {moved}, expected {want}")
-            if route is not None:
+            if route is not None and route != "wide":
                 seen.add((route, "narrow" if narrow else "wide", splits > 1))
                 for key in want:
                     max_err[key] = max(max_err[key], errs[1])
@@ -3039,17 +3392,18 @@ def main(argv=None) -> int:
             print(f"  entry point {batch}x{m}x{n}x{k} {cfg.bm}x{cfg.bn} bk={cfg.bk} "
                   f"{cfg.acc_dtype} ({route}): exact on 0/1 inputs")
         # the entry point with staged configs: a 32-edge tile over few output tiles (a
-        # split), a ring tile whose one output tile splits K 48 ways, and A's base 2 bytes
-        # off 16 (the loads producer)
+        # split), a ring tile whose one output tile splits K 48 ways, A's base 2 bytes off
+        # 16 (the loads producer), and a staged wide block of the swapped walk (no split)
         for (m, n, k), (bm, bn), off in (((64, 256, 8192), (32, 64), 0),
                                          ((64, 64, 12288), (64, 64), 0),
-                                         ((64, 256, 8192), (64, 64), 1)):
+                                         ((64, 256, 8192), (64, 64), 1),
+                                         ((16, 1024, 4096), (16, 512), 0)):
             cfg = KernelConfig(bm=bm, bn=bn, bk=1024, pipeline_depth=4)
             a = _offset(torch, _inputs(torch, gen, (m, k), True), off)
             b = _inputs(torch, gen, (k, n), True)
             got = dispatch.matmul(a, b, config=cfg, out_dtype=torch.float32)
             route = pl.staged_route(cfg, a, b, m, n, k)
-            splits = pl.staged_splits(m, n, k, bm, bn, 4)
+            splits = 1 if cfg.wide else pl.staged_splits(m, n, k, bm, bn, 4)
             if not torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32, splits)):
                 raise AssertionError(f"staged entry point at {m}x{n}x{k} is not exact")
             print(f"  entry point {m}x{n}x{k} staged {bm}x{bn} depth 4 ({route}, {splits} "
@@ -3701,6 +4055,11 @@ def main(argv=None) -> int:
             torch, repo, lib, mods, counters, zero_counters, host_time)
         kernels += wide_rows
         kernel_keys += wide_keys
+    with phase("jax space"):
+        record["jax_space"], space_rows, space_keys, space_launches = _jax_space_phase(
+            torch, repo, lib, mods, counters, zero_counters, host_time)
+        kernels += space_rows
+        kernel_keys += space_keys
     with phase("model"):
         record["model"], model_launches = _model_phase(torch, counters, zero_counters, use_db)
     with phase("parallel"):
@@ -3710,8 +4069,9 @@ def main(argv=None) -> int:
     # thin-K retune's, the model path's, the parallel layer's and the seq-16 block's; no
     # path launched an mma.sync body
     paths = {"campaign": campaign_launches, "grid tune": grid_tune_launches,
-             "thin-K": thin_k_launches, "wide": wide_launches, "model": model_launches,
-             "parallel": parallel_launches, "decode block": decode_launches}
+             "thin-K": thin_k_launches, "wide": wide_launches, "jax space": space_launches,
+             "model": model_launches, "parallel": parallel_launches,
+             "decode block": decode_launches}
     for name, got in paths.items():
         if got["mma_sync"]:
             raise AssertionError(f"the {name} path launched an mma.sync body: {got}")

@@ -59,16 +59,19 @@ def test_candidates_are_valid_and_distinct(m, n, k, acc):
     assert len(cands) == len(set(cands))
     assert all(c.validate() is None for c in cands)
     kernels = [c for c in cands if not c.use_vendor]
-    # every tile wastes more than 60% on a problem far smaller than the smallest tile
-    assert bool(kernels) == ((m, n, k) != (1, 1, 1))
+    # every shape has a kernel candidate: where every tile wastes more than 60% (a problem
+    # far smaller than the smallest tile), the JAX space's full-dim cover (1 x 1 at 1^3)
+    assert kernels
     assert all(c.acc_dtype == acc for c in kernels)
     assert all(c.padding_waste(m, n, k) <= 0.6 for c in kernels)
-    # a ring tile, or a wide block (an edge above 128), at a bk of the set: the JAX
-    # package's 128..16384 up to round_up(k, 128), or the whole K
+    # a ring tile, a block of the JAX space (its sublane 16, its full-dim covers), or a
+    # wide block (an edge above 128), at a bk of the set: the JAX package's 128..16384 up
+    # to round_up(k, 128), or the whole K
     bks = {c for c in (128, 256, 512, 1024, 2048, 4096, 8192, 16384) if c <= round_up(k, 128)}
-    assert all((c.bm in TILE_CHOICES and c.bn in TILE_CHOICES or c.wide)
+    assert all((c.bm in TILE_CHOICES + (16, m) and c.bn in TILE_CHOICES + (n,) or c.wide)
                and c.bk in bks | {round_up(k, KSTEP)} and c.bk % KSTEP == 0
                for c in kernels)
+    assert all(c.bm == 1 and c.bn == 1 for c in kernels) == ((m, n, k) == (1, 1, 1))
     # 'mask' only where a block does not divide its dim
     assert all(m % c.bm or n % c.bn or k % c.bk for c in kernels if c.edge == "mask")
     # every vendor variant, always, last
@@ -230,10 +233,15 @@ def test_resolution_memo_is_bounded(tmp_default_db, monkeypatch):
 
 
 def test_resolution_sends_an_unrunnable_entry_to_the_sentinel(tmp_default_db):
-    """A DB entry the kernel cannot run (a tile it has no instance for) resolves to the
-    vendor sentinel instead of failing at the launch."""
-    db_mod.default_db().put(64, 256, 1024, KernelConfig(bm=16, bn=64, bk=256), 1.0)
+    """A DB entry the kernel cannot run (a staged ring beyond 227 KB of shared memory)
+    resolves to the vendor sentinel instead of failing at the launch; a narrow block of the
+    JAX space (bm 16 beside bn 64) resolves to itself."""
+    db_mod.default_db().put(64, 256, 1024, KernelConfig(bm=128, bn=128, bk=256,
+                                                        pipeline_depth=8), 1.0)
     assert dispatch.resolve_config(64, 256, 1024) == KernelConfig.vendor()
+    narrow = KernelConfig(bm=16, bn=64, bk=256)
+    db_mod.default_db().put(64, 256, 2048, narrow, 1.0)
+    assert dispatch.resolve_config(64, 256, 2048) == narrow
 
 
 def test_default_path_is_the_h100_file(monkeypatch):

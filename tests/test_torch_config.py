@@ -55,8 +55,8 @@ def test_from_jax_keeps_a_staged_pipeline_invalid():
 
 
 @pytest.mark.parametrize("kw,needle", [
-    (dict(bm=16), "bm=16"),
-    (dict(bn=96), "bn=96"),
+    (dict(bm=0), "bm=0"),
+    (dict(bn=-96), "bn=-96"),
     (dict(bk=100), "bk=100"),
     (dict(bk=0), "bk=0"),
     (dict(acc_dtype="float16"), "acc_dtype"),
@@ -73,8 +73,9 @@ def test_validate_rejects(kw, needle):
 def test_wide_block_at_gk_above_one_is_refused_at_its_launch():
     """A wide block (an edge above 128) validates without a shape, and at a K beyond its bk
     (more than one interval) it launches with the K carry on the wide route, equal to the
-    plain version at its bk.  What its launch still refuses, on every path, is a block the
-    wide route has no instance of: bm = 16, the JAX space's full-dim cover of M <= 16."""
+    plain version at its bk; so does bm = 16 beside it (the JAX space's sublane 16, the
+    swapped walk).  What its launch still refuses, on every path, is a block beyond the
+    wide route's largest edges (bn above 32768)."""
     from tpul2_torch import dispatch
     from tpul2_torch.ops import matmul as mm
     cfg = KernelConfig(bm=128, bn=256, bk=64, acc_dtype="bfloat16")
@@ -85,10 +86,15 @@ def test_wide_block_at_gk_above_one_is_refused_at_its_launch():
     assert mm.launch_route(cfg, a, b, 128, 256, 128) == "wgmma_wide"
     assert torch.equal(mm.cuda_matmul(a, b, cfg),
                        mm.matmul_reference(a, b, 64, "bfloat16"))
-    short = KernelConfig(bm=16, bn=256, bk=64)
+    short = KernelConfig(bm=16, bn=256, bk=64, acc_dtype="bfloat16")
+    assert short.validate() is None
     for call in (lambda: mm.cuda_matmul(a[:16], b, short),
                  lambda: dispatch.matmul(a[:16], b, config=short)):
-        with pytest.raises(ValueError, match="bm=16"):
+        assert torch.equal(call(), mm.matmul_reference(a[:16], b, 64, "bfloat16"))
+    long = KernelConfig(bm=16, bn=32769, bk=64)
+    for call in (lambda: mm.cuda_matmul(a[:16], b, long),
+                 lambda: dispatch.matmul(a[:16], b, config=long)):
+        with pytest.raises(ValueError, match="bn=32769"):
             call()
 
 

@@ -113,13 +113,21 @@ def test_batched_decode_matches_jax(acc, zero_one):
 
 def test_tuning_candidates_at_decode_take_the_ring():
     """candidate_configs(32, 14336, 4096) (the Llama-3-8B FFN up-projection at 32-batch
-    decode) offers staged 32-edge candidates; each takes the ring on aligned operands, fits
-    its shared memory, and splits K where its tiles leave SMs idle."""
+    decode) offers staged 32-edge candidates; each ring tile takes the ring on aligned
+    operands, fits its shared memory, and splits K where its tiles leave SMs idle.  Beside
+    them, JAX's own kStage pick (the 32 x 14336 cover, bk 1024, depth 2) takes the wide
+    walk's swapped staged sum, unsplit."""
     m, n, k = 32, 14336, 4096
     staged = [c for c in candidate_configs(m, n, k) if c.pipeline_depth >= 2]
     assert staged and all(c.bm == 32 for c in staged)
     a, rhs = torch.zeros(64, dtype=torch.bfloat16), torch.zeros(64, dtype=torch.bfloat16)
+    wide = [c for c in staged if c.wide]
+    assert {(c.bn, c.bk, c.pipeline_depth) for c in wide} == {(14336, 1024, 2)}
+    for c in wide:
+        assert c.validate() is None and pl.staged_route(c, a, rhs, m, n, k) == "wgmma_wide_lsu"
     for c in staged:
+        if c.wide:
+            continue
         assert c.validate() is None and c.smem_bytes() <= SMEM_LIMIT
         assert pl.staged_route(c, a, rhs, m, n, k) == "ring"
         depth = pl.staged_depth(c.pipeline_depth, k // c.bk)

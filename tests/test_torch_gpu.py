@@ -102,12 +102,13 @@ def test_gate_on_card(cuda, acc):
 
 
 def test_refused_launch_raises(cuda):
-    """A tile the kernel has no instance for: the C launcher returns an error code and the
-    wrapper raises instead of computing anything else."""
+    """A block the kernel has no instance for (an edge of 0; every edge of 1..128 is a ring
+    block since the JAX space's narrow edges run): the C launcher returns an error code and
+    the wrapper raises instead of computing anything else."""
     a, b = _01((64, 64), 5).to(cuda), _01((64, 64), 6).to(cuda)
     out = torch.empty((64, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError, match="launch failed"):
-        mm.launch_kernel(a, b, KernelConfig(bm=48), out, None, None, 1, 64, 64, 64)
+        mm.launch_kernel(a, b, KernelConfig(bm=0), out, None, None, 1, 64, 64, 64)
 
 
 WG_M, WG_N, WG_K = 200, 264, 328   # edges in M and N, a K tail of 8 (K % 64 != 0)
@@ -349,13 +350,14 @@ def test_staged_single_k_takes_the_single_k_kernel(cuda):
 
 
 def test_staged_refused_launch_raises(cuda):
-    """A tile the staged kernel has no instance for, a depth below 2, and a split count
-    that leaves a split empty: the launcher refuses before any work and the wrapper
-    raises.  A base 2 bytes off 16 takes the loads producer ('ring_lsu', the same sum); an
-    out off 16 bytes raises before the launch."""
+    """A block the staged kernel has no instance for (an edge of 0; every edge of 1..128 is
+    a ring block), a depth below 2, and a split count that leaves a split empty: the
+    launcher refuses before any work and the wrapper raises.  A base 2 bytes off 16 takes
+    the loads producer ('ring_lsu', the same sum); an out off 16 bytes raises before the
+    launch."""
     a, b = _01((192, 256), 13).to(cuda), _01((256, 192), 14).to(cuda)
     out = torch.empty((192, 192), dtype=torch.float32, device=cuda)
-    for tile, depth, splits in (((48, 48), 2, 1), ((64, 64), 1, 1), ((64, 64), 2, 3)):
+    for tile, depth, splits in (((0, 48), 2, 1), ((64, 64), 1, 1), ((64, 64), 2, 3)):
         cfg = KernelConfig(bm=tile[0], bn=tile[1], pipeline_depth=2)
         with pytest.raises(LaunchRefused, match="launch failed"):
             pl.launch_staged(a, b, cfg, out, depth, 192, 192, 256, splits)
@@ -655,3 +657,30 @@ def test_wide_variants_match_their_plain_version(cuda, case, out_dtype):
     assert launch_counts()[key] == before + 1
     want = mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype, out_dtype=out_dtype)
     assert torch.equal(out, want)
+
+
+#: The JAX space's narrow and unaligned edges (block, counter): a ring block narrower than
+#: its tile, the swapped wide walk, narrow columns beside a wide bm, a clipped cover.
+NARROW_BLOCKS = [((16, 128), "ring_narrow"), ((16, 512), "wide_swapped"),
+                 ((48, 64), "ring_narrow"), ((256, 64), "wide_narrow_n"),
+                 ((200, 256), "wide_clipped")]
+
+
+@pytest.mark.parametrize("block,key", NARROW_BLOCKS)
+def test_next_block_nan_rows_are_never_stored(cuda, block, key):
+    """A's rows of the second block are NaN, and the tile's rows beyond the first block
+    read them from shared memory: the first block's rows of C are exact and the second's
+    NaN, in one launch on the variant's counter (the CPU twin is in
+    tests/test_torch_jax_space.py)."""
+    from tpul2_torch.ops import launch_counts
+    bm, bn = block
+    m, n, k = 2 * bm, 600, 256
+    a = _01((m, k), 8).to(cuda)
+    a[bm:] = float("nan")
+    b = _01((k, n), 9).to(cuda)
+    before = launch_counts()[key]
+    got = mm.cuda_matmul(a, b, KernelConfig(bm=bm, bn=bn, bk=128), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert launch_counts()[key] == before + 1
+    assert torch.equal(got[:bm], a[:bm].float() @ b.float())
+    assert bool(torch.isnan(got[bm:]).all())

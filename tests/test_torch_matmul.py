@@ -156,7 +156,7 @@ def test_wrapper_raises(bad):
     elif bad == "shape":
         b = torch.zeros((95, 32)).bfloat16()
     elif bad == "config":
-        cfg = KernelConfig(bm=48)
+        cfg = KernelConfig(bm=0)
     elif bad == "bias_dtype":
         kw["bias"] = torch.zeros(32).bfloat16()
     elif bad == "out_shape":

@@ -30,7 +30,7 @@ from tpul2.ops.matmul import pallas_matmul_fused, pallas_matmul_tn
 from tpul2_torch import dispatch
 from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.config import (WIDE_BM_CHOICES, WIDE_STAGES, KernelConfig, candidate_configs,
-                                wide_smem_bytes, wide_stages, wide_streamed)
+                                wide_c_grid, wide_smem_bytes, wide_stages, wide_streamed)
 from tpul2_torch.ops import batched
 from tpul2_torch.ops import matmul as mm
 
@@ -152,30 +152,36 @@ def _jax_entries() -> list:
 
 
 def test_jax_db_wide_entries_launch_at_their_own_shape():
-    """212 of the 214 kernel entries validate and take a route at their own shape (a 16-byte
-    aligned stand-in operand: the route reads only the base); the two bm = 16 ones (JAX's
-    full-dim cover of M <= 16) are refused with their reason, at the launch too."""
+    """All 214 kernel entries validate and take a route at their own shape (a 16-byte
+    aligned stand-in operand: the route reads only the base), the two bm = 16 ones (JAX's
+    sublane 16 beside a wide bn) on the
+    swapped walk; through a DB holding them, dispatch resolves each to itself and runs it
+    (here its plain version, at its own bk)."""
     stand_in = torch.zeros(8, dtype=torch.bfloat16)
-    routes, refused = {}, []
+    routes = {}
     entries = _jax_entries()
     assert len(entries) == 214
     for (m, n, k), _, cfg in entries:
-        err = cfg.validate()
-        if err:
-            refused.append(((m, n, k), cfg, err))
-            continue
+        assert cfg.validate() is None, (m, n, k, cfg)
         route = mm.launch_route(cfg, stand_in, stand_in, m, n, k)
         routes[route] = routes.get(route, 0) + 1
-    assert sum(routes.values()) == 212
+    assert sum(routes.values()) == 214
     assert routes["wgmma_wide"] > 0
-    assert [(s, c.bm) for s, c, _ in refused] == [((16, 11008, 4096), 16), ((8, 4096, 4096), 16)]
-    for (m, n, k), cfg, err in refused:
-        assert "bm=16" in err
-        a = torch.empty((m, k), dtype=torch.bfloat16)
-        rhs = torch.empty((n, k) if cfg.rhs_layout == "nk" else (k, n), dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="bm=16"):
-            mm._matmul(a, rhs, cfg, torch.float32, None)
-        assert dispatch.resolve_config(m, n, k) != cfg  # never resolved to it
+    narrow = [(s, acc, c) for s, acc, c in entries if c.bm == 16]
+    assert [(s, c.bm) for s, _, c in narrow] == [((16, 11008, 4096), 16), ((8, 4096, 4096), 16)]
+    db = db_mod.default_db()
+    for (m, n, k), acc, cfg in narrow:
+        db.put(m, n, k, cfg, 1.0, acc=acc, extra={"scope": "from_jax"})
+    db.save()
+    db_mod.reset_default_db()
+    for (m, n, k), acc, cfg in narrow:
+        assert cfg.wide and mm.launch_route(cfg, stand_in, stand_in, m, n, k) == "wgmma_wide_lsu"
+        assert mm.launch_variants(cfg, k) == ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED"]
+        assert dispatch.resolve_config(m, n, k, acc) == cfg
+        a_np, b_np = _draw(17, [(m, k), (k, n)], True)
+        a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()
+        got = dispatch.matmul(a, b, acc=acc, out_dtype=torch.float32)
+        assert torch.equal(got, mm.matmul_reference(a, b, cfg.bk, acc, out_dtype=torch.float32))
 
 
 def test_jax_db_covers_every_new_variant():
@@ -209,7 +215,10 @@ def test_candidates_hold_the_jax_entrys_config(m, n, k, acc):
     assert any(k > c.bk for c in wide)
     for c in wide:
         assert c.validate() is None
-        assert mm.launch_route(c, stand_in, stand_in, m, n, k) == "wgmma_wide"
+        # TMA stores C where every block edge lies on the sub-tile grid or past the
+        # problem's; the swapped walk (bm <= 32) and a clipped edge store by predication
+        want_route = "wgmma_wide" if wide_c_grid(m, n, c.bm, c.bn) else "wgmma_wide_lsu"
+        assert mm.launch_route(c, stand_in, stand_in, m, n, k) == want_route
 
 
 def test_candidates_take_jaxs_full_dim_cover_above_2048_rows():

@@ -4,26 +4,32 @@ Counterpart of ``tpul2/config.py``.  One dataclass names a point of the searched
 field names are the JAX package's, so a configuration carries across
 (``KernelConfig.from_jax``).  What the fields mean on Hopper:
 
-  bm, bn          CTA output tile; one of TILE_CHOICES.  Every tile runs tl2_wgmma.cu's
-                  TMA + wgmma ring (``ops.matmul.launch_route``), for the K carry and the
-                  single interval (gk == 1) alike: 64 or 128 in both edges, one consumer
-                  warpgroup per 64 rows of m64 x bn wgmmas; bn = 32 the same at width 32;
-                  bm = 32 over bn 64 / 128 with the operands swapped (the tile's N rows are
-                  wgmma's M).  The route names the producer that fills the ring: TMA where
-                  it can read both operands, the loads producer where it cannot.
-                  ``smem_bytes`` models the ring a config's launches take: ``carry_stages``
-                  stages for depth 0 (``wgmma_smem_bytes``), ``pipeline_depth`` stages for
-                  a staged config.
+  bm, bn          the CTA's output block, any edges the JAX space emits (its sublane 16,
+                  its covers of M < 16 and N < 128, any full-dim cover).  A ring block (both
+                  edges 1..128) runs tl2_wgmma.cu's TMA + wgmma ring
+                  (``ops.matmul.launch_route``), for the K carry and the single interval
+                  (gk == 1) alike, on the tile of ``ring_edge`` of each edge (32, 64 or 128,
+                  the least that holds it): 64 or 128 in both edges, one consumer warpgroup
+                  per 64 rows of m64 x bn wgmmas; a 32 bn the same at width 32; a 32 bm over
+                  bn 64 / 128 with the operands swapped (the tile's N rows are wgmma's M).
+                  The CTAs step by the block's edges, and the tile's rows and columns
+                  beyond them are computed and never stored.  The route names the producer
+                  that fills the ring: TMA where it can read both operands, the loads
+                  producer where it cannot.  ``smem_bytes`` models the ring a config's
+                  launches take: ``carry_stages`` stages for depth 0 (``wgmma_smem_bytes``),
+                  ``pipeline_depth`` stages for a staged config.
                   Or a wide block (``is_wide``: an edge above 128), the JAX space's
-                  "longest contiguous C stripes" (``tpul2/config.py:422-447``): bm 64, 128
-                  or a multiple of 128 up to WIDE_BM_MAX, bn a multiple of 128 up to
-                  WIDE_BN_MAX.  It runs tl2_wgmma_wide.cu at any bk, 2-D and batched: one
-                  CTA walks the block in 64- or 128-row x 128-column sub-tiles, the bf16
+                  "longest contiguous C stripes" (``tpul2/config.py:422-447``): bm up to
+                  WIDE_BM_MAX, bn up to WIDE_BN_MAX.  It runs tl2_wgmma_wide.cu at any bk,
+                  2-D and batched: one CTA walks the block in ``wide_sub_m``-row x
+                  128-column sub-tiles (swapped at bm <= 32: the sub-tile's columns are
+                  wgmma's M), the last of each clipped at the block's edge, the bf16
                   family's K carry rounded at every bk as on the ring.  A stays resident
                   per strip where all of K fits beside two ring stages, else streams
-                  through the ring beside B (``wide_streamed``, from K at the launch).  The
-                  route ('wgmma_wide', or 'wgmma_wide_lsu' where the loads producer reads
-                  an operand or predicated stores write C) is ``ops.matmul.launch_route``'s
+                  through the ring beside B (``wide_streamed``, from K at the launch; always
+                  in the swapped walk).  The route ('wgmma_wide', or 'wgmma_wide_lsu' where
+                  the loads producer reads an operand or predicated stores write C) is
+                  ``ops.matmul.launch_route``'s
   bk              the K interval after which the running sum is rounded to ``acc_dtype``
                   (the JAX meaning, ``tpul2/ops/matmul.py:116``); a multiple of KSTEP, half
                   a ring stage, so that a rounding point falls on a stage's start or its
@@ -35,8 +41,9 @@ field names are the JAX package's, so a configuration carries across
                   its own loads and stores; kept so configurations carry across
   pipeline_depth  0: the carry and single-K bodies; 2..8: the staged kernel (the port of
                   ``tpul2/ops/pipelined.py``) with a ring of this many 64-deep K stages in
-                  shared memory, on every tile, with a split K where the output has few
-                  tiles (``ops.pipelined``)
+                  shared memory, on every ring block, with a split K where the output has
+                  few tiles (``ops.pipelined``); at a wide block, the wide walk's f32 sum with
+                  A and B streamed through that many stages, no split
   use_vendor      sentinel: call the library GEMM ``vendor_variant`` (ops/baselines.py)
 
 The TPU's VMEM model is replaced by the CTA's shared-memory footprint (the reference's
@@ -53,7 +60,8 @@ from typing import Optional
 from tpul2_torch.ops.baselines import VENDOR_VARIANTS
 from tpul2_torch.utils.padding import cdiv, round_up
 
-#: Output tile edges the ring kernel is instantiated for (csrc/tl2_wgmma*.cu).
+#: Output tile edges the ring kernel is instantiated for (csrc/tl2_wgmma*.cu); a ring block of
+#: any edges in 1..128 runs the least that holds it (``ring_edge``).
 TILE_CHOICES = (32, 64, 128)
 #: The wide tile edges: one consumer warpgroup of m64 wgmmas per 64 rows of C.  A 32 edge
 #: runs the same ring at width 32 (bn) or with the operands swapped (bm).
@@ -85,18 +93,23 @@ PIPELINE_DEPTHS = (0, 2, 3, 4, 6, 8)
 _BK_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 #: The wide blocks (tl2_wgmma_wide.cu; tl2_wgmma_model.cuh mirrors these constants): the
-#: JAX space's edges above 128 (``dim_choices``, ``tpul2/config.py:422-447``, and the edges
-#: of its tuned DB), each a multiple of WIDE_SUB_N, up to these.
+#: JAX space's edges (``dim_choices``, ``tpul2/config.py:422-447``, and the edges of its tuned
+#: DB), any edge up to these: bm 16384 (the JAX DB's tallest block), bn 32768 (JAX's
+#: full-dim cover of N, up to twice its largest bn).
 WIDE_BM_MAX = 16384
-WIDE_BN_MAX = 16384
+WIDE_BN_MAX = 32768
 #: The power-of-two edges above 128 that ``candidate_configs`` emits (JAX's bases), and the
 #: largest M it covers with one block (JAX's full-dim cover: M up to twice its largest bm).
 WIDE_BM_CHOICES = (256, 512, 1024, 2048)
 WIDE_BN_CHOICES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 WIDE_FULL_M_MAX = 2 * WIDE_BM_CHOICES[-1]
-#: Columns of the wide route's sub-tile (its wgmmas are m64n128); its rows are 64 at
-#: bm = 64 and 128 otherwise (``wide_sub_m``).
+#: JAX's sublane edge for bf16 (``min_sublane``): its least bm, beside its covers of M < 16.
+JAX_SUBLANE = 16
+#: Columns of the wide route's sub-tile (its wgmmas are m64n128, or m64n32 swapped); its rows
+#: are WIDE_SWAP_M (the swapped walk) at bm <= 32, 64 at bm <= 64 and 128 otherwise
+#: (``wide_sub_m``).
 WIDE_SUB_N = 128
+WIDE_SWAP_M = 32
 #: The wide route's ring: WIDE_STAGES deep where shared memory allows, WIDE_MIN_STAGES at
 #: least.
 WIDE_STAGES = 4
@@ -109,19 +122,28 @@ WIDE_C_BYTES = 64 * WIDE_SUB_N * 4
 #: TILE_CHOICES tiles, the JAX package's bk rule, the kStage axis, the vendor variants.
 #: 2 = the wide blocks at gk == 1 (WIDE_BM_CHOICES x WIDE_BN_CHOICES, bk the whole K).
 #: 3 = the wide blocks at every bk of the set and JAX's full-dim covers (bm = M up to
-#: WIDE_FULL_M_MAX, bn = N).
-SPACE_REV = 3
+#: WIDE_FULL_M_MAX, bn = N).  4 = every edge of the JAX space: its sublane 16, its covers of
+#: M < 16 and of unaligned M and N, bn < 128 beside a wide bm, bn covers up to WIDE_BN_MAX,
+#: and the kStage axis with JAX's own picks (staged wide blocks among them).
+SPACE_REV = 4
 
 #: TPU-only fields of ``tpul2.config.KernelConfig`` that have no Hopper meaning.
 _TPU_ONLY_FIELDS = ("vmem_limit_bytes", "parallel_mn")
 
 
+def ring_edge(edge: int) -> int:
+    """The ring tile's edge that runs a block edge of 1..128 (``tl2wg::ring_edge``): the least
+    of TILE_CHOICES that holds it."""
+    return next(t for t in TILE_CHOICES if t >= edge)
+
+
 def carry_stages(bm: int, bn: int) -> int:
-    """The ring depth of a carry or single-K launch (``tl2_wgmma_carry_stages``): WGMMA_STAGES
-    on the wide tiles; on a 32-edge tile, whose stage is small, enough stages to keep
-    RING_BYTES of the bn side in flight (cdiv(65536, bn * 128)), at least WGMMA_STAGES and
-    at most MAX_RING, within SMEM_LIMIT: 32 x 64 8, 32 x 128 4, 32 x 32 and 64 x 32 16,
-    128 x 32 the 11 that fit."""
+    """The ring depth of a carry or single-K launch of a ring block (``tl2_wgmma_carry_stages``),
+    by its tile (``ring_edge``): WGMMA_STAGES on the wide tiles; on a 32-edge tile, whose
+    stage is small, enough stages to keep RING_BYTES of the bn side in flight
+    (cdiv(65536, bn * 128)), at least WGMMA_STAGES and at most MAX_RING, within SMEM_LIMIT:
+    32 x 64 8, 32 x 128 4, 32 x 32 and 64 x 32 16, 128 x 32 the 11 that fit."""
+    bm, bn = ring_edge(bm), ring_edge(bn)
     if bm in WGMMA_TILES and bn in WGMMA_TILES:
         return WGMMA_STAGES
     want = max(WGMMA_STAGES, cdiv(RING_BYTES, bn * WGMMA_KSTAGE * 2))
@@ -130,12 +152,12 @@ def carry_stages(bm: int, bn: int) -> int:
 
 
 def wgmma_smem_bytes(bm: int, bn: int, stages: Optional[int] = None) -> int:
-    """Shared memory of one ring CTA (``tl2_wgmma_smem_bytes``): 1024 bytes to align the
-    ring to the swizzle period, ``stages`` (default: ``carry_stages``) stages of (bm + bn)
-    rows of 128 bytes, and a full and an empty mbarrier per stage."""
+    """Shared memory of one ring CTA of a ring block (``tl2_wgmma_smem_bytes``): 1024 bytes to
+    align the ring to the swizzle period, ``stages`` (default: ``carry_stages``) stages of
+    the tile's (bm + bn) rows of 128 bytes, and a full and an empty mbarrier per stage."""
     if stages is None:
         stages = carry_stages(bm, bn)
-    return 1024 + stages * (bm + bn) * WGMMA_KSTAGE * 2 + 2 * stages * 8
+    return 1024 + stages * (ring_edge(bm) + ring_edge(bn)) * WGMMA_KSTAGE * 2 + 2 * stages * 8
 
 
 def is_wide(bm: int, bn: int) -> bool:
@@ -144,9 +166,9 @@ def is_wide(bm: int, bn: int) -> bool:
 
 
 def wide_sub_m(bm: int) -> int:
-    """Rows of the wide route's sub-tile (and of its resident A strip): 64 at bm = 64, else
-    128 (``tl2wg::wide_sub_m``)."""
-    return 64 if bm == 64 else 128
+    """Rows of the wide route's sub-tile (and of its A strip): WIDE_SWAP_M at bm <= 32 (the
+    swapped walk), 64 at bm <= 64, else 128 (``tl2wg::wide_sub_m``)."""
+    return WIDE_SWAP_M if bm <= WIDE_SWAP_M else 64 if bm <= 64 else 128
 
 
 def wide_smem_bytes(bm: int, k: int, stages: int, streamed: bool) -> int:
@@ -154,12 +176,14 @@ def wide_smem_bytes(bm: int, k: int, stages: int, streamed: bool) -> int:
     to align to the swizzle period, ``stages`` ring stages (a B box of WIDE_SUB_N rows of
     128 bytes, and where A streams the strip's A box of ``wide_sub_m`` rows beside it), the
     resident A strip (``wide_sub_m`` rows x K rounded up to 64, in 128-byte rows; none where
-    A streams), WIDE_C_BYTES of C staging per consumer warpgroup, a full and an empty
-    mbarrier per stage and for the strip."""
+    A streams), WIDE_C_BYTES of C staging per consumer warpgroup of the plain walk (none in
+    the swapped walk, whose stores are predicated), a full and an empty mbarrier per stage
+    and for the strip."""
     sub_m = wide_sub_m(bm)
     stage = (WIDE_SUB_N + (sub_m if streamed else 0)) * WGMMA_KSTAGE * 2
     strip = 0 if streamed else cdiv(k, WGMMA_KSTAGE) * sub_m * WGMMA_KSTAGE * 2
-    return 1024 + stages * stage + strip + sub_m // 64 * WIDE_C_BYTES + (2 * stages + 2) * 8
+    staging = 0 if sub_m == WIDE_SWAP_M else sub_m // 64 * WIDE_C_BYTES
+    return 1024 + stages * stage + strip + staging + (2 * stages + 2) * 8
 
 
 def _wide_fit(bm: int, k: int, streamed: bool) -> int:
@@ -172,14 +196,24 @@ def _wide_fit(bm: int, k: int, streamed: bool) -> int:
 def wide_streamed(bm: int, k: int) -> bool:
     """Whether a bm-row wide block's A streams through the ring at depth K
     (``tl2_wgmma_wide_streamed``): where the resident strip of all of K leaves fewer than
-    WIDE_MIN_STAGES stages, K above 512 at 128-row strips and above 1280 at 64-row ones."""
-    return _wide_fit(bm, k, False) < WIDE_MIN_STAGES
+    WIDE_MIN_STAGES stages, K above 512 at 128-row strips and above 1280 at 64-row ones;
+    always in the swapped walk (bm <= 32), whose A box is 4 KB a stage."""
+    return bm <= WIDE_SWAP_M or _wide_fit(bm, k, False) < WIDE_MIN_STAGES
 
 
 def wide_stages(bm: int, k: int) -> int:
     """The wide route's ring depth at depth K in the mode K takes (``tl2_wgmma_wide_stages``):
     WIDE_STAGES, or as many as fit; below WIDE_MIN_STAGES the block does not fit."""
     return _wide_fit(bm, k, wide_streamed(bm, k))
+
+
+def wide_c_grid(m: int, n: int, bm: int, bn: int) -> bool:
+    """Whether TMA stores can write a wide block's C (``tl2wg::wide_c_grid``): they clip only
+    at the problem's edges, so every block edge must lie on the sub-tile grid or past the
+    problem's edge (one block along that dimension); the swapped walk's stores are
+    predicated."""
+    return (bm > WIDE_SWAP_M and (bm % wide_sub_m(bm) == 0 or bm >= m)
+            and (bn % WIDE_SUB_N == 0 or bn >= n))
 
 
 def _vendor_for_xla(variant: str) -> str:
@@ -217,13 +251,18 @@ class KernelConfig:
         """Build from ``dataclasses.asdict(tpul2.config.KernelConfig)``.
 
         Drops the TPU-only fields and maps ``use_xla``/``xla_variant`` onto the vendor
-        sentinel.  Tiles are carried as they are; ``validate`` judges them."""
+        sentinel.  Blocks are carried as they are; ``validate`` judges them.  A bk that is
+        not a multiple of KSTEP is JAX's full-K cover (its validate admits a bk off its
+        lane only as bk == K, ``tpul2/config.py:264``): it becomes round_up(bk, KSTEP), the
+        same single interval (the extra columns read as zeros)."""
         d = {k: v for k, v in d.items() if k not in _TPU_ONLY_FIELDS}
         use_xla = d.pop("use_xla", False)
         xla_variant = d.pop("xla_variant", "matmul")
         if use_xla:
             d["use_vendor"] = True
             d["vendor_variant"] = _vendor_for_xla(xla_variant)
+        elif d.get("bk", KSTEP) % KSTEP and d.get("bk", 0) > 0:
+            d["bk"] = round_up(d["bk"], KSTEP)
         return KernelConfig(**d)
 
     # ---- serialization (the tuning DB stores these) ----
@@ -244,7 +283,10 @@ class KernelConfig:
         (``wgmma_smem_bytes``): ``carry_stages`` 64-deep stages for depth 0,
         ``pipeline_depth`` of them for a staged config.  A wide block's at K = bk
         (``wide_smem_bytes`` in the mode K = bk takes); at any K the launch takes the mode
-        that fits."""
+        that fits.  A staged wide block streams A beside B through ``pipeline_depth``
+        stages, at any K."""
+        if self.wide and self.pipeline_depth:
+            return wide_smem_bytes(self.bm, 0, self.pipeline_depth, True)
         if self.wide:
             return wide_smem_bytes(self.bm, self.bk, wide_stages(self.bm, self.bk),
                                    wide_streamed(self.bm, self.bk))
@@ -273,14 +315,14 @@ class KernelConfig:
         if self.pipeline_depth >= 2 and self.edge == "mask":
             return ("pipeline_depth requires edge='pad' (the staged kernel needs "
                     "block-divisible dims)")
+        if self.bm < 1:
+            return f"bm={self.bm} is not a positive block edge"
+        if self.bn < 1:
+            return f"bn={self.bn} is not a positive block edge"
         if self.wide:
             err = self._check_wide()
             if err:
                 return err
-        elif self.bm not in TILE_CHOICES:
-            return f"bm={self.bm} is not one of the kernel's tiles {TILE_CHOICES}"
-        elif self.bn not in TILE_CHOICES:
-            return f"bn={self.bn} is not one of the kernel's tiles {TILE_CHOICES}"
         if self.bk <= 0 or self.bk % KSTEP:
             return (f"bk={self.bk} is not a positive multiple of {KSTEP}, half the ring's "
                     "K stage")
@@ -299,22 +341,18 @@ class KernelConfig:
         return None
 
     def _check_wide(self) -> Optional[str]:
-        if not (self.bm in WGMMA_TILES or (self.bm % WIDE_SUB_N == 0
-                                           and self.bm <= WIDE_BM_MAX)):
-            return (f"bm={self.bm} is not a wide block's edge (64, 128 or a multiple of "
-                    f"{WIDE_SUB_N} up to {WIDE_BM_MAX})")
-        if not (self.bn % WIDE_SUB_N == 0 and self.bn <= WIDE_BN_MAX):
-            return (f"bn={self.bn} is not a wide block's edge (a multiple of {WIDE_SUB_N} "
-                    f"up to {WIDE_BN_MAX})")
-        if self.pipeline_depth:
-            return (f"pipeline_depth={self.pipeline_depth}: the staged kernel has no wide "
-                    "blocks (a staged wide block is not ported)")
+        if self.bm > WIDE_BM_MAX:
+            return f"bm={self.bm} is above the wide blocks' largest edge {WIDE_BM_MAX}"
+        if self.bn > WIDE_BN_MAX:
+            return f"bn={self.bn} is above the wide blocks' largest edge {WIDE_BN_MAX}"
         return None
 
     def padding_waste(self, m: int, n: int, k: int) -> float:
         """Fraction of the MMA work spent on the zeros of partial tiles (the kernel
-        predicates its edges, so the zeros cost MMAs, not copies)."""
-        padded = round_up(m, self.bm) * round_up(n, self.bn) * round_up(k, self.bk)
+        predicates its edges, so the zeros cost MMAs, not copies).  A bk that covers K is
+        one interval of K, as JAX's full-dim cover is one internally padded block."""
+        padded = (round_up(m, self.bm) * round_up(n, self.bn)
+                  * (k if self.bk >= k else round_up(k, self.bk)))
         return 1.0 - (m * n * k) / padded
 
 
@@ -353,18 +391,110 @@ def heuristic_config(m: int, n: int, k: int, acc_dtype: str = "float32") -> Kern
     return KernelConfig(bm=bm, bn=bn, bk=_pick_bk(k), acc_dtype=acc_dtype)
 
 
+#: The JAX space's VMEM regime (``tpul2/config.py:40-63``), which its prior ranks by and its
+#: footprint rule filters with; kept here only so that ``candidate_configs``' kStage axis can
+#: take JAX's own picks (``_jax_kstage_picks``).  No Hopper launch reads them.
+_JAX_VMEM_BUDGET = 14 << 20
+_JAX_A_BLOCK_CAP = 2 << 20
+_JAX_VMEM_CAP = 112 << 20
+_JAX_VMEM_FLOOR = 32 << 20
+_JAX_LANE = 128
+#: JAX's bases of bm and bn (``tpul2/config.py:436-447``): its sublane up to 2048, its lane up
+#: to 16384.
+_JAX_BMS = (JAX_SUBLANE, 32, 64, 128) + WIDE_BM_CHOICES
+_JAX_BNS = (WIDE_SUB_N,) + WIDE_BN_CHOICES
+
+
+def _jax_vmem_limit(bm: int, bn: int, bk: int, acc_dtype: str, rhs_layout: str, depth: int,
+                    m: int, n: int, k: int):
+    """JAX's footprint model and ``assign_vmem_limit`` for a bf16 block at (m, n, k)
+    (``tpul2/config.py:184-240``, ``:380-396``): 0 where it fits the default regime, 1 where
+    it needs a raised limit, None where no limit fits (the config is not in JAX's space)."""
+    def phys(rows: int, cols: int, sublane: int, item: int) -> int:
+        return round_up(rows, sublane) * round_up(cols, _JAX_LANE) * item
+
+    acc_item, acc_sub = (4, 8) if acc_dtype == "float32" else (2, 16)
+    a_blk = phys(bm, bk, 16, 2)
+    b_blk = phys(bn, bk, 16, 2) if rhs_layout == "nk" else phys(bk, bn, 16, 2)
+    o_blk = phys(bm, bn, 16, 2)
+    if depth >= 2:
+        fp = depth * (a_blk + b_blk) + 2 * o_blk + phys(bm, bn, 8, 4)
+    else:
+        gm, gn, gk = cdiv(m, bm), cdiv(n, bn), cdiv(k, bk)
+        acc = 0 if gk == 1 else phys(bm, bn, acc_sub, acc_item)
+        fp = ((2 if gm > 1 or gk > 1 else 1) * a_blk + (2 if gn > 1 or gk > 1 else 1) * b_blk
+              + (2 if gm > 1 or gn > 1 else 1) * o_blk + acc)
+    if fp <= _JAX_VMEM_BUDGET and bm * bk * 2 <= _JAX_A_BLOCK_CAP:
+        return 0
+    limit = max(_JAX_VMEM_FLOOR, round_up(int(fp / 0.75), 1 << 20))
+    return 1 if limit <= _JAX_VMEM_CAP else None
+
+
+def _edges(dim: int, base: tuple, align: int, cover: bool) -> list:
+    """The block edges of ``base`` up to the problem rounded to ``align``, and with
+    ``cover`` the dimension itself (JAX's ``dim_choices``, ``tpul2/config.py:422-430``,
+    whose least base never exceeds the rounded problem)."""
+    return sorted({e for e in base if e <= round_up(dim, align)} | ({dim} if cover else set()))
+
+
+def _jax_kstage_picks(m: int, n: int, k: int, acc_dtype: str, limit: int) -> list:
+    """The staged configs JAX's ``candidate_configs`` emits at (m, n, k) (``tpul2/config.py:
+    503-515``), as port configs: its first ``limit`` configs by its prior (padding waste,
+    grid steps, default VMEM regime first, 'mn' first; ties in its enumeration order),
+    staged at depths 2 and 4 where the blocks divide the problem with at least 3 K
+    intervals and JAX's footprint rule admits the staged block.  Empty where JAX gates the
+    axis off (not min(m, n) <= 256 and k >= 2048)."""
+    if not (min(m, n) <= 256 and k >= 2048):
+        return []
+    bms = _edges(m, _JAX_BMS, JAX_SUBLANE, m <= WIDE_FULL_M_MAX)
+    bns = _edges(n, _JAX_BNS, _JAX_LANE, n <= WIDE_BN_MAX)
+    bks = _edges(k, _BK_CHOICES, _JAX_LANE, k <= 2 * _BK_CHOICES[-1])
+    ranked = []
+    for bm in bms:
+        for bn in bns:
+            for bk in bks:
+                waste = 1.0 - (m * n * k) / (round_up(m, bm) * round_up(n, bn)
+                                             * round_up(k, bk))
+                if waste > 0.6:
+                    continue
+                steps = cdiv(m, bm) * cdiv(n, bn) * cdiv(k, bk)
+                for order in ("mn", "nm"):
+                    for rhs in ("kn", "nk"):
+                        edges = ("pad", "mask") if (m % bm or n % bn or k % bk) else ("pad",)
+                        for edge in edges:
+                            regime = _jax_vmem_limit(bm, bn, bk, acc_dtype, rhs, 0, m, n, k)
+                            if regime is not None:
+                                ranked.append(((waste, steps, regime, order != "mn"),
+                                               (bm, bn, bk, order, rhs, edge)))
+    ranked.sort(key=lambda t: t[0])  # stable: ties keep JAX's enumeration order
+    out = []
+    for _, (bm, bn, bk, order, rhs, edge) in ranked[:limit]:
+        if edge == "mask" or m % bm or n % bn or k % bk or k // bk < 3:
+            continue
+        for depth in (2, 4):
+            if _jax_vmem_limit(bm, bn, bk, acc_dtype, rhs, depth, m, n, k) is not None:
+                out.append(KernelConfig.from_jax(dict(
+                    bm=bm, bn=bn, bk=bk, acc_dtype=acc_dtype, grid_order=order,
+                    rhs_layout=rhs, edge=edge, pipeline_depth=depth)))
+    return out
+
+
 def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
                       max_candidates: int = 64) -> list:
     """The tuner's candidate set for one shape (the role of ``tpul2/config.py:400``).
 
-    Tiles from TILE_CHOICES up to the problem; bk from the JAX package's rule (128..16384
-    not above round_up(k, 128), plus the whole K rounded up to KSTEP); both raster orders
-    and RHS layouts; 'mask' beside 'pad' only where the blocks do not divide.  The wide
-    blocks too, at the same bks: bm in WGMMA_TILES or WIDE_BM_CHOICES, and M itself up to
-    WIDE_FULL_M_MAX (JAX's full-dim cover), bn in WIDE_SUB_N or WIDE_BN_CHOICES, and N
-    itself (``tpul2/config.py:422-447``), each a multiple of WIDE_SUB_N up to the problem
-    rounded to it, an edge above 128.  Configs with more than 60% padding waste are
-    dropped.
+    Blocks: the ring's tiles (TILE_CHOICES in both edges, up to the problem rounded to
+    32); the wide blocks of the ring's edges (bm in WGMMA_TILES or WIDE_BM_CHOICES, and M
+    itself up to WIDE_FULL_M_MAX where 128 divides it, bn in WIDE_SUB_N or
+    WIDE_BN_CHOICES, and N itself, each up to the problem rounded to 128, an edge above
+    128); and every block the JAX space emits (``dim_choices``, ``tpul2/config.py:422-447``:
+    bm its sublane 16, 32, 64, 128 and WIDE_BM_CHOICES up to the problem rounded to 16, and
+    M itself up to WIDE_FULL_M_MAX, aligned or not; bn WIDE_SUB_N and WIDE_BN_CHOICES up to
+    the problem rounded to 128, and N itself up to WIDE_BN_MAX).  bk from the JAX package's
+    rule (128..16384 not above round_up(k, 128), plus the whole K rounded up to KSTEP, which
+    ``KernelConfig.from_jax`` makes of JAX's whole-K cover); both raster orders and RHS
+    layouts; 'mask' beside 'pad' only where the blocks do not divide.  Configs with more
+    than 60% padding waste are dropped.
 
     The cost prior treats the kernel as bound by device-memory bytes, as the skinny and
     thin-K shapes are on the H100 (and nothing here reaches the tensor-core roof):
@@ -385,45 +515,43 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
     streaming shapes, where a 32-edge tile's CTAs read B twice as often as a 64-row
     tile's (and tl2_staged.cu's 32-edge mma.sync tile ran 2.7x behind the 64 x 64 ring
     at 64 x 8192 x 8192 on the H100, PERF.md).  Where the problem has no wide tile (a
-    dimension of at most 32), the picks come from the kept candidates, as in the JAX
-    package: the ring's width-32 or swapped tiles.  The ring's stages are as deep
+    dimension of at most 32), the picks come from the kept candidates of the ring's tiles,
+    as in the JAX package: the ring's width-32 or swapped tiles.  The ring's stages are as deep
     whatever bk is, and the prior ranks all four raster/layout variants of a (tile, bk)
-    ahead of another bk for the same tile, so no two staged candidates differ in bk
-    alone.  Then every vendor variant, always, so the tuner can never do worse than
-    the library.
+    ahead of another bk for the same tile, so no two of these differ in bk alone.
+    Beside them, JAX's own staged picks (``_jax_kstage_picks``: its top picks by its
+    prior, wide blocks among them, which run the wide walk's staged sum).  Then every
+    vendor variant, always, so the tuner can never do worse than the library.
     """
-    def tiles(dim: int) -> list:
-        return [t for t in TILE_CHOICES if t <= round_up(dim, TILE_CHOICES[0])]
-
+    tiles_m, tiles_n = (_edges(dim, TILE_CHOICES, TILE_CHOICES[0], False) for dim in (m, n))
+    blocks = {(bm, bn) for bm in tiles_m for bn in tiles_n}
+    # the wide blocks of the ring's edges, and JAX's full-dim covers of aligned dimensions
+    blocks |= {(bm, bn)
+               for bm in _edges(m, WGMMA_TILES + WIDE_BM_CHOICES, WIDE_SUB_N,
+                                m % WIDE_SUB_N == 0 and m <= WIDE_FULL_M_MAX)
+               for bn in _edges(n, _JAX_BNS, WIDE_SUB_N, n % WIDE_SUB_N == 0 and n <= WIDE_BN_MAX)
+               if is_wide(bm, bn)}
+    # the JAX space's blocks (its dim_choices), narrow, unaligned and wide alike
+    blocks |= {(bm, bn)
+               for bm in _edges(m, _JAX_BMS, JAX_SUBLANE, m <= WIDE_FULL_M_MAX)
+               for bn in _edges(n, _JAX_BNS, WIDE_SUB_N, n <= WIDE_BN_MAX)}
     bks = {c for c in _BK_CHOICES if c <= round_up(k, 128)}
     if k <= 2 * _BK_CHOICES[-1]:
         bks.add(round_up(k, KSTEP))  # whole K in one interval (gk == 1)
-    blocks = [(bm, bn, bk) for bm in tiles(m) for bn in tiles(n) for bk in sorted(bks)]
-
-    # the wide blocks: JAX's edges above 128 up to the problem, and its full-dim covers
-    def wide_edges(dim: int, base: tuple, full_max: int) -> list:
-        edges = {e for e in base if e <= round_up(dim, WIDE_SUB_N)}
-        if dim % WIDE_SUB_N == 0 and dim <= full_max:
-            edges.add(dim)
-        return sorted(edges)
-
-    blocks += [(bm, bn, bk)
-               for bm in wide_edges(m, WGMMA_TILES + WIDE_BM_CHOICES, WIDE_FULL_M_MAX)
-               for bn in wide_edges(n, (WIDE_SUB_N,) + WIDE_BN_CHOICES, WIDE_BN_MAX)
-               if is_wide(bm, bn) for bk in sorted(bks)]
     out, seen = [], set()
-    for bm, bn, bk in blocks:
-        for order in ("mn", "nm"):
-            for rhs in ("kn", "nk"):
-                edges = ("pad", "mask") if (m % bm or n % bn or k % bk) else ("pad",)
-                for edge in edges:
-                    cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc_dtype,
-                                       grid_order=order, rhs_layout=rhs, edge=edge)
-                    if (cfg in seen or cfg.validate() is not None
-                            or cfg.padding_waste(m, n, k) > 0.6):
-                        continue
-                    seen.add(cfg)
-                    out.append(cfg)
+    for bm, bn in sorted(blocks):
+        for bk in sorted(bks):
+            for order in ("mn", "nm"):
+                for rhs in ("kn", "nk"):
+                    modes = ("pad", "mask") if (m % bm or n % bn or k % bk) else ("pad",)
+                    for edge in modes:
+                        cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc_dtype,
+                                           grid_order=order, rhs_layout=rhs, edge=edge)
+                        if (cfg in seen or cfg.validate() is not None
+                                or cfg.padding_waste(m, n, k) > 0.6):
+                            continue
+                        seen.add(cfg)
+                        out.append(cfg)
 
     heuristic_bk = _pick_bk(k)
 
@@ -431,7 +559,7 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
         gm, gn = cdiv(m, c.bm), cdiv(n, c.bn)
         # a wide CTA reads its block's B once per strip of wide_sub_m rows, and a streamed
         # A once per sub-tile column
-        b_reads = c.bm // wide_sub_m(c.bm) if c.wide else 1
+        b_reads = cdiv(c.bm, wide_sub_m(c.bm)) if c.wide else 1
         a_reads = cdiv(c.bn, WIDE_SUB_N) if c.wide and wide_streamed(c.bm, k) else 1
         return (round(c.padding_waste(m, n, k), 6),
                 -min(1.0, gm * gn / NUM_SMS),
@@ -444,13 +572,17 @@ def candidate_configs(m: int, n: int, k: int, acc_dtype: str = "float32",
     out = out[:max_candidates]
     if min(m, n) <= 256 and k >= 2048:
         deep = []
-        for c in (ring or out)[:min(4, max_candidates // 2)]:
+        tiles = ring or [c for c in out if c.bm in TILE_CHOICES and c.bn in TILE_CHOICES]
+        for c in tiles[:min(4, max_candidates // 2)]:
             if c.edge == "mask" or m % c.bm or n % c.bn or k % c.bk or k // c.bk < 3:
                 continue
             for depth in (2, 4):
                 d = dataclasses.replace(c, pipeline_depth=depth)
                 if d.validate() is None:
                     deep.append(d)
+        for d in _jax_kstage_picks(m, n, k, acc_dtype, min(4, max_candidates // 2)):
+            if d not in deep and d.validate() is None:
+                deep.append(d)
         out.extend(deep)
     out.extend(KernelConfig.vendor(v) for v in VENDOR_VARIANTS)
     return out

@@ -12,16 +12,19 @@
 //   tpul2/ops/batched.py::_bmm_kernel_single_k (batched, gk == 1)
 //   tpul2/ops/pipelined.py::_kernel            (the staged K ring: tl2_wgmma_staged)
 // Route (tl2_wgmma_route, mirrored by ops/matmul.py::launch_route): every valid config,
-// i.e. bm and bn in {32, 64, 128} and bk a multiple of 32, runs here; the route names the
+// i.e. a block of edges in 1..128 (on the tile of ring_edge(bm) x ring_edge(bn), the CTAs
+// stepping by the block's edges) and bk a multiple of 32, runs here; the route names the
 // producer: 1 ('wgmma') where TMA can read both operands (16-byte aligned bases and rows of
 // a multiple of 16 bytes: K % 8 for A and B_t, N % 8 for B), 2 ('wgmma_lsu') where one of
-// them is read by the loads producer. A wide block (an edge above 128, up to 16384 x 16384,
-// tl2_wgmma_wide.cu) takes 3 ('wgmma_wide') where TMA can read both operands and write C
-// (N % 8 == 0 and a 16-byte aligned C), else 4 ('wgmma_wide_lsu': the loads producer and
-// predicated stores), at any bk and batch. The staged route (tl2_staged_route, mirrored by
-// ops/pipelined.py::staged_route) is the same without bk ('ring' / 'ring_lsu'). A launch is
-// refused (cudaErrorInvalidValue, before any work) outside them, never redirected; the
-// mma.sync bodies (tl2_matmul.cu, tl2_staged.cu) are on no route.
+// them is read by the loads producer. A wide block (an edge above 128, up to 16384 x 32768,
+// any edges, tl2_wgmma_wide.cu) takes 3 ('wgmma_wide') where TMA can read both operands and
+// write C (N % 8 == 0, a 16-byte aligned C, and every block edge on the sub-tile grid or
+// past the problem's: wide_c_grid), else 4 ('wgmma_wide_lsu': the loads producer and
+// predicated stores; the swapped walk of bm <= 32 always), at any bk and batch. The staged
+// route (tl2_staged_route, mirrored by ops/pipelined.py::staged_route) is the same without
+// bk ('ring' / 'ring_lsu' for a ring block, 3 / 4 for a wide one). A launch is refused
+// (cudaErrorInvalidValue, before any work) outside them, never redirected; the mma.sync
+// bodies (tl2_matmul.cu, tl2_staged.cu) are on no route.
 //
 // What it computes, per output tile (and the JAX kernels, matmul.py:116, :146 and
 // batched.py:33, :42):
@@ -63,7 +66,13 @@
 //     the transpose flag on the shared-memory A operand. The epilogue is transposed: the bias
 //     follows the accumulator's rows, and each element is stored on its own, predicated to
 //     (M, N).
-// TMA zero-fills rows past M, so M = 1..31 needs no case of its own.
+// TMA zero-fills rows past M, so M = 1..31 needs no case of its own. A block narrower than its
+// tile (bm or bn not 32, 64 or 128: the JAX space's sublane 16, its covers of M < 16 or of
+// N < 128, any full-dim cover) runs the least tile that holds it (ring_edge), with the CTAs
+// stepping by the block's edges: the tile's rows beyond bm read the next block's rows (its
+// columns beyond bn the next block's columns) and are never stored, since a row of the
+// product depends only on its row of A and a column only on its column of B; the epilogue
+// stores within the block's edges and the problem's.
 //
 // Shared memory: a ring of `stages` stages, each [BM][64] of A then 64 deep of B, 1024-byte
 // aligned, 128-byte swizzle (the TMA boxes, the loads producer and the wgmma descriptors
@@ -105,8 +114,9 @@
 // tl2_splitk_reduce_kernel then adds the partials of each element in split order and casts
 // once. No atomics: two runs on the same inputs give the same bits.
 // Left for later: a split K for the carry launches, a persistent schedule, a TMA store
-// staged through shared memory (the swapped tile's scattered stores), and overlapping one
-// stage's adds with the next stage's wgmmas.
+// staged through shared memory (the swapped tile's scattered stores), overlapping one
+// stage's adds with the next stage's wgmmas, and n16 / n8 tiles for blocks of an edge of 16
+// or less (they run the width-32 and swapped tiles).
 
 #include <string.h>
 
@@ -187,8 +197,6 @@ bool make_out_map(CUtensorMap* map, void* c, int batch, int m, int n, long long 
   return r == CUDA_SUCCESS;
 }
 
-bool tile_ok(int t) { return t == 32 || t == 64 || t == 128; }
-
 // TMA can read a bf16 operand: a 16-byte aligned base and rows of a multiple of 16 bytes.
 bool tma_ok(const void* p, int row) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row % 8 == 0;
@@ -202,21 +210,22 @@ bool tma_c_ok(const void* c, int n) {
 }
 
 // The loads producer's copy width in elements: the widest of 8, 4, 2 that the base's
-// alignment and the row length allow (so that no copy crosses a row's end), else 1: the
-// gather path (16-byte aligned loads into registers, shifted into place).
-int load_width(const void* p, int row) {
+// alignment, the row length (so that no copy crosses a row's end) and `step`, the stride of
+// the first element a CTA reads in a row (64 along K; a block's bn along N of 'kn' B), allow,
+// else 1: the gather path (16-byte aligned loads into registers, shifted into place).
+int load_width(const void* p, int row, int step) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   for (int w = 8; w >= 2; w /= 2)
-    if (a % (2 * w) == 0 && row % w == 0) return w;
+    if (a % (2 * w) == 0 && row % w == 0 && step % w == 0) return w;
   return 1;
 }
 
-// The staged route: 1 where TMA reads both operands ('ring'), 2 where the loads producer
-// reads one ('ring_lsu'), 0 (refused) for an empty problem or a tile the kernel has no
-// instance of. bk plays no part, since a staged launch sums all of K in f32.
-int staged_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
-                      const void* b) {
-  if (m <= 0 || n <= 0 || k <= 0 || !tile_ok(bm) || !tile_ok(bn)) return 0;
+// The ring's route: 1 where TMA reads both operands ('wgmma', 'ring'), 2 where the loads
+// producer reads one ('wgmma_lsu', 'ring_lsu'), 0 (refused) for an empty problem or a block
+// that is not a ring block.
+int ring_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
+                    const void* b) {
+  if (m <= 0 || n <= 0 || k <= 0 || !ring_block_ok(bm, bn)) return 0;
   return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) ? 1 : 2;
 }
 
@@ -226,7 +235,18 @@ int staged_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const voi
 int wide_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
                     const void* b, const void* c) {
   if (m <= 0 || n <= 0 || k <= 0 || !wide_block_ok(bm, bn)) return 0;
-  return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) && tma_c_ok(c, n) ? 3 : 4;
+  return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) && tma_c_ok(c, n) &&
+                 wide_c_grid(m, n, bm, bn)
+             ? 3
+             : 4;
+}
+
+// The staged route: the ring's for a ring block, the wide route's (with a fresh output) for a
+// wide one. bk plays no part, since a staged launch sums all of K in f32.
+int staged_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
+                      const void* b) {
+  if (wide_block(bm, bn)) return wide_route_code(m, n, k, bm, bn, rhs_nk, a, b, nullptr);
+  return ring_route_code(m, n, k, bm, bn, rhs_nk, a, b);
 }
 
 // The same for the carry and single-K launches: bk must be a positive multiple of 32, so
@@ -235,11 +255,12 @@ int route_code(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const vo
                const void* b, const void* c) {
   if (bk <= 0 || bk % (KSTAGE / 2)) return 0;
   if (wide_block(bm, bn)) return wide_route_code(m, n, k, bm, bn, rhs_nk, a, b, c);
-  return staged_route_code(m, n, k, bm, bn, rhs_nk, a, b);
+  return ring_route_code(m, n, k, bm, bn, rhs_nk, a, b);
 }
 
-// The TMA maps of the operands TMA reads (false if cuTensorMapEncodeTiled refuses one); the
-// map of an operand the loads producer reads stays zero and is never used.
+// The TMA maps of the operands TMA reads (false if cuTensorMapEncodeTiled refuses one), in
+// boxes of the tile's bm rows of A and bn rows (or columns) of B; the map of an operand the
+// loads producer reads stays zero and is never used.
 bool make_maps(CUtensorMap* ta, CUtensorMap* tb, const void* a, const void* b, int batch,
                int m, int n, int k, long long sa, long long sb, int bm, int bn, int rhs_nk,
                bool tma_a, bool tma_b) {
@@ -257,59 +278,60 @@ int pairs_ok(const void* c, int n, int batch, long long sc, int elem_bytes) {
          reinterpret_cast<uintptr_t>(c) % (2 * elem_bytes) == 0;
 }
 
-// Launch the instance of (bm, bn) from its file; cudaErrorInvalidValue for a tile it has
-// none of.
-cudaError_t launch_tiles(int bm, int bn, const CUtensorMap& ta, const CUtensorMap& tb,
-                         const WgParams& p, int splits, int batch, int rhs_nk, int acc_bf16,
-                         cudaStream_t s) {
-  const auto fn = bm >= 64 && bn >= 64 ? (p.load_a || p.load_b ? launch_wide_lsu : launch_wide)
-                  : bn == 32 ? launch_n32 : launch_swap;
-  return fn(bm, bn, ta, tb, p, splits, batch, rhs_nk, acc_bf16, s);
+// Launch the instance of the tile of p.blk_m x p.blk_n (ring_edge of each) from its file;
+// cudaErrorInvalidValue for a tile it has none of.
+cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
+                         int splits, int batch, int rhs_nk, int acc_bf16, cudaStream_t s) {
+  const int tm = ring_edge(p.blk_m), tn = ring_edge(p.blk_n);
+  const auto fn = tm >= 64 && tn >= 64 ? (p.load_a || p.load_b ? launch_wide_lsu : launch_wide)
+                  : tn == 32 ? launch_n32 : launch_swap;
+  return fn(tm, tn, ta, tb, p, splits, batch, rhs_nk, acc_bf16, s);
 }
 
-// The parameters shared by every launch; the caller sets c, bk, the batch stride of C, the
-// split, the ring depth and the epilogue.
+// The parameters shared by every launch of a bm x bn block; the caller sets c, bk, the batch
+// stride of C, the split, the ring depth and the epilogue.
 WgParams base_params(const void* a, const void* b, int m, int n, int k, long long sa,
-                     long long sb, int rhs_nk, bool tma_a, bool tma_b) {
+                     long long sb, int bm, int bn, int rhs_nk, bool tma_a, bool tma_b) {
   WgParams p;
   memset(&p, 0, sizeof(p));
   p.a = static_cast<const bf16*>(a);
   p.b = static_cast<const bf16*>(b);
   p.sa = sa; p.sb = sb;
   p.m = m; p.n = n; p.k = k;
-  p.load_a = tma_a ? 0 : load_width(a, k);
-  p.load_b = tma_b ? 0 : load_width(b, rhs_nk ? k : n);
+  p.blk_m = bm; p.blk_n = bn;
+  p.load_a = tma_a ? 0 : load_width(a, k, KSTAGE);
+  p.load_b = tma_b ? 0 : rhs_nk ? load_width(b, k, KSTAGE) : load_width(b, n, bn);
   return p;
 }
 
 // A wide block's launch (routes 3 and 4): TMA reads each operand it can (vec_a / vec_b = 0
-// hands it to the loads producer) and stores C where it can, else predicated stores. A
-// resident or a streamed A by K (wide_streamed); the bf16 family's carry only with gk > 1.
+// hands it to the loads producer) and stores C where it can (wide_c_grid), else predicated
+// stores. A resident or a streamed A by K (wide_streamed); the bf16 family's carry only with
+// gk > 1. depth > 0: a staged launch, A streamed through a ring of `depth` stages.
 int launch_wide_route(const void* a, const void* b, const void* bias, void* c, int batch,
                       int m, int n, int k, long long sa, long long sb, long long sc, int bm,
                       int bn, int bk, int rhs_nk, int acc_bf16, int act, int raster_nm,
-                      bool out_f32, int vec_a, int vec_b, cudaStream_t stream) {
+                      bool out_f32, int vec_a, int vec_b, cudaStream_t stream, int depth = 0) {
   if (c == nullptr) return (int)cudaErrorInvalidValue;
   const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
-  const bool tma_c = tma_c_ok(c, n);
+  const bool tma_c = tma_c_ok(c, n) && wide_c_grid(m, n, bm, bn);
   CUtensorMap ta, tb, tc;
   memset(&tc, 0, sizeof(tc));
   if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, wide_sub_m(bm), WIDE_SUB_N, rhs_nk,
                  tma_a, tma_b) ||
       (tma_c && !make_out_map(&tc, c, batch, m, n, sc, out_f32)))
     return (int)cudaErrorInvalidValue;
-  WgParams p = base_params(a, b, m, n, k, sa, sb, rhs_nk, tma_a, tma_b);
+  WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
   p.bias = static_cast<const float*>(bias);
   p.c = c;
   p.bk = bk;
   p.sc = sc;
-  p.wide_stream = wide_streamed(bm, k);
-  p.stages = wide_stages(bm, k);
+  p.wide_stream = depth > 0 || wide_streamed(bm, k);
+  p.stages = depth > 0 ? depth : wide_stages(bm, k);
   p.split_steps = cdiv(k, KSTAGE);
   p.act = act; p.raster_nm = raster_nm; p.out_f32 = out_f32;
-  p.vec_out = pairs_ok(c, n, batch, sc, out_f32 ? 4 : 2);
+  p.vec_out = pairs_ok(c, n, batch, sc, out_f32 ? 4 : 2) && bn % 2 == 0;
   p.tma_c = tma_c;
-  p.wide_bm = bm; p.wide_bn = bn;
   return (int)launch_wide_block(ta, tb, tc, p, batch, rhs_nk, acc_bf16 && cdiv(k, bk) > 1,
                                 stream);
 }
@@ -326,10 +348,11 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
                              static_cast<cudaStream_t>(stream));
   const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
   CUtensorMap ta, tb;
-  if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b))
+  if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, ring_edge(bm), ring_edge(bn), rhs_nk,
+                 tma_a, tma_b))
     return (int)cudaErrorInvalidValue;
   if (cdiv(k, bk) == 1) acc_bf16 = 0;  // one interval: the f32 sum is never rounded
-  WgParams p = base_params(a, b, m, n, k, sa, sb, rhs_nk, tma_a, tma_b);
+  WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
   p.bias = static_cast<const float*>(bias);
   p.c = c;
   p.bk = bk;
@@ -337,8 +360,8 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
   p.stages = carry_stages(bm, bn);
   p.split_steps = cdiv(k, KSTAGE);
   p.act = act; p.raster_nm = raster_nm; p.out_f32 = sizeof(OutT) == 4;
-  p.vec_out = pairs_ok(c, n, batch, sc, sizeof(OutT));
-  return (int)launch_tiles(bm, bn, ta, tb, p, 1, batch, rhs_nk, acc_bf16,
+  p.vec_out = pairs_ok(c, n, batch, sc, sizeof(OutT)) && bn % 2 == 0;
+  return (int)launch_tiles(ta, tb, p, 1, batch, rhs_nk, acc_bf16,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -403,16 +426,26 @@ int splits_ok(int k, int splits) {
 int staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k, int bm, int bn,
            int depth, int splits, int rhs_nk, int raster_nm, int out_f32, void* stream) {
   if (!staged_route_code(m, n, k, bm, bn, rhs_nk, a, b) || depth < 2 || depth > MAX_STAGES ||
-      smem_bytes(bm, bn, depth) > SMEM_LIMIT || !splits_ok(k, splits) || c == nullptr)
+      !splits_ok(k, splits) || c == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (wide_block(bm, bn)) {
+    // the wide walk's f32 sum over all of K (bk = K), A and B streamed through `depth`
+    // stages; no split
+    if (splits != 1 || !wide_staged_ok(bm, depth)) return (int)cudaErrorInvalidValue;
+    return launch_wide_route(a, b, nullptr, c, 1, m, n, k, (long long)m * k, (long long)n * k,
+                             (long long)m * n, bm, bn, k, rhs_nk, 0, ACT_NONE, raster_nm,
+                             out_f32 != 0, 1, 1, static_cast<cudaStream_t>(stream), depth);
+  }
+  if (smem_bytes(bm, bn, depth) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (splits > 1 && !reduce_ok(ws, c, (long long)m * n, splits))
     return (int)cudaErrorInvalidValue;
   const bool tma_a = tma_ok(a, k), tma_b = tma_ok(b, rhs_nk ? k : n);
   const long long sa = (long long)m * k, sb = (long long)n * k;
   CUtensorMap ta, tb;
-  if (!make_maps(&ta, &tb, a, b, 1, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b))
+  if (!make_maps(&ta, &tb, a, b, 1, m, n, k, sa, sb, ring_edge(bm), ring_edge(bn), rhs_nk,
+                 tma_a, tma_b))
     return (int)cudaErrorInvalidValue;
-  WgParams p = base_params(a, b, m, n, k, sa, sb, rhs_nk, tma_a, tma_b);
+  WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
   p.c = splits > 1 ? ws : c;  // a split writes its f32 partial, the reduction casts
   p.bk = k;  // one interval: the f32-carry instance sums all of K, never rounded
   p.ssplit = splits > 1 ? (long long)m * n : 0;
@@ -420,9 +453,9 @@ int staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
   p.split_steps = cdiv(cdiv(k, KSTAGE), splits);
   p.act = ACT_NONE; p.raster_nm = raster_nm;
   p.out_f32 = splits > 1 ? 1 : out_f32;
-  p.vec_out = pairs_ok(p.c, n, 1, 0, p.out_f32 ? 4 : 2);
+  p.vec_out = pairs_ok(p.c, n, 1, 0, p.out_f32 ? 4 : 2) && bn % 2 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = launch_tiles(bm, bn, ta, tb, p, splits, 1, rhs_nk, 0, s);
+  const cudaError_t e = launch_tiles(ta, tb, p, splits, 1, rhs_nk, 0, s);
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)launch_reduce(static_cast<const float*>(ws), c, (long long)m * n, splits,
                             out_f32, s);
@@ -457,8 +490,9 @@ int tl2_wgmma_f32out(const void* a, const void* b, const void* bias, void* c, in
 
 // C = A @ B (rhs_nk = 0) or A @ B_t^T (rhs_nk = 1) through a `depth`-stage ring, f32 over all
 // of K, cast once to f32 (out_f32 = 1) or bf16: the staged kernel (pipelined.py::_kernel) on
-// the staged route (tl2_staged_route), on any tile. With splits > 1, split s sums its run
-// of cdiv(cdiv(K, 64), splits) stages into ws[s] (splits x M x N f32, 16-byte aligned), then
+// the staged route (tl2_staged_route), on any ring block, or on the wide walk for a wide
+// block (A streamed, no split). With splits > 1 (ring blocks), split s sums its run of
+// cdiv(cdiv(K, 64), splits) stages into ws[s] (splits x M x N f32, 16-byte aligned), then
 // the reduction adds the partials in split order into c; with splits == 1, ws is unused.
 // Needs 2 <= depth <= 8 within 227 KB of shared memory, and no split left empty. Returns
 // the cudaError_t of the launches: cudaErrorInvalidValue, before any work, for what it
@@ -510,8 +544,8 @@ int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, con
   return route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c);
 }
 
-// The same for a staged launch (tl2_wgmma_staged): 1 'ring', 2 'ring_lsu', 0 refused;
-// mirrors ops/pipelined.py::staged_route.
+// The same for a staged launch (tl2_wgmma_staged): 1 'ring', 2 'ring_lsu', for a wide block
+// 3 'wgmma_wide', 4 'wgmma_wide_lsu', 0 refused; mirrors ops/pipelined.py::staged_route.
 int tl2_staged_route(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
                      const void* b) {
   return staged_route_code(m, n, k, bm, bn, rhs_nk, a, b);

@@ -12,24 +12,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tl2_wgmma_model.cuh"  // KSTAGE, ROW_BYTES, SMEM_LIMIT, cdiv and the wide model
+#include "tl2_wgmma_model.cuh"  // KSTAGE, ROW_BYTES, SMEM_LIMIT, cdiv, the block rules and
+                                // the shared-memory models of the ring and the wide route
 
 namespace tl2wg {
 
 typedef __nv_bfloat16 bf16;
 
-// Ring depth of the carry and single-K launches on the 64/128 tiles, from H100 runs at
-// 4096^3 (128 x 128, bk 1024): 3 stages ran 5% slower than 4, and 5 or 6 no faster
-// (PERF.md, the multi-K redesign's findings). A staged launch gives its own depth,
-// 2..MAX_STAGES.
-constexpr int CARRY_STAGES = 4;
-constexpr int MAX_STAGES = 8;
-// The carry and single-K launches of a 32-edge tile size their ring by bytes in flight:
-// at least RING_BYTES of the bn side (B, the operand a decode-size product streams) in
-// flight per CTA, CARRY_STAGES at least, MAX_RING at most, within SMEM_LIMIT
-// (carry_stages below; config.carry_stages mirrors it).
-constexpr int RING_BYTES = 65536;
-constexpr int MAX_RING = 16;
 // setmaxnreg with two consumer warpgroups: ptxas allocates 168 registers a thread at entry
 // (384 threads), so 4 producer warps at 40 and 8 consumer warps at 232 use the same total
 constexpr int PRODUCER_REGS = 40;
@@ -55,7 +44,7 @@ struct WgParams {
   int act, raster_nm, out_f32, vec_out;
   int load_a, load_b;  // 0: TMA fills the operand; 8, 4, 2: the loads producer's copies
                        // of that many elements; 1: its gather path
-  int wide_bm, wide_bn;  // the wide route's block (tl2_wgmma_wide.cu); 0 on the ring tiles
+  int blk_m, blk_n;      // the block: the CTAs' stride, and where their stores stop
   int wide_stream;       // the wide route: 1 where A streams through the ring beside B
   int tma_c;             // the wide route: 1 where TMA stores C, 0 predicated stores
 };
@@ -70,6 +59,12 @@ struct WgParams {
 //     tile's bn rows of N are wgmma's M (one warpgroup per 64) and A's 32 K-major rows are
 //     wgmma's B at width 32; B_t ('nk') is K-major, wgmma's natural A layout, and B ('kn')
 //     is MN-major, read with the transpose flag on the shared-memory A operand.
+// A block of any edges in 1..128 runs the tile of ring_edge(bm) x ring_edge(bn)
+// (tl2_wgmma_model.cuh): the CTAs step by the block's edges (p.blk_m, p.blk_n), not the
+// tile's, so the tile's rows beyond bm (columns beyond bn) read the next block's rows
+// (columns), or zeros past the problem, and the epilogue stores nothing beyond the block's
+// edge or the problem's. A bm <= 32 beside bn > 32 takes the swapped tile, bn <= 32 the
+// width-32 one (bm <= 32 too).
 template <int BM, int BN>
 struct WgTile {
   static constexpr bool SWAP = BM == 32 && BN > 32;
@@ -82,21 +77,6 @@ struct WgTile {
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int ACC = WG_N / 2;                        // f32 registers of m64 x WG_N
 };
-
-// 1024 bytes of slack to align the ring to the swizzle's 1024-byte period, the ring, then a
-// full and an empty mbarrier per stage
-inline int smem_bytes(int bm, int bn, int stages) {
-  return 1024 + stages * (bm + bn) * ROW_BYTES + 2 * stages * 8;
-}
-
-// The ring depth of a carry or single-K launch (mirrored by config.carry_stages).
-inline int carry_stages(int bm, int bn) {
-  if (bm >= 64 && bn >= 64) return CARRY_STAGES;
-  const int want = cdiv(RING_BYTES, bn * ROW_BYTES);
-  const int fit = (SMEM_LIMIT - 1024) / ((bm + bn) * ROW_BYTES + 16);
-  const int d = want > CARRY_STAGES ? want : CARRY_STAGES;
-  return d < MAX_RING ? (d < fit ? d : fit) : (MAX_RING < fit ? MAX_RING : fit);
-}
 
 __device__ __forceinline__ float act_fn(float x, int act) {
   switch (act) {
@@ -464,15 +444,16 @@ __device__ __forceinline__ OutT* out_base(const WgParams& p) {
 
 // Bias, activation and the cast of one consumer thread's m64 x N fragment: element
 // 4j + 2h + e sits at row 16 * warp + g + 8h, column 8j + 2q + e of the warpgroup's tile.
+// Stores stop at row m_lim and column n_lim: the block's edge or the problem's, the nearer.
 template <typename OutT, int N>
 __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N], int row0,
-                                         int col0) {
+                                         int col0, int m_lim, int n_lim) {
   OutT* C = out_base<OutT>(p);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const int col = col0 + 8 * j;
-    if (col >= p.n) continue;
-    const bool both = col + 1 < p.n;
+    if (col >= n_lim) continue;
+    const bool both = col + 1 < n_lim;
     float b0 = 0.0f, b1 = 0.0f;
     if (p.bias) {
       b0 = p.bias[col];
@@ -481,7 +462,7 @@ __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N],
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
-      if (row < p.m)
+      if (row < m_lim)
         store_pair(C + (long long)row * p.n + col, act_fn(v[4 * j + 2 * h] + b0, p.act),
                    act_fn(v[4 * j + 2 * h + 1] + b1, p.act), both, p.vec_out);
     }
@@ -489,22 +470,23 @@ __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N],
 }
 
 // The swapped tile's epilogue: the fragment is C^T, so its rows are columns of C (the bias
-// follows them) and its columns rows of C; each element is stored on its own.
+// follows them) and its columns rows of C; each element is stored on its own, within
+// (m_lim, n_lim) as in epilogue.
 template <typename OutT, int N>
 __device__ __forceinline__ void epilogue_swapped(const WgParams& p, const float (&v)[N],
-                                                 int ncol0, int mrow0) {
+                                                 int ncol0, int mrow0, int m_lim, int n_lim) {
   OutT* C = out_base<OutT>(p);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int col = ncol0 + 8 * h;
-    if (col >= p.n) continue;
+    if (col >= n_lim) continue;
     const float bias = p.bias ? p.bias[col] : 0.0f;
 #pragma unroll
     for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = mrow0 + 8 * j + e;
-        if (row < p.m)
+        if (row < m_lim)
           store_one(C + (long long)row * p.n + col, act_fn(v[4 * j + 2 * h + e] + bias, p.act));
       }
     }
@@ -570,11 +552,12 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
   auto full_bar = [&](int s) { return bars + 8 * s; };
   auto empty_bar = [&](int s) { return bars + 8 * (stages + s); };
 
-  const int tiles_m = cdiv(p.m, BM), tiles_n = cdiv(p.n, BN);
+  // the CTA's block: its stride is the block's edge, which may be below the tile's
+  const int tiles_m = cdiv(p.m, p.blk_m), tiles_n = cdiv(p.n, p.blk_n);
   const int tile = blockIdx.x;
   const int tm = p.raster_nm ? tile % tiles_m : tile / tiles_n;
   const int tn = p.raster_nm ? tile / tiles_m : tile % tiles_n;
-  const int m0 = tm * BM, n0 = tn * BN;
+  const int m0 = tm * p.blk_m, n0 = tn * p.blk_n;
   // this CTA's run of 64-deep K stages: its split's (blockIdx.y), all of K without a split
   const int first = blockIdx.y * p.split_steps;
   const int steps = min(cdiv(p.k, KSTAGE) - first, p.split_steps);
@@ -712,16 +695,18 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
       }
     }
     const int frag_row = wg * 64 + (warp % 4) * 16 + (lane >> 2);  // row of wgmma's M
+    // nothing beyond the block's edge or the problem's is stored
+    const int m_lim = min(p.m, m0 + p.blk_m), n_lim = min(p.n, n0 + p.blk_n);
     if constexpr (T::SWAP) {
       if (p.out_f32)
-        epilogue_swapped<float>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3));
+        epilogue_swapped<float>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim);
       else
-        epilogue_swapped<bf16>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3));
+        epilogue_swapped<bf16>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim);
     } else if (BM >= 64 || warp % 4 < 2) {  // at bm = 32, warps 2 and 3 hold rows 32..63
       if (p.out_f32)
-        epilogue<float>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3));
+        epilogue<float>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim);
       else
-        epilogue<bf16>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3));
+        epilogue<bf16>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim);
     }
   }
 }
@@ -755,7 +740,7 @@ cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tb, const WgPa
     }
     regs_checked = 1;
   }
-  const dim3 grid(cdiv(p.m, BM) * cdiv(p.n, BN), splits, batch);
+  const dim3 grid(cdiv(p.m, p.blk_m) * cdiv(p.n, p.blk_n), splits, batch);
   kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, p);
   return cudaGetLastError();
 }
@@ -780,10 +765,10 @@ TL2_WGMMA_LAUNCHER(launch_wide);      // tl2_wgmma.cu: 64/128 tiles, TMA
 TL2_WGMMA_LAUNCHER(launch_wide_lsu);  // tl2_wgmma_lsu.cu: 64/128 tiles, loads producer
 TL2_WGMMA_LAUNCHER(launch_n32);       // tl2_wgmma_n32.cu: bn = 32, both producers
 TL2_WGMMA_LAUNCHER(launch_swap);      // tl2_wgmma_swap.cu: bm = 32 over 64/128, both
-// tl2_wgmma_wide.cu: a wide block (p.wide_bm x p.wide_bn over `batch` problems; tc the
+// tl2_wgmma_wide.cu: a wide block (p.blk_m x p.blk_n over `batch` problems; tc the
 // output's map where p.tma_c). acc_bf16: the bf16 family's K carry (gk > 1). Dispatches to
-// the instance file of the family, the producer and A's mode (p.wide_stream):
-// cudaErrorInvalidValue for a block it has no instance of.
+// the instance file of the family, the producer and A's mode (p.wide_stream), or of the
+// swapped walk (bm <= 32): cudaErrorInvalidValue for a block it has no instance of.
 cudaError_t launch_wide_block(const CUtensorMap& ta, const CUtensorMap& tb,
                               const CUtensorMap& tc, const WgParams& p, int batch, int rhs_nk,
                               int acc_bf16, cudaStream_t s);
@@ -801,6 +786,8 @@ TL2_WIDE_LAUNCHER(wide_lsu);
 TL2_WIDE_LAUNCHER(wide_lsu_stream);
 TL2_WIDE_LAUNCHER(wide_lsu_bf16);
 TL2_WIDE_LAUNCHER(wide_lsu_bf16_stream);
+TL2_WIDE_LAUNCHER(wide_swap);       // tl2_wgmma_wide_swap.cu: bm <= 32, the f32 sum
+TL2_WIDE_LAUNCHER(wide_swap_bf16);  // tl2_wgmma_wide_swap_bf16.cu: bm <= 32, the bf16 carry
 
 }  // namespace tl2wg
 

@@ -1,8 +1,8 @@
-// tl2_wgmma_model.cuh — the ring's shared-memory constants and the wide route's model of its
-// blocks, shared memory and ring depth (config.py mirrors each). Plain C++ with no CUDA
-// header, so that a host compiler builds it too: tests/test_torch_wide_carry.py compiles it
-// with g++ and holds config.py's model to it on a machine with no card. tl2_wgmma.cuh
-// includes it.
+// tl2_wgmma_model.cuh — the block rules, the shared-memory models and ring depths of the ring
+// and of the wide route (config.py mirrors each). Plain C++ with no CUDA header, so that a host
+// compiler builds it too: tests/test_torch_wide_carry.py and tests/test_torch_jax_space.py
+// compile it with g++ and hold config.py's model to it on a machine with no card.
+// tl2_wgmma.cuh includes it.
 
 #pragma once
 
@@ -19,40 +19,90 @@ constexpr int ROW_BYTES = KSTAGE * 2;   // the 128-byte swizzle span
 // Shared memory one block may use on the H100 (227 KB)
 constexpr int SMEM_LIMIT = 232448;
 
-// The wide blocks (tl2_wgmma_wide.cu; config.py mirrors each): bm 64, 128 or a multiple of
-// WIDE_SUB_N up to WIDE_BM_MAX, bn a multiple of WIDE_SUB_N up to WIDE_BN_MAX, an edge above
-// 128. A CTA walks its block in sub-tiles of wide_sub_m rows x WIDE_SUB_N columns; its ring
-// is WIDE_STAGES deep where shared memory allows, WIDE_MIN_STAGES at least; each consumer
-// warpgroup stages C in WIDE_C_BYTES (64 rows x 128 columns of f32).
-constexpr int WIDE_SUB_N = 128;
-constexpr int WIDE_BM_MAX = 16384;
-constexpr int WIDE_BN_MAX = 16384;
-constexpr int WIDE_STAGES = 4;
-constexpr int WIDE_MIN_STAGES = 2;
-constexpr int WIDE_C_BYTES = 64 * WIDE_SUB_N * 4;
+// Ring depth of the carry and single-K launches on the 64/128 tiles, from H100 runs at
+// 4096^3 (128 x 128, bk 1024): 3 stages ran 5% slower than 4, and 5 or 6 no faster
+// (PERF.md, the multi-K redesign's findings). A staged launch gives its own depth,
+// 2..MAX_STAGES.
+constexpr int CARRY_STAGES = 4;
+constexpr int MAX_STAGES = 8;
+// The carry and single-K launches of a 32-edge tile size their ring by bytes in flight:
+// at least RING_BYTES of the bn side (B, the operand a decode-size product streams) in
+// flight per CTA, CARRY_STAGES at least, MAX_RING at most, within SMEM_LIMIT
+// (carry_stages below; config.carry_stages mirrors it).
+constexpr int RING_BYTES = 65536;
+constexpr int MAX_RING = 16;
 
 TL2_HD constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A block the wide route takes (config.is_wide and KernelConfig._check_wide).
-inline bool wide_block(int bm, int bn) { return bm > 128 || bn > 128; }
-inline bool wide_block_ok(int bm, int bn) {
-  return wide_block(bm, bn) &&
-         (bm == 64 || bm == 128 || (bm % WIDE_SUB_N == 0 && bm <= WIDE_BM_MAX)) &&
-         bn % WIDE_SUB_N == 0 && bn <= WIDE_BN_MAX;
+// ---- the ring's blocks ----
+
+// A ring block has both edges in 1..RING_MAX (config.is_wide is false). It runs the tile
+// of ring_edge(bm) x ring_edge(bn), the least of 32, 64, 128 that holds each edge; the
+// CTAs step by the block's edges, and the tile's rows and columns beyond them are computed
+// and never stored (a row of the product depends only on its row of A, a column only on its
+// column of B).
+constexpr int RING_MAX = 128;
+inline int ring_edge(int e) { return e <= 32 ? 32 : e <= 64 ? 64 : 128; }
+inline bool ring_block_ok(int bm, int bn) {
+  return bm >= 1 && bn >= 1 && bm <= RING_MAX && bn <= RING_MAX;
 }
 
-// Rows of a wide block's sub-tile and A strip (config.wide_sub_m).
-inline int wide_sub_m(int bm) { return bm == 64 ? 64 : 128; }
+// 1024 bytes of slack to align the ring to the swizzle's 1024-byte period, the ring of the
+// block's tile, then a full and an empty mbarrier per stage (config.wgmma_smem_bytes).
+inline int smem_bytes(int bm, int bn, int stages) {
+  return 1024 + stages * (ring_edge(bm) + ring_edge(bn)) * ROW_BYTES + 2 * stages * 8;
+}
+
+// The ring depth of a carry or single-K launch of the block's tile (config.carry_stages).
+inline int carry_stages(int bm, int bn) {
+  const int tm = ring_edge(bm), tn = ring_edge(bn);
+  if (tm >= 64 && tn >= 64) return CARRY_STAGES;
+  const int want = cdiv(RING_BYTES, tn * ROW_BYTES);
+  const int fit = (SMEM_LIMIT - 1024) / ((tm + tn) * ROW_BYTES + 16);
+  const int d = want > CARRY_STAGES ? want : CARRY_STAGES;
+  return d < MAX_RING ? (d < fit ? d : fit) : (MAX_RING < fit ? MAX_RING : fit);
+}
+
+// ---- the wide blocks ----
+
+// The wide blocks (tl2_wgmma_wide.cu; config.py mirrors each): an edge above RING_MAX, bm in
+// 1..WIDE_BM_MAX and bn in 1..WIDE_BN_MAX, any value (the JAX space's edges, its sublane 16,
+// its full-dim covers of any M up to 4096 and any N up to 32768). A CTA walks its block in
+// sub-tiles of wide_sub_m rows x WIDE_SUB_N columns, the last of each clipped at the block's
+// edge; at bm <= 32 the walk is swapped (the sub-tile's 128 columns are wgmma's M, the
+// block's rows its width of 32). Its ring is WIDE_STAGES deep where shared memory allows,
+// WIDE_MIN_STAGES at least (a staged launch: its depth, up to MAX_STAGES); each consumer
+// warpgroup of the plain walk stages C in WIDE_C_BYTES (64 rows x 128 columns of f32).
+constexpr int WIDE_SUB_N = 128;
+constexpr int WIDE_BM_MAX = 16384;
+constexpr int WIDE_BN_MAX = 32768;
+constexpr int WIDE_STAGES = 4;
+constexpr int WIDE_MIN_STAGES = 2;
+constexpr int WIDE_C_BYTES = 64 * WIDE_SUB_N * 4;
+constexpr int WIDE_SWAP_M = 32;  // the swapped walk's width: the block's rows, 32 at most
+
+// A block the wide route takes (config.is_wide and KernelConfig._check_wide).
+inline bool wide_block(int bm, int bn) { return bm > RING_MAX || bn > RING_MAX; }
+inline bool wide_block_ok(int bm, int bn) {
+  return wide_block(bm, bn) && bm >= 1 && bn >= 1 && bm <= WIDE_BM_MAX && bn <= WIDE_BN_MAX;
+}
+
+// Rows of a wide block's sub-tile and A strip (config.wide_sub_m): WIDE_SWAP_M at bm <= 32
+// (the swapped walk), 64 at bm <= 64, else 128.
+inline int wide_sub_m(int bm) { return bm <= WIDE_SWAP_M ? WIDE_SWAP_M : bm <= 64 ? 64 : 128; }
+inline bool wide_swapped(int bm) { return bm <= WIDE_SWAP_M; }
 
 // Shared memory of a wide CTA at depth K (config.wide_smem_bytes): the alignment slack,
 // `stages` ring stages (a B box of WIDE_SUB_N rows, and with a streamed A the strip's A box
 // beside it), the resident A strip (cdiv(K, 64) boxes; none when A streams), the C staging of
-// each consumer warpgroup, a full and an empty mbarrier per stage and for the strip.
+// each consumer warpgroup of the plain walk (none in the swapped walk, whose stores are
+// predicated), a full and an empty mbarrier per stage and for the strip.
 inline int wide_smem_bytes(int bm, int k, int stages, bool streamed) {
   const int sm = wide_sub_m(bm);
   const int stage = (WIDE_SUB_N + (streamed ? sm : 0)) * ROW_BYTES;
   const int strip = streamed ? 0 : cdiv(k, KSTAGE) * sm * ROW_BYTES;
-  return 1024 + stages * stage + strip + sm / 64 * WIDE_C_BYTES + (2 * stages + 2) * 8;
+  const int staging = wide_swapped(bm) ? 0 : sm / 64 * WIDE_C_BYTES;
+  return 1024 + stages * stage + strip + staging + (2 * stages + 2) * 8;
 }
 
 // The ring depth that fits beside the rest in SMEM_LIMIT, at most WIDE_STAGES (0 where none).
@@ -64,11 +114,29 @@ inline int wide_fit(int bm, int k, bool streamed) {
 }
 
 // A streams through the ring where the resident strip of all of K leaves fewer than
-// WIDE_MIN_STAGES stages (K > 512 at 128-row strips, K > 1280 at 64-row ones;
-// config.wide_streamed).
-inline bool wide_streamed(int bm, int k) { return wide_fit(bm, k, false) < WIDE_MIN_STAGES; }
+// WIDE_MIN_STAGES stages (K > 512 at 128-row strips, K > 1280 at 64-row ones), and always
+// in the swapped walk (config.wide_streamed).
+inline bool wide_streamed(int bm, int k) {
+  return wide_swapped(bm) || wide_fit(bm, k, false) < WIDE_MIN_STAGES;
+}
 
 // The ring's depth at depth K in the mode K takes (config.wide_stages).
 inline int wide_stages(int bm, int k) { return wide_fit(bm, k, wide_streamed(bm, k)); }
+
+// A staged wide launch (the port of pipelined.py::_kernel at a wide block): A and B stream
+// through a ring of `depth` stages, as the JAX kernel's DMA slots hold both operands; it
+// fits where that ring and the C staging do (config.KernelConfig.smem_bytes).
+inline bool wide_staged_ok(int bm, int depth) {
+  return depth >= 2 && depth <= MAX_STAGES && wide_smem_bytes(bm, 0, depth, true) <= SMEM_LIMIT;
+}
+
+// TMA stores of a wide block's C clip only at the problem's edges (the output's map), so
+// they serve a block whose every edge lies on the sub-tile grid or past the problem's edge
+// (one block along that dim); the swapped walk's stores are predicated
+// (ops.matmul.launch_route's wide_c_grid).
+inline bool wide_c_grid(int m, int n, int bm, int bn) {
+  return !wide_swapped(bm) && (bm % wide_sub_m(bm) == 0 || bm >= m) &&
+         (bn % WIDE_SUB_N == 0 || bn >= n);
+}
 
 }  // namespace tl2wg

@@ -1,18 +1,20 @@
 // tl2_wgmma_wide.cu — the ring's wide route: one CTA per wide block (an edge above 128, up to
-// 16384 x 16384), for every wide block of the JAX space. The host API that reaches it
-// (tl2_wgmma_bf16out / _f32out, routes 3 'wgmma_wide' and 4 'wgmma_wide_lsu') is in
+// 16384 x 32768, any edge in between), for every wide block of the JAX space. The host API
+// that reaches it (tl2_wgmma_bf16out / _f32out, routes 3 'wgmma_wide' and 4 'wgmma_wide_lsu') is in
 // tl2_wgmma.cu; the kernel is tl2_wgmma_wide.cuh; the TMA, mbarrier and wgmma pieces are
 // tl2_wgmma.cuh's; the shared-memory model is tl2_wgmma_model.cuh's. This file holds the
 // TMA instances of the f32 sum with a resident A and the dispatch to the eight instance
 // files.
 //
 // Replaces the Pallas TPU kernels, at the JAX space's wide blocks (tpul2/config.py:422-447:
-// bn up to 16384 and bm up to 2048 or the whole M, "thin-K giants are output-write bound and
-// want the longest contiguous row-major C stripes"), with bk any of its K intervals:
+// bn up to 16384 or the whole N up to 32768, bm its sublane 16 up to 2048 or the whole M,
+// "thin-K giants are output-write bound and want the longest contiguous row-major C
+// stripes"), with bk any of its K intervals:
 //   tpul2/ops/matmul.py::_kernel_multi_k       (gk > 1, call :220)
 //   tpul2/ops/matmul.py::_kernel_single_k      (gk == 1)
 //   tpul2/ops/batched.py::_bmm_kernel          (batched, gk > 1; blockIdx.z, call :120)
 //   tpul2/ops/batched.py::_bmm_kernel_single_k (batched, gk == 1)
+//   tpul2/ops/pipelined.py::_kernel            (a staged wide block: tl2_wgmma_staged)
 // What it computes, per bm x bn block of each batch element: each sub-tile's product summed
 // in f32 over 64-deep stages; with gk > 1 the bf16 family rounds the running sum to bf16 at
 // the end of every bk interval, the last one included (so before the bias), as the ring
@@ -22,13 +24,30 @@
 // stage as two halves in the bf16 family, as the ring does; the JAX space's wide bks are
 // multiples of 128 or the whole K, whose rounding points fall on stage boundaries.
 //
+// A staged wide block (pipeline_depth >= 2, tl2_wgmma.cu's staged()) runs the f32-sum
+// instances with a streamed A, `depth` ring stages (up to MAX_STAGES where shared memory
+// allows) and bk = K: one f32 sum over all of K, one cast, as pipelined.py::_kernel's DMA ring
+// of both operands does; no split K.
+//
 // What bounds it on the H100: at thin K the output. At 16384 x 16384 x 64 the product writes
 // 537 MB of bf16 C against 4 MB of operands and 34 GFLOP: 0.160 ms at 3.35 TB/s against
 // 0.035 ms at 989 TFLOP/s. So the design keeps C's stores streaming while the CTA computes:
 //   - one CTA per block (grid cdiv(M, bm) x cdiv(N, bn) x batch, raster by grid_order); it
-//     walks the block strip by strip (SM = 64 rows at bm = 64, else 128; a 16384-row block is
-//     128 strips) and, in each strip, sub-tile by sub-tile of 128 columns, each sub-tile over
-//     all of K;
+//     walks the block strip by strip (SM = 64 rows at bm <= 64, else 128; a 16384-row block
+//     is 128 strips) and, in each strip, sub-tile by sub-tile of 128 columns, each sub-tile
+//     over all of K. An edge off that grid (a cover of an unaligned M or N such as 1000, bn
+//     below 128 beside a wide bm, bm 33..127) ends the block inside its last strip or
+//     sub-tile: the CTA still computes the whole sub-tile, whose rows and columns beyond the
+//     block's edge read the next block's rows and columns (or zeros past the problem), and
+//     stores nothing beyond the edge. Such a block's C goes out by predicated stores unless
+//     the edge is also the problem's (wide_c_grid), since TMA stores clip only there;
+//   - bm <= 32 (the JAX space's sublane 16, its covers of M < 16, and 32 beside a wide bn)
+//     walks swapped, as the ring's swapped tile does: each 128-column sub-tile is computed as
+//     C_sub^T = B_sub^T A^T, the 128 columns wgmma's M (a consumer warpgroup of m64n32k16
+//     wgmmas per 64) and the block's rows its width of 32, rows beyond bm never stored; A
+//     (32 rows x 64 K, 4 KB a stage) always streams beside B, and C goes out by the swapped
+//     epilogue's predicated stores (tl2_wgmma_wide_swap{,_bf16}.cu, the loads producer
+//     compiled in);
 //   - A is held in one of two modes, chosen from K at the launch (wide_streamed):
 //     resident: the strip's A (SM x K, cdiv(K, 64) boxes) is loaded once and stays while the
 //       strip's sub-tiles are walked; it is reloaded per strip, as soon as the strip's last
@@ -62,11 +81,14 @@
 // WIDE_C_BYTES of staging per consumer warpgroup, the barriers.
 // Instances: sub-tile height (64, 128) x layout x output dtype in each of eight files, the
 // family of the carry x the producer x A's mode (tl2_wgmma_wide{,_bf16}{,_lsu}{,_stream}.cu),
-// which nvcc builds side by side. A's mode is a template argument: chosen at run time, it
-// cost the resident walk 2.5-9% at thin K on the H100 (PERF.md, the wide blocks' findings).
+// and the swapped walk's layout x output dtype in two more, one per family
+// (tl2_wgmma_wide_swap{,_bf16}.cu), which nvcc builds side by side. A's mode is a template
+// argument: chosen at run time, it cost the resident walk 2.5-9% at thin K on the H100
+// (PERF.md, the wide blocks' findings).
 // Left for later: a persistent schedule over blocks (a 16384-row block is one CTA on the 132
-// SMs), splitting a large block over CTAs, 256-column sub-tiles, and overlapping one stage's
-// adds with the next stage's wgmmas.
+// SMs), splitting a large block over CTAs, 256-column sub-tiles, overlapping one stage's adds
+// with the next stage's wgmmas, m64n16 / m64n8 instances of the swapped walk for bm <= 16
+// (it runs at width 32), and a split K for staged wide blocks.
 
 #include "tl2_wgmma_wide.cuh"
 
@@ -77,9 +99,11 @@ namespace tl2wg {
 cudaError_t launch_wide_block(const CUtensorMap& ta, const CUtensorMap& tb,
                               const CUtensorMap& tc, const WgParams& p, int batch, int rhs_nk,
                               int acc_bf16, cudaStream_t s) {
-  if (!wide_block_ok(p.wide_bm, p.wide_bn) || p.stages < WIDE_MIN_STAGES ||
-      p.stages > WIDE_STAGES || batch < 1 || batch > 65535)
+  if (!wide_block_ok(p.blk_m, p.blk_n) || p.stages < WIDE_MIN_STAGES ||
+      p.stages > MAX_STAGES || batch < 1 || batch > 65535)
     return cudaErrorInvalidValue;
+  if (wide_swapped(p.blk_m))
+    return (acc_bf16 ? wide_swap_bf16 : wide_swap)(ta, tb, tc, p, batch, rhs_nk, s);
   typedef TL2_WIDE_LAUNCHER((*Launcher));
   // [the loads producer or predicated stores][the bf16 carry][a streamed A]
   static const Launcher launchers[2][2][2] = {

@@ -1,8 +1,10 @@
 // tl2_wgmma_wide.cuh — the wide route's kernel, tl2_wgmma_wide_kernel, and its launcher: what it
 // computes and the design are in tl2_wgmma_wide.cu's header. Included by the eight instance
-// files (TL2_WIDE_INSTANCES), one per (family of the K carry, producer, A's mode), which nvcc
-// builds side by side: tl2_wgmma_wide{,_bf16}{,_lsu}{,_stream}.cu (TMA or the loads producer
-// and predicated stores; the f32 sum or the bf16 carry; A resident or streamed).
+// files of the plain walk (TL2_WIDE_INSTANCES), one per (family of the K carry, producer, A's
+// mode): tl2_wgmma_wide{,_bf16}{,_lsu}{,_stream}.cu (TMA or the loads producer and predicated
+// stores; the f32 sum or the bf16 carry; A resident or streamed); and by the two of the
+// swapped walk (TL2_WIDE_SWAP_INSTANCES, bm <= 32): tl2_wgmma_wide_swap{,_bf16}.cu. nvcc
+// builds them side by side.
 
 #pragma once
 
@@ -13,15 +15,22 @@ namespace {
 
 constexpr int BOX_BYTES = 64 * ROW_BYTES;  // one staging box: 64 rows of 128 bytes
 
+// SM: the sub-tile's rows, 64 or 128; or WIDE_SWAP_M, the swapped walk (SWAP), whose
+// sub-tile is the block's <= 32 rows x 128 columns computed transposed: the 128 columns are
+// wgmma's M (a consumer warpgroup per 64) and the 32 rows its width (WgTile<32, 128>).
 template <int SM, bool OUT_F32>
 struct WideTile {
-  static constexpr int CONSUMERS = SM / 64;
+  static constexpr bool SWAP = SM == WIDE_SWAP_M;
+  static constexpr int CONSUMERS = (SWAP ? WIDE_SUB_N : SM) / 64;
   static constexpr int THREADS = (CONSUMERS + 1) * 128;
+  static constexpr int ACC = WgTile<SM, WIDE_SUB_N>::ACC;  // f32 registers of the fragment
   static constexpr int A_BOX = SM * ROW_BYTES;           // one 64-deep box of the A strip
   static constexpr int B_BYTES = WIDE_SUB_N * ROW_BYTES;  // one B box
   static constexpr int BOX_COLS = ROW_BYTES / (OUT_F32 ? 4 : 2);  // C columns per box
   static constexpr int BOXES = WIDE_SUB_N / BOX_COLS;     // boxes of a warpgroup's sub-tile
   static constexpr int NBUF = OUT_F32 ? 1 : 2;            // staging buffers per warpgroup
+  // the C staging (none in the swapped walk: its stores are predicated)
+  static constexpr int C_BYTES = SWAP ? 0 : CONSUMERS * WIDE_C_BYTES;
   static_assert(NBUF * BOXES * BOX_BYTES == WIDE_C_BYTES, "staging fills WIDE_C_BYTES");
 };
 
@@ -130,7 +139,8 @@ __device__ __forceinline__ void tma_b_box(uint32_t dst, const CUtensorMap* map, 
   }
 }
 
-// SM: rows of a sub-tile (64 at bm = 64, else 128); ACC_BF16: the bf16 family's K carry
+// SM: rows of a sub-tile (wide_sub_m: 32, the swapped walk, at bm <= 32; 64 at bm <= 64;
+// else 128); ACC_BF16: the bf16 family's K carry
 // (rounded at the end of every bk interval); LOADS: an instance with the loads producer and
 // predicated stores (chosen per operand and for C at run time), which the TMA-only instances
 // carry none of; STREAM: A streams through the ring beside B, else the strip stays resident
@@ -151,20 +161,24 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t a_strip = ring + stages * stage_bytes;  // the resident strip
   const uint32_t c_stage = a_strip + (streamed ? 0 : ksteps * T::A_BOX);
-  const uint32_t bars = c_stage + T::CONSUMERS * WIDE_C_BYTES;
+  const uint32_t bars = c_stage + T::C_BYTES;
   auto full_bar = [&](int s) { return bars + 8 * s; };
   auto empty_bar = [&](int s) { return bars + 8 * (stages + s); };
   const uint32_t a_full = bars + 16 * stages, a_empty = a_full + 8;
 
   const int z = blockIdx.z;
-  const int blocks_m = cdiv(p.m, p.wide_bm), blocks_n = cdiv(p.n, p.wide_bn);
+  const int blocks_m = cdiv(p.m, p.blk_m), blocks_n = cdiv(p.n, p.blk_n);
   const int block = blockIdx.x;
   const int bm_i = p.raster_nm ? block % blocks_m : block / blocks_n;
   const int bn_i = p.raster_nm ? block / blocks_m : block % blocks_n;
-  const int m_blk = bm_i * p.wide_bm, n_blk = bn_i * p.wide_bn;
-  // the strips and sub-tile columns of this block that hold part of C
-  const int strips = cdiv(min(p.wide_bm, p.m - m_blk), SM);
-  const int cols = cdiv(min(p.wide_bn, p.n - n_blk), WIDE_SUB_N);
+  const int m_blk = bm_i * p.blk_m, n_blk = bn_i * p.blk_n;
+  // the strips and sub-tile columns of this block that hold part of C; the last of each may
+  // reach past the block's edge (an edge off the sub-tile grid: a cover of an unaligned
+  // dimension, bn < 128, bm < the sub-tile's rows), where it reads the next block's rows or
+  // columns and stores nothing
+  const int strips = cdiv(min(p.blk_m, p.m - m_blk), SM);
+  const int cols = cdiv(min(p.blk_n, p.n - n_blk), WIDE_SUB_N);
+  const int m_lim = min(p.m, m_blk + p.blk_m), n_lim = min(p.n, n_blk + p.blk_n);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -277,14 +291,14 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
   const int wg = warp / 4, warp4 = warp % 4;
   const bool leader = threadIdx.x % 128 == 0;  // issues the warpgroup's stores
   const uint32_t staging = c_stage + wg * WIDE_C_BYTES;
-  const bool store_tma = !LOADS || p.tma_c;
+  const bool store_tma = !T::SWAP && (!LOADS || p.tma_c);
   // A bk that is a multiple of 32 but not of 64 puts every other rounding point in the middle
   // of a stage: the bf16 family then runs each stage as two halves of two k16 wgmmas and may
   // round after either (the ring's rule)
   const bool halves = ACC_BF16 && p.bk % KSTAGE != 0;
-  float st[64];   // the stage product (wgmma accumulator)
-  float sum[64];  // f32: the sum; bf16 carry: the interval's part
-  __nv_bfloat162 carry[ACC_BF16 ? 32 : 1];  // bf16 family: the carry, packed
+  float st[T::ACC];   // the stage product (wgmma accumulator)
+  float sum[T::ACC];  // f32: the sum; bf16 carry: the interval's part
+  __nv_bfloat162 carry[ACC_BF16 ? T::ACC / 2 : 1];  // bf16 family: the carry, packed
   int s = 0, tile = 0;
   uint32_t phase = 0;
   for (int strip = 0; strip < strips; ++strip) {
@@ -293,9 +307,10 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
     for (int col = 0; col < cols; ++col, ++tile) {
       const int n0 = n_blk + col * WIDE_SUB_N;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sum[i] = 0.0f;
+      for (int i = 0; i < T::ACC; ++i) sum[i] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < (ACC_BF16 ? 32 : 1); ++i) carry[i] = __floats2bfloat162_rn(0.0f, 0.0f);
+      for (int i = 0; i < (ACC_BF16 ? T::ACC / 2 : 1); ++i)
+        carry[i] = __floats2bfloat162_rn(0.0f, 0.0f);
       for (int ks = 0; ks < ksteps; ++ks) {
         mbar_wait(full_bar(s), phase);
         const uint32_t b_s = ring + s * stage_bytes;
@@ -340,33 +355,45 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
       }
       if constexpr (ACC_BF16) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < T::ACC / 2; ++i) {
           const float2 c2 = __bfloat1622float2(carry[i]);
           sum[2 * i] = c2.x;
           sum[2 * i + 1] = c2.y;
         }
       }
-      if (store_tma) {
-        // the buffer's last stores must have read it before it is written again
-        const uint32_t buf = staging + (tile % T::NBUF) * T::BOXES * BOX_BYTES;
-        if (leader) bulk_wait_read<T::NBUF - 1>();
-        wg_sync(wg);
-        stage_c<OUT_F32>(buf, sum, p, n0, warp4, lane);
-        fence_proxy_async();  // the generic proxy's writes, visible to the TMA store
-        wg_sync(wg);
-        if (leader) {
-#pragma unroll
-          for (int bx = 0; bx < T::BOXES; ++bx)
-            tma_store(&tma_c, buf + bx * BOX_BYTES, n0 + bx * T::BOX_COLS, row0, z);
-          bulk_commit();
-        }
-      } else if constexpr (LOADS) {
-        // the ring's predicated epilogue (act_fn's run-time switch, pairs where aligned)
-        const int row = row0 + warp4 * 16 + (lane >> 2), col0 = n0 + 2 * (lane & 3);
+      if constexpr (T::SWAP) {
+        // the fragment is the sub-tile's C^T: its rows are columns of C, its columns the
+        // block's rows (the ring's swapped epilogue, stores within the block's edges)
+        const int ncol = n0 + wg * 64 + warp4 * 16 + (lane >> 2);
+        const int mrow = m_blk + 2 * (lane & 3);
         if (OUT_F32)
-          epilogue<float>(p, sum, row, col0);
+          epilogue_swapped<float>(p, sum, ncol, mrow, m_lim, n_lim);
         else
-          epilogue<bf16>(p, sum, row, col0);
+          epilogue_swapped<bf16>(p, sum, ncol, mrow, m_lim, n_lim);
+      } else {
+        if (store_tma) {
+          // the buffer's last stores must have read it before it is written again
+          const uint32_t buf = staging + (tile % T::NBUF) * T::BOXES * BOX_BYTES;
+          if (leader) bulk_wait_read<T::NBUF - 1>();
+          wg_sync(wg);
+          stage_c<OUT_F32>(buf, sum, p, n0, warp4, lane);
+          fence_proxy_async();  // the generic proxy's writes, visible to the TMA store
+          wg_sync(wg);
+          if (leader) {
+#pragma unroll
+            for (int bx = 0; bx < T::BOXES; ++bx)
+              tma_store(&tma_c, buf + bx * BOX_BYTES, n0 + bx * T::BOX_COLS, row0, z);
+            bulk_commit();
+          }
+        } else if constexpr (LOADS) {
+          // the ring's predicated epilogue (act_fn's run-time switch, pairs where aligned),
+          // stores within the block's edges
+          const int row = row0 + warp4 * 16 + (lane >> 2), col0 = n0 + 2 * (lane & 3);
+          if (OUT_F32)
+            epilogue<float>(p, sum, row, col0, m_lim, n_lim);
+          else
+            epilogue<bf16>(p, sum, row, col0, m_lim, n_lim);
+        }
       }
     }
   }
@@ -400,7 +427,7 @@ cudaError_t launch_instance(const CUtensorMap& ta, const CUtensorMap& tb, const 
     }
     regs_checked = 1;
   }
-  const dim3 grid(cdiv(p.m, p.wide_bm) * cdiv(p.n, p.wide_bn), 1, batch);
+  const dim3 grid(cdiv(p.m, p.blk_m) * cdiv(p.n, p.blk_n), 1, batch);
   kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, tc, p);
   return cudaGetLastError();
 }
@@ -420,13 +447,25 @@ cudaError_t launch_sub(const CUtensorMap& ta, const CUtensorMap& tb, const CUten
 }  // namespace
 }  // namespace tl2wg
 
-// One instance file's launcher: both sub-tile heights, layouts and output dtypes of one
-// (family of the K carry, producer, A's mode).
+// One instance file's launcher of the plain walk: both sub-tile heights, layouts and output
+// dtypes of one (family of the K carry, producer, A's mode).
 #define TL2_WIDE_INSTANCES(NAME, ACC_BF16, LOADS, STREAM)                                \
   namespace tl2wg {                                                                      \
   TL2_WIDE_LAUNCHER(NAME) {                                                              \
-    return wide_sub_m(p.wide_bm) == 64                                                   \
+    if (wide_swapped(p.blk_m)) return cudaErrorInvalidValue;                             \
+    return wide_sub_m(p.blk_m) == 64                                                     \
                ? launch_sub<64, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, rhs_nk, s) \
                : launch_sub<128, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, rhs_nk, s); \
+  }                                                                                      \
+  }
+
+// One instance file's launcher of the swapped walk (bm <= 32): layouts and output dtypes of
+// one family of the K carry, with the loads producer compiled in (each operand by TMA or by
+// loads, chosen at run time), A streamed and C by predicated stores.
+#define TL2_WIDE_SWAP_INSTANCES(NAME, ACC_BF16)                                          \
+  namespace tl2wg {                                                                      \
+  TL2_WIDE_LAUNCHER(NAME) {                                                              \
+    if (!wide_swapped(p.blk_m) || !p.wide_stream || p.tma_c) return cudaErrorInvalidValue; \
+    return launch_sub<WIDE_SWAP_M, ACC_BF16, true, true>(ta, tb, tc, p, batch, rhs_nk, s); \
   }                                                                                      \
   }

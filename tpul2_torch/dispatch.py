@@ -54,9 +54,11 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     data and is never read.  With no DB file, every shape takes the heuristic, which
     never returns the vendor sentinel.  A resolved config the kernel cannot run goes to
     the sentinel (the role of the JAX out-dtype guard): one ``validate`` refuses, such as a
-    wide block with bm = 16 (the JAX space's full-dim cover of M <= 16, which the wide
-    route has no instance of).  Every config ``validate`` takes launches at every shape, 2-D
-    and batched.  An explicit ``config=`` on the entry points overrides all of this.
+    staged block whose ring exceeds shared memory.  Every block edge of the JAX space
+    validates (its sublane 16, its covers of M < 16, of N < 128 and of unaligned
+    dimensions, bn up to 32768, staged wide blocks), and every config ``validate`` takes
+    launches at every shape, 2-D and batched.  An explicit ``config=`` on the entry points
+    overrides all of this.
 
     The decision is kept in the DB's memo with the DB's version: a put or a load of the
     DB, ``reset_default_db()`` or a change of ``TPUL2_TORCH_TUNEDB`` (a new default DB)

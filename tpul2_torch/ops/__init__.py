@@ -4,17 +4,22 @@
 #: (module under tpul2_torch.ops, attribute).  The 2-D and batched multi-K and single-K
 #: bodies on each route (the ring with TMA or the loads producer; a wide block,
 #: tl2_wgmma_wide.cu, with TMA or with the loads producer and predicated stores); the
-#: width-32, swapped, mid-stage, streamed-A and tall-block launches of either; the staged
-#: kernel's launches on each route, with a split and on a 32-edge tile.
+#: width-32, swapped, mid-stage, streamed-A and tall-block launches of either, and those of
+#: the JAX space's narrow and unaligned edges (a ring block narrower than its tile, the
+#: swapped wide walk, narrow columns, a clipped wide block, more than 16384 columns); the
+#: staged kernel's launches on each route, with a split, on a block with an edge of 32 or
+#: less, and at a wide block.
 COUNTERS = {
     **{f"{prefix}{body}_k_{route}": (mod, f"LAUNCHES_{body.upper()}_K_{route.upper()}")
        for prefix, mod in (("", "matmul"), ("batched_", "batched"))
        for body in ("multi", "single")
        for route in ("wgmma", "wgmma_lsu", "wgmma_wide", "wgmma_wide_lsu")},
     **{key: ("matmul", f"LAUNCHES_{key.upper()}")
-       for key in ("width32", "swapped", "midstage", "wide_streamed", "wide_tall")},
+       for key in ("width32", "swapped", "midstage", "wide_streamed", "wide_tall",
+                   "ring_narrow", "wide_swapped", "wide_narrow_n", "wide_clipped",
+                   "wide_long")},
     **{f"staged_{key}": ("pipelined", f"LAUNCHES_STAGED_{key.upper()}")
-       for key in ("ring", "ring_lsu", "split", "narrow")},
+       for key in ("ring", "ring_lsu", "split", "narrow", "wide")},
 }
 
 def _modules() -> dict:

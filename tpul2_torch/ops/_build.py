@@ -2,7 +2,7 @@
 
 The role of ``tpul2/native/build.py``.  Every ``csrc/*.cu`` of the package is compiled
 for ``sm_90a`` into an object of its own (the ring kernel's instances are spread over four
-files that share ``csrc/tl2_wgmma.cuh``, the wide route's over eight more that share
+files that share ``csrc/tl2_wgmma.cuh``, the wide route's over ten more that share
 ``csrc/tl2_wgmma_wide.cuh``), all nvcc processes started together, then linked into
 ``tpul2_torch/_build/libtl2_kernels.so`` at first use (with the toolkit's cuBLASLt,
 ``LINK_FLAGS``, for the auto-tuning baseline's search) and loaded with ctypes.  The build is redone whenever a source or the flags change (a sha256

@@ -4,11 +4,14 @@ Counterpart of ``tpul2/ops/matmul.py``: ``cuda_matmul``, ``cuda_matmul_tn`` and
 ``cuda_matmul_fused`` play ``pallas_matmul``, ``pallas_matmul_tn`` and
 ``pallas_matmul_fused``.  For a CUDA tensor each launches ``csrc/tl2_wgmma.cu``'s ring
 (wgmma warpgroups over a ring of 64-deep K stages) for the K carry and the single K
-interval alike, on every tile; ``launch_route`` names, from the shape before the launch,
-the producer that fills the ring: TMA ('wgmma') or, where TMA cannot read an operand, the
-loads producer ('wgmma_lsu').  A wide block (an edge above 128, the JAX space's wide
-stripes and blocks) takes ``csrc/tl2_wgmma_wide.cu`` at any bk: 'wgmma_wide' where TMA reads
-both operands and writes C, else 'wgmma_wide_lsu' (the loads producer, predicated stores).
+interval alike, on every ring block (edges of 1..128, on the least tile that holds each, so
+the JAX space's sublane 16 and its covers of M < 16 and N < 128 too); ``launch_route``
+names, from the shape before the launch, the producer that fills the ring: TMA ('wgmma')
+or, where TMA cannot read an operand, the loads producer ('wgmma_lsu').  A wide block (an
+edge above 128, the JAX space's wide stripes and blocks, any edges: swapped at bm <= 32,
+narrow columns, covers of unaligned dimensions, bn up to 32768) takes
+``csrc/tl2_wgmma_wide.cu`` at any bk: 'wgmma_wide' where TMA reads both operands and writes
+C, else 'wgmma_wide_lsu' (the loads producer, predicated stores).
 A config ``KernelConfig.validate`` refuses raises with its reason, and a launch that fails
 raises.  For a CPU tensor it runs ``matmul_reference``, the plain version of the same
 semantics, of every route and variant (a block's values depend only on bk, ``acc_dtype``
@@ -34,8 +37,9 @@ import torch.nn.functional as F
 
 # the ring's constants and shared-memory model, read through this module too
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
-                                WIDE_BM_CHOICES, KernelConfig, carry_stages, wgmma_smem_bytes,
-                                wide_streamed)
+                                WIDE_BM_CHOICES, WIDE_SUB_N, WIDE_SWAP_M, KernelConfig,
+                                carry_stages, ring_edge, wgmma_smem_bytes, wide_c_grid,
+                                wide_streamed, wide_sub_m)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -66,8 +70,8 @@ LAUNCHES_MULTI_K_WGMMA_WIDE = 0
 LAUNCHES_MULTI_K_WGMMA_WIDE_LSU = 0
 LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
 LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
-#: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn 32),
-#: of a swapped tile (bm 32 over bn 64 / 128), of a bf16-family carry that rounds in
+#: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn <= 32),
+#: of a swapped tile (bm <= 32 over bn 33..128), of a bf16-family carry that rounds in
 #: the middle of a stage (bk % 64 == 32), of a wide block whose A streams through its
 #: ring (``config.wide_streamed``), and of a wide block taller than WIDE_BM_CHOICES' largest
 #: (bm above 2048, the JAX DB's tall blocks).
@@ -76,6 +80,17 @@ LAUNCHES_SWAPPED = 0
 LAUNCHES_MIDSTAGE = 0
 LAUNCHES_WIDE_STREAMED = 0
 LAUNCHES_WIDE_TALL = 0
+#: Launches (2-D and batched) of the JAX space's narrow and unaligned edges
+#: (``launch_variants``): a ring block narrower than its tile (an edge other than 32, 64
+#: or 128: the sublane 16, a cover of M < 16 or N < 128); the swapped wide walk (bm <= 32
+#: beside bn > 128); a wide block of narrow columns (bn < 128 beside a wide bm); a wide
+#: block whose edge ends inside a sub-tile (bm off its sub-tile's rows, bn above 128 off
+#: 128: the covers of an unaligned M or N); and a wide block above 16384 columns.
+LAUNCHES_RING_NARROW = 0
+LAUNCHES_WIDE_SWAPPED = 0
+LAUNCHES_WIDE_NARROW_N = 0
+LAUNCHES_WIDE_CLIPPED = 0
+LAUNCHES_WIDE_LONG = 0
 
 #: The counter of each (more than one K interval, route), in this module and in
 #: ``ops.batched``.
@@ -223,7 +238,8 @@ def operand_producers(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
 
 def c_by_tma(n: int, out: Optional[torch.Tensor] = None) -> bool:
     """TMA can store a wide block's C: N % 8 == 0 and ``out=`` (where given) 16-byte
-    aligned; a fresh output is.  Where not, the wide route stores C by predicated stores."""
+    aligned; a fresh output is.  Where not, the wide route stores C by predicated stores,
+    and so it does where a block's edge ends inside a sub-tile (``config.wide_c_grid``)."""
     return n % 8 == 0 and (out is None or out.data_ptr() % 16 == 0)
 
 
@@ -234,11 +250,13 @@ def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
     (``operand_producers``), else 'wgmma_lsu' (the loads producer reads the operand TMA
     cannot).  Every valid ring tile takes one of them, at any bk: a carry's rounding point
     falls on a stage's start or, where bk % 64 == 32, its middle.  A wide block
-    (tl2_wgmma_wide.cu) takes 'wgmma_wide' where TMA can also store C (``c_by_tma``), else
-    'wgmma_wide_lsu', at any bk and batch."""
+    (tl2_wgmma_wide.cu) takes 'wgmma_wide' where TMA can also store C (``c_by_tma`` and
+    ``config.wide_c_grid``: never in the swapped walk), else 'wgmma_wide_lsu', at any bk
+    and batch."""
     tma = all(operand_producers(cfg, a, rhs, n, k))
     if cfg.wide:
-        return "wgmma_wide" if tma and c_by_tma(n, out) else "wgmma_wide_lsu"
+        return ("wgmma_wide" if tma and c_by_tma(n, out) and wide_c_grid(m, n, cfg.bm, cfg.bn)
+                else "wgmma_wide_lsu")
     return "wgmma" if tma else "wgmma_lsu"
 
 
@@ -317,8 +335,41 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
             torch._C._cuda_getCurrentRawStream(a.get_device()))
 
 
-#: This module's counters, written through by ``_matmul``.
+#: This module's counters, written through by ``_matmul`` and ``launch_kernel``.
 _GLOBALS = globals()
+
+
+def launch_variants(cfg: KernelConfig, k: int) -> list:
+    """The variant counters (this module's names) a launch of ``cfg`` at depth K adds one to:
+    the tile (width 32, swapped, a ring block narrower than its tile), a mid-stage rounding
+    point, and for a wide block its A's mode, its height above 2048, the swapped walk,
+    narrow columns, an edge inside a sub-tile and more than 16384 columns."""
+    keys = []
+    if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
+        keys.append("LAUNCHES_MIDSTAGE")
+    if not cfg.wide:
+        tm, tn = ring_edge(cfg.bm), ring_edge(cfg.bn)
+        if tn == 32:
+            keys.append("LAUNCHES_WIDTH32")
+        elif tm == 32:
+            keys.append("LAUNCHES_SWAPPED")
+        if (tm, tn) != (cfg.bm, cfg.bn):
+            keys.append("LAUNCHES_RING_NARROW")
+        return keys
+    if wide_streamed(cfg.bm, k):
+        keys.append("LAUNCHES_WIDE_STREAMED")
+    if cfg.bm > WIDE_BM_CHOICES[-1]:
+        keys.append("LAUNCHES_WIDE_TALL")
+    if cfg.bm <= WIDE_SWAP_M:
+        keys.append("LAUNCHES_WIDE_SWAPPED")
+    if cfg.bn < WIDE_SUB_N:
+        keys.append("LAUNCHES_WIDE_NARROW_N")
+    if ((cfg.bm > WIDE_SWAP_M and cfg.bm % wide_sub_m(cfg.bm))
+            or (cfg.bn > WIDE_SUB_N and cfg.bn % WIDE_SUB_N)):
+        keys.append("LAUNCHES_WIDE_CLIPPED")
+    if cfg.bn > 16384:
+        keys.append("LAUNCHES_WIDE_LONG")
+    return keys
 #: The C launcher of each output dtype.
 _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16out"}
 
@@ -327,31 +378,23 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
                   batch: int, m: int, n: int, k: int) -> str:
     """Launch the ring on the current stream, writing ``out``; return the route
     (``launch_route``: 'wgmma', 'wgmma_lsu' or, for a wide block, 'wgmma_wide' or
-    'wgmma_wide_lsu').  Counts the width-32, swapped, mid-stage, streamed-A and tall
-    launches.
+    'wgmma_wide_lsu').  Counts the launch's variants (``launch_variants``).
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
-    global LAUNCHES_WIDTH32, LAUNCHES_SWAPPED, LAUNCHES_MIDSTAGE
-    global LAUNCHES_WIDE_STREAMED, LAUNCHES_WIDE_TALL
     name = _LAUNCHERS[out.dtype]
     args = launch_args(a, rhs, cfg, out, bias, activation, batch, m, n, k)
     with torch.cuda.device(a.get_device()):  # an int index: the cheap way in
         err = getattr(load_library(), name)(*args)
     if err:  # the message formats the config, so only on failure
         check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
-    if cfg.bn == 32:
-        LAUNCHES_WIDTH32 += 1
-    elif cfg.bm == 32:
-        LAUNCHES_SWAPPED += 1
-    if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
-        LAUNCHES_MIDSTAGE += 1
+    for key in launch_variants(cfg, k):
+        _GLOBALS[key] += 1
     # launch_route's answer, read off the launch's own vec_a and vec_b
     tma = args[18] and args[19]
     if cfg.wide:
-        LAUNCHES_WIDE_STREAMED += wide_streamed(cfg.bm, k)
-        LAUNCHES_WIDE_TALL += cfg.bm > WIDE_BM_CHOICES[-1]
-        return "wgmma_wide" if tma and c_by_tma(n, out) else "wgmma_wide_lsu"
+        return ("wgmma_wide" if tma and c_by_tma(n, out) and wide_c_grid(m, n, cfg.bm, cfg.bn)
+                else "wgmma_wide_lsu")
     return "wgmma" if tma else "wgmma_lsu"
 
 

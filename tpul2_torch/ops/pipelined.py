@@ -7,13 +7,18 @@ the MMAs.  The sum is f32 over the whole K whatever ``acc_dtype`` says, then one
 the bf16 family a staged config answers differently from ``cuda_matmul``, which rounds the
 carry after every bk interval.
 
-One body on every tile: ``tl2_wgmma_staged`` (csrc/tl2_wgmma.cu), the ring kernel's
-f32-carry instance, at the wide tiles, at width 32 and with the operands swapped (bm 32).
+One body on every ring block: ``tl2_wgmma_staged`` (csrc/tl2_wgmma.cu), the ring kernel's
+f32-carry instance, at the wide tiles, at width 32 and with the operands swapped (bm <= 32),
+on any block of edges 1..128.  At a wide block (an edge above 128, the JAX kStage axis's
+wide picks such as 16 x 11008 and 64 x 32000) the same entry runs the wide walk's f32-sum
+instance (csrc/tl2_wgmma_wide.cu) with A and B streamed through ``pipeline_depth`` stages,
+no split: the JAX kernel's one f32 sum over its DMA ring of both operands.
 ``pipeline_depth`` is the ring's depth in 64-deep stages (WGMMA_KSTAGE): depth d keeps up
 to d stages (64·d of K) in flight.  ``staged_route`` names, from the shape before the launch
 (``tl2_staged_route`` mirrors it), the producer that fills the ring: 'ring' (TMA) or
-'ring_lsu' (the loads producer, where a base is not 16-byte aligned).  Where the output
-has few tiles, the launch splits K (``staged_splits``, below).  The ring does not hold a
+'ring_lsu' (the loads producer, where a base is not 16-byte aligned); at a wide block
+'wgmma_wide' or 'wgmma_wide_lsu'.  Where a ring block's output has few tiles, the launch
+splits K (``staged_splits``, below).  The ring does not hold a
 bk-deep block, as the JAX kernel's DMA slots do (one would not fit shared memory at the
 tuning shape's bk = 1024).  bk reaches the staged path only through the JAX rules below
 (divisibility, the clamp, the gk == 1 route, where bk is the single-K kernel's interval);
@@ -47,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, KernelConfig
+from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, KernelConfig, wide_c_grid
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.matmul import (_vector_ok, check_operands, cuda_matmul, cuda_matmul_tn,
                                     operand_producers, records_grad, refuse_out_under_grad)
@@ -55,12 +60,14 @@ from tpul2_torch.utils.padding import cdiv
 
 #: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the ring
 #: filled by TMA and by the loads producer; of the launches that split K (each also
-#: launches the split-K reduction); and of those on a 32-edge tile.  Counted where a kernel
-#: is launched and nowhere else: not on the gk == 1 path.
+#: launches the split-K reduction); of those on a ring block with an edge of 32 or less;
+#: and at a wide block (the wide walk's staged sum).  Counted where a kernel is launched
+#: and nowhere else: not on the gk == 1 path.
 LAUNCHES_STAGED_RING = 0
 LAUNCHES_STAGED_RING_LSU = 0
 LAUNCHES_STAGED_SPLIT = 0
 LAUNCHES_STAGED_NARROW = 0
+LAUNCHES_STAGED_WIDE = 0
 
 
 class StagedNoVjp(torch.autograd.Function):
@@ -126,10 +133,16 @@ def staged_depth(depth: int, gk: int) -> int:
 def staged_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                  m: int, n: int, k: int) -> str:
     """The producer of a staged launch's ring, from the shape before the launch
-    (``tl2_staged_route`` mirrors it: 1 and 2): 'ring' where TMA can read both operands
-    (``ops.matmul.operand_producers``), else 'ring_lsu'.  Every tile takes one of them; bk plays no part, since the staged
+    (``tl2_staged_route`` mirrors it: 1 to 4): 'ring' where TMA can read both operands
+    (``ops.matmul.operand_producers``), else 'ring_lsu'; at a wide block 'wgmma_wide' where
+    TMA can also store C into a fresh output (N % 8 == 0, ``config.wide_c_grid``), else
+    'wgmma_wide_lsu'.  Every block takes one of them; bk plays no part, since the staged
     sum has no rounding point inside K."""
-    return "ring" if all(operand_producers(cfg, a, rhs, n, k)) else "ring_lsu"
+    tma = all(operand_producers(cfg, a, rhs, n, k))
+    if cfg.wide:
+        return ("wgmma_wide" if tma and n % 8 == 0 and wide_c_grid(m, n, cfg.bm, cfg.bn)
+                else "wgmma_wide_lsu")
+    return "ring" if tma else "ring_lsu"
 
 
 def launch_staged(a, rhs, cfg: KernelConfig, out: torch.Tensor, depth: int,
@@ -162,7 +175,7 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     ``config.pipeline_depth`` (>= 2) is the ring depth.  All three dims must divide the
     blocks.  ``out=`` receives C in place."""
     global LAUNCHES_STAGED_RING, LAUNCHES_STAGED_RING_LSU, LAUNCHES_STAGED_SPLIT
-    global LAUNCHES_STAGED_NARROW
+    global LAUNCHES_STAGED_NARROW, LAUNCHES_STAGED_WIDE
     cfg = config or KernelConfig(pipeline_depth=2)
     if cfg.pipeline_depth < 2:
         raise ValueError("cuda_matmul_pipelined requires pipeline_depth >= 2 "
@@ -182,7 +195,8 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
         refuse_out_under_grad(out, "matmul_pipelined")
         return StagedNoVjp.apply(a, b_or_bt, lambda a_, rhs_: cuda_matmul_pipelined(
             a_, rhs_, cfg, out_dtype))
-    splits = staged_splits(m, n, k, cfg.bm, cfg.bn, depth)
+    # a wide block's staged sum has no split
+    splits = 1 if cfg.wide else staged_splits(m, n, k, cfg.bm, cfg.bn, depth)
     if a.device.type == "cpu":
         res = pipelined_reference(a, b_or_bt, cfg.rhs_layout, out_dtype, splits)
         return res if out is None else out.copy_(res)
@@ -191,12 +205,15 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     elif not _vector_ok(out, n):
         raise ValueError("the staged kernel needs a 16-byte aligned out")
     launch_staged(a, b_or_bt, cfg, out, depth, m, n, k, splits)
+    if cfg.wide:
+        LAUNCHES_STAGED_WIDE += 1
+        return out
     if staged_route(cfg, a, b_or_bt, m, n, k) == "ring":
         LAUNCHES_STAGED_RING += 1
     else:
         LAUNCHES_STAGED_RING_LSU += 1
     if splits > 1:
         LAUNCHES_STAGED_SPLIT += 1
-    if cfg.bm == 32 or cfg.bn == 32:
+    if cfg.bm <= 32 or cfg.bn <= 32:
         LAUNCHES_STAGED_NARROW += 1
     return out
