@@ -482,8 +482,9 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
     blocks over shapes (K and N off 8 among them), blocks (up to 16384 rows and 32000
     columns, the swapped walk, narrow columns and unaligned covers among them), bk (one
     interval and several, 96 mid-stage), layouts and the alignments of A, the RHS and the
-    output: 3 'wgmma_wide' or 4 'wgmma_wide_lsu' on both sides.  Returns (route cases, TMA
-    cases among them)."""
+    output: 3 'wgmma_wide' or 4 'wgmma_wide_lsu' on both sides; and ``config.wide_ctas`` at
+    the card's SM count against tl2_wgmma_wide_ctas, the launcher's rule, at every shape and
+    block, 2-D and batched.  Returns (route cases, TMA cases among them, CTA-count cases)."""
     for bm in (1, 16, 32, 48, 64, 100, 128, 256, 1000, 2048, 16384):
         for k in (32, 64, 128, 256, 512, 576, 1024, 1280, 1344, 4096, 16384):
             stages = lib.tl2_wgmma_wide_stages(bm, k)
@@ -527,7 +528,47 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
                                         f"{off_a}, {off_b}, {off_c}: python {route}, C {code}")
                                 n += 1
                                 n_tma += code == 3
-    return n, n_tma
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_ctas = 0
+    for m, nn, _ in shapes:
+        for bm, bn in ((64, 256), (128, 2048), (256, 128), (2048, 16384), (512, 512),
+                       (16384, 256), (16, 11008), (1, 512), (256, 64), (2048, 1), (1000, 1000),
+                       (200, 300), (128, 24576), (48, 32000)):
+            for batch in (1, 3):
+                got = lib.tl2_wgmma_wide_ctas(m, nn, bm, bn, batch)
+                want = config.wide_ctas(m, nn, bm, bn, batch, sms)
+                if got != want:
+                    raise AssertionError(f"wide_ctas differs at {batch}x{m}x{nn} {bm}x{bn}: "
+                                         f"C {got}, python {want}")
+                n_ctas += 1
+    return n, n_tma, n_ctas
+
+
+def _second_count(torch, cfg, batch: int, m: int, n: int) -> int:
+    """The witness's CTA count beside the rule's for a wide launch: one CTA a block (each CTA
+    then walks one whole block), or where that is the rule's own count, one CTA fewer; 0
+    for a launch of one item, which has no other count."""
+    from tpul2_torch.config import wide_walk
+    walk = wide_walk(m, n, cfg.bm, cfg.bn, batch, cfg.grid_order == "nm")
+    rule = min(walk.items, torch.cuda.get_device_properties(0).multi_processor_count)
+    blocks = walk.items // (walk.strips * walk.cols)  # over the batch
+    return blocks if blocks != rule else rule - 1
+
+
+def _witness_launch(torch, lib, mm, a, rhs, cfg, out, bias, act, batch: int, m: int, n: int,
+                    k: int, ctas: int, depth: int = 0) -> None:
+    """The wide launch the wrapper makes (``ops.matmul.launch_args``) at ``ctas`` CTAs
+    instead of the rule's, into ``out`` (tl2_wgmma_wide_witness; depth > 0: the staged wide
+    launch at that depth).  Not counted: no path takes it."""
+    from tpul2_torch.ops._build import check_launch
+    args = mm.launch_args(a, rhs, cfg, out, bias, act, batch, m, n, k)
+    check_launch(lib.tl2_wgmma_wide_witness(*args, int(out.dtype == torch.float32), depth, ctas),
+                 f"tl2_wgmma_wide_witness ({cfg} at {ctas} CTAs)")
+
+
+def _bits(torch, t):
+    """t's bits as integers of its width (bit-identity: -0.0 and 0.0 differ, NaN is NaN)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
 def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
@@ -603,12 +644,14 @@ def _ring_order_reference(torch, mm, a, rhs, bk, rhs_layout, bias=None, act=None
 
 
 def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one,
-                offsets=(0, 0), out_offset=0):
+                offsets=(0, 0), out_offset=0, witness=None):
     """Run kernel and plain version on the same inputs (A and the RHS ``offsets``
     elements into their allocations; with ``out_offset`` the kernel writes through out=
     that many elements into its allocation); return (max |diff|, the elements beyond
     allowed_error that carry the ring-order reference's bits).  Raises if out of
-    tolerance."""
+    tolerance.  ``witness``, (the library, a list), at a wide block: the same launch again
+    at ``_second_count`` CTAs into an output of the same alignment, which must hold the
+    rule's bits; the count goes on the list."""
     KernelConfig, mm, bmm = mods
     out_dtype = getattr(torch, out_name)
     batched = batch > 1
@@ -641,6 +684,16 @@ def _check_case(torch, mods, gen, batch, m, n, k, cfg, act, out_name, zero_one,
                                    b_t=rhs if cfg.rhs_layout == "nk" else None)
         want = mm.matmul_reference(a, rhs, cfg.bk, cfg.acc_dtype, cfg.rhs_layout, bias, act,
                                    out_dtype)
+    second = _second_count(torch, cfg, batch, m, n) if witness and cfg.wide else 0
+    if second:
+        lib, counts = witness
+        again = _offset(torch, torch.full((batch, m, n) if batched else (m, n), float("nan"),
+                                          dtype=out_dtype, device="cuda"), out_offset)
+        _witness_launch(torch, lib, mm, a, rhs, cfg, again, bias, act, batch, m, n, k, second)
+        if not torch.equal(_bits(torch, again), _bits(torch, got)):
+            raise AssertionError(f"{cfg} at {batch}x{m}x{n}x{k}: {second} CTAs give other "
+                                 "bits than the rule's count")
+        counts.append(second)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     if not torch.isfinite(got.float()).all():
@@ -2203,11 +2256,13 @@ def _thin_k_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_ti
     launches of (e))."""
     import shutil
 
+    from tpul2_torch.config import wide_streams, wide_walk
     from tpul2_torch.harness import campaign
     from tpul2_torch.ops._build import check_launch
     KernelConfig, mm, _ = mods
     t_phase = time.perf_counter()
     rec = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     work = repo / "runs" / "chip_smoke" / "thin_k"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2225,17 +2280,21 @@ def _thin_k_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_ti
     before = counters()["single_k_wgmma_wide"]
     rec["cases"] = []
     max_err = 0.0
+    seconds_of = []
     for name, m, n, k, kw, act, out_name in THIN_K_CASES:
         cfg = KernelConfig(bk=-(-k // 32) * 32, **kw)
         errs = []
         for zero_one in (True, False):
-            err, _ = _check_case(torch, mods, gen, 1, m, n, k, cfg, act, out_name, zero_one)
+            err, _ = _check_case(torch, mods, gen, 1, m, n, k, cfg, act, out_name, zero_one,
+                                 witness=(lib, seconds_of))
             errs.append(err)
         max_err = max(max_err, errs[1])
         rec["cases"].append({"name": name, "config": dataclasses.asdict(cfg),
                              "zero_one_diff": errs[0], "normal_max_abs_err": errs[1]})
         print(f"  (b) {name} {cfg.bm}x{cfg.bn} bk={cfg.bk}: 0/1 diff {errs[0]}, normal max "
               f"|diff| {errs[1]:.6g} within allowed_error")
+    print(f"  (b) {len(seconds_of)} of them bit-identical at a second CTA count {seconds_of}")
+    rec["bit_identical_launches"] = len(seconds_of)
     launched = counters()["single_k_wgmma_wide"] - before
     if launched != 2 * len(THIN_K_CASES):
         raise AssertionError(f"the wide route launched {launched} times for "
@@ -2259,23 +2318,34 @@ def _thin_k_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_ti
                 return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
             return make
 
+        def make_blocks(a=a, b=b, out=out, cfg=wide, m=m, n=n, k=k):
+            walk = wide_walk(m, n, cfg.bm, cfg.bn)
+            return lambda: _witness_launch(torch, lib, mm, a, b, cfg, out, None, None, 1, m, n,
+                                           k, walk.items // (walk.strips * walk.cols))
+
         turns = [host_time.alone_ms(torch, direct(cfg)) for cfg in (wide, ring, ring, wide)]
+        _, per_block = _timed_turns(torch, host_time, direct(wide), make_blocks)
         bound_ms, bound_by = _bound(1, m, n, k)
         library = host_time.alone_ms(torch, lambda: (lambda: torch.matmul(a, b)))
         row = {"mnk": [m, n, k], "wide": f"{wide.bm}x{wide.bn} bk={k}", "turns_ms": turns,
                "wide_ms": (turns[0] + turns[3]) / 2,
                "ring_128x128_ms": (turns[1] + turns[2]) / 2, "torch_alone_ms": library,
+               "ctas": min(wide_walk(m, n, wide.bm, wide.bn).items, sms),
+               "one_cta_a_block_ms": per_block,
                "plain_ms": _time_ms(torch, lambda: mm.matmul_reference(a, b, k), reps=5),
                "bound_ms": bound_ms, "bound_by": bound_by}
         rec["timed"].append(row)
         print(f"  (c) {m}x{n}x{k} alone in turns (wide, ring, ring, wide) ms: "
-              f"{json.dumps(turns)}; torch.matmul {row['torch_alone_ms']:.5f}, plain "
+              f"{json.dumps(turns)}; the wide block at {row['ctas']} CTAs, at one CTA a block "
+              f"{per_block:.5f}; torch.matmul {row['torch_alone_ms']:.5f}, plain "
               f"{row['plain_ms']:.5f}, bound {bound_ms:.5f} ({bound_by})")
         common = {"route": "cuda", "replaces": "tpul2/ops/matmul.py:136",
                   "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": row["torch_alone_ms"]}
+        source = ("tl2_wgmma_wide_stream.cu" if wide_streams(wide.bm, k, True)
+                  else "tl2_wgmma_wide.cu")  # TMA reads A: streamed at thin K
         rows.append({"name": f"tl2_wgmma_wide (single-K, {row['wide']}, {m}x{n}x{k})",
-                     "source": "tpul2_torch/csrc/tl2_wgmma_wide.cu", "max_abs_err": max_err,
+                     "source": f"tpul2_torch/csrc/{source}", "max_abs_err": max_err,
                      "ms": row["wide_ms"], **common})
         keys.append("single_k_wgmma_wide")
         if (m, n, k) == THIN_K_TIMED[0][0]:
@@ -2414,7 +2484,7 @@ WIDE_TIMED = [
      dict(bm=1024, bn=1024, bk=1024), 0, "float32", "tl2_wgmma_wide_stream.cu",
      "tpul2/ops/matmul.py:136", "wide_streamed"),
     ("single-K, bm 16384, 16384x256", 1, 16384, 256, 128, dict(bm=16384, bn=256, bk=128), 0,
-     "bfloat16", "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_tall"),
+     "bfloat16", "tl2_wgmma_wide_stream.cu", "tpul2/ops/matmul.py:136", "wide_tall"),
     ("batched, gk 1, 1024x2048", 4, 1024, 2048, 512, dict(bm=1024, bn=2048, bk=512), 0,
      "bfloat16", "tl2_wgmma_wide.cu", "tpul2/ops/batched.py:40",
      "batched_single_k_wgmma_wide"),
@@ -2436,6 +2506,14 @@ WIDE_DB_BATCHED = [((1024, 2048, 512), "bfloat16"), ((1024, 2048, 512), "float32
 WIDE_DB_BATCH = 2
 WIDE_DB_UNALIGNED = [((1024, 2048, 512), "bfloat16"), ((2048, 8192, 64), "float32"),
                      ((512, 12288, 512), "float32")]
+
+
+def _timed_turns(torch, host_time, make, make_blocks) -> tuple:
+    """A wide row alone (``host_time.alone_ms``) at the rule's CTA count and at one CTA a
+    block, in turns (rule, blocks, blocks, rule): (the rule's two times, the mean of the
+    other two)."""
+    turns = [host_time.alone_ms(torch, fn) for fn in (make, make_blocks, make_blocks, make)]
+    return [turns[0], turns[3]], (turns[1] + turns[2]) / 2
 
 
 def _jax_db_entries(repo: Path, KernelConfig) -> list:
@@ -2463,19 +2541,22 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
     kernel rows, their counter keys, the launches of (b))."""
     import shutil
 
+    from tpul2_torch import config as config_mod
     from tpul2_torch import dispatch
     from tpul2_torch.autotune import db as db_mod
     from tpul2_torch.ops._build import check_launch
     KernelConfig, mm, bmm = mods
     t_phase = time.perf_counter()
     rec = {"cases": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     work = repo / "runs" / "chip_smoke" / "wide"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
 
-    # ---- (a) each variant against its plain version ----
+    # ---- (a) each variant against its plain version, and at a second CTA count ----
+    seconds_of = []
     for name, batch, m, n, k, kw, act, offs, route, key in WIDE_CASES:
         cfg = KernelConfig(**kw)
         probe_a = _offset(torch, torch.zeros(8, dtype=torch.bfloat16, device="cuda"), offs[0])
@@ -2486,19 +2567,28 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
         for out_name in ("bfloat16", "float32"):
             before = counters()[key]
             errs = []
+            counts = []
             for zero_one in (True, False):
                 err, witnessed = _check_case(torch, mods, gen, batch, m, n, k, cfg, act,
-                                             out_name, zero_one, offs[:2], offs[2])
+                                             out_name, zero_one, offs[:2], offs[2],
+                                             witness=(lib, counts))
                 errs.append(err)
             if counters()[key] - before != 2:
                 raise AssertionError(f"{name}: {counters()[key] - before} launches on {key}")
+            rule = config_mod.wide_ctas(m, n, cfg.bm, cfg.bn, batch, sms)
+            seconds_of += counts
             rec["cases"].append({"name": name, "out": out_name, "config": kw, "route": route,
                                  "zero_one_diff": errs[0], "normal_max_abs_err": errs[1],
-                                 "ring_order_witnessed": witnessed})
+                                 "ring_order_witnessed": witnessed, "ctas": rule,
+                                 "second_ctas": counts})
             print(f"  (a) {name} ({batch}x{m}x{n}x{k}, {cfg.bm}x{cfg.bn} bk={cfg.bk}, {route}, "
                   f"{out_name} out): 0/1 diff {errs[0]}, normal max |diff| {errs[1]:.6g} within "
                   f"allowed_error" + (f" ({witnessed} elements on the ring-order bits)"
-                                      if witnessed else ""))
+                                      if witnessed else "")
+                  + f"; {rule} CTAs, bit-identical at {counts}")
+    print(f"  (a) {len(seconds_of)} wide launches bit-identical at the rule's CTA count and at "
+          "a second count")
+    rec["bit_identical_launches"] = len(seconds_of)
     # the loads producer forced on aligned operands (vec_a / vec_b = 0): TMA's bits
     for m, n, k, kw in ((1024, 2048, 512, dict(bm=1024, bn=2048, bk=256, acc_dtype="bfloat16")),
                         (2048, 2048, 2048, dict(bm=512, bn=1024, bk=512, rhs_layout="nk"))):
@@ -2631,7 +2721,13 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
             call = mm.launch_args(a, b, cfg, out, None, None, batch, m, n, k)
             return lambda: check_launch(fn(*call), "tl2_wgmma (wide)")
 
-        turns = [host_time.alone_ms(torch, make) for _ in range(2)]
+        def make_blocks(a=a, b=b, out=out, cfg=cfg, batch=batch, m=m, n=n, k=k):
+            walk = config_mod.wide_walk(m, n, cfg.bm, cfg.bn, batch)
+            blocks = walk.items // (walk.strips * walk.cols)
+            return lambda: _witness_launch(torch, lib, mm, a, b, cfg, out, None, None, batch,
+                                           m, n, k, blocks)
+
+        turns, per_block = _timed_turns(torch, host_time, make, make_blocks)
         library = host_time.alone_ms(torch, lambda a=a, b=b: (lambda: torch.matmul(a, b)))
         plain_ms = _time_ms(torch, lambda a=a, b=b, cfg=cfg: mm.matmul_reference(
             a, b, cfg.bk, cfg.acc_dtype, out_dtype=out_dtype), reps=3)
@@ -2639,15 +2735,18 @@ def _wide_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time
         err = (out.float() - mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype,
                                                  out_dtype=out_dtype).float()).abs().max().item()
         bound_ms, bound_by = _bound(batch, m, n, k, 4 if out_name == "float32" else 2)
+        ctas = config_mod.wide_ctas(m, n, cfg.bm, cfg.bn, batch, sms)
         row = {"name": name, "mnk": [batch, m, n, k], "turns_ms": turns, "max_abs_err": err,
                "ms": sum(turns) / 2, "torch_alone_ms": library, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms": bound_ms, "bound_by": bound_by, "ctas": ctas,
+               "one_cta_a_block_ms": per_block,
                "route": mm.launch_route(cfg, a[0] if batch > 1 else a,
                                         b[0] if batch > 1 else b, m, n, k)}
         rec["timed"].append(row)
-        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({row['route']}, {out_name} out) alone ms "
-              f"{json.dumps(turns)}; torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, "
-              f"plain {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by})")
+        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({row['route']}, {out_name} out, {ctas} "
+              f"CTAs) alone ms {json.dumps(turns)}; one CTA a block {per_block:.5f}; "
+              f"torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, plain {plain_ms:.5f}, "
+              f"bound {bound_ms:.5f} ({bound_by})")
         rows.append({"name": f"tl2_wgmma_wide ({name}, {batch}x{m}x{n}x{k})" if batch > 1
                      else f"tl2_wgmma_wide ({name}, {m}x{n}x{k})",
                      "route": "cuda", "source": f"tpul2_torch/csrc/{src}", "replaces": replaces,
@@ -2694,12 +2793,12 @@ JAX_SPACE_TIMED = [
      4096, dict(bm=16, bn=256, bk=4096, acc_dtype="bfloat16"), "tl2_wgmma_wide_swap.cu",
      "tpul2/ops/matmul.py:136", "wide_swapped"),
     ("narrow columns 256x64", 1, 1024, 64, 64, dict(bm=256, bn=64, bk=64),
-     "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_narrow_n"),
+     "tl2_wgmma_wide_stream.cu", "tpul2/ops/matmul.py:136", "wide_narrow_n"),
     ("clipped cover 1000x1000, one interval", 1, 1000, 1000, 1000,
      dict(bm=1000, bn=1000, bk=1024), "tl2_wgmma_wide_stream.cu", "tpul2/ops/matmul.py:136",
      "wide_clipped"),
     ("bn above 16384: 128x24576", 1, 4096, 24576, 64, dict(bm=128, bn=24576, bk=64),
-     "tl2_wgmma_wide.cu", "tpul2/ops/matmul.py:136", "wide_long"),
+     "tl2_wgmma_wide_stream.cu", "tpul2/ops/matmul.py:136", "wide_long"),
     ("staged wide 16x11008, depth 2 (JAX's kStage pick)", 1, 16, 11008, 4096,
      dict(bm=16, bn=11008, bk=1024, pipeline_depth=2), "tl2_wgmma_wide_swap.cu",
      "tpul2/ops/pipelined.py:39", "staged_wide"),
@@ -2709,14 +2808,15 @@ JAX_SPACE_KEYS = ("ring_narrow", "wide_swapped", "wide_narrow_n", "wide_clipped"
                   "staged_wide")
 
 
-def _jax_space_sweep(torch, mods, pl, gen, m: int, n: int, k: int, acc: str,
+def _jax_space_sweep(torch, lib, mods, pl, gen, m: int, n: int, k: int, acc: str,
                      blocks: list) -> dict:
     """Phase jax space (a) at one shape and family: each block (one config per (bm, bn,
     bk, depth, rhs)) launched on 0/1 inputs, held to the f32 truth by the gate's comparison
     (harness.correctness: its density, every element within the family's exact bound
     equal), and on normal inputs within allowed_error of its plain version, one plain
     output per (bk, staged).  A bf16 carry's element beyond the tolerance must carry the
-    ring-order reference's bits.  Returns the counts."""
+    ring-order reference's bits.  Each wide launch runs again at ``_second_count`` CTAs
+    (one CTA a block) and must give the same bits.  Returns the counts."""
     from tpul2_torch.harness.correctness import EXACT_BOUND, zero_one_density
     KernelConfig, mm, bmm = mods
     p = zero_one_density(k, "float32" if acc == "float32" else acc)
@@ -2728,8 +2828,9 @@ def _jax_space_sweep(torch, mods, pl, gen, m: int, n: int, k: int, acc: str,
            False: {"kn": bn_, "nk": bn_.t().contiguous()}}
     truth = a01.float() @ b01.float()
     out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    again = torch.empty_like(out)
     plain, tols = {}, {}
-    pending = []
+    pending, other_bits = [], []
     for cfg in blocks:
         staged = cfg.pipeline_depth >= 2
         key = (k if staged else cfg.bk, staged)
@@ -2746,12 +2847,26 @@ def _jax_space_sweep(torch, mods, pl, gen, m: int, n: int, k: int, acc: str,
             else:
                 (mm.cuda_matmul_tn if cfg.rhs_layout == "nk" else mm.cuda_matmul)(
                     a, r, cfg, out=out)
+            second = _second_count(torch, cfg, 1, m, n) if cfg.wide else 0
+            if second:
+                # the wrapper's launch at another count: a staged one at its clamped depth,
+                # or (one K interval) the single-K launch the wrapper then makes
+                depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk) if staged else 0
+                again.fill_(float("nan"))
+                _witness_launch(torch, lib, mm, a, r, dataclasses.replace(cfg, pipeline_depth=0)
+                                if depth < 2 else cfg, again, None, None, 1, m, n, k, second,
+                                depth if depth >= 2 else 0)
+                other_bits.append((_bits(torch, again) != _bits(torch, out)).sum())
             if zero_one:
                 bad = ((out != truth) & (truth.abs() <= bound)).sum()
             else:
                 bad = ((out - plain[key]).abs() > tols[key]).sum()
             pending.append((cfg, zero_one, bad))
     torch.cuda.synchronize()
+    differ = sum(int(x.item()) for x in other_bits)
+    if differ:
+        raise AssertionError(f"jax space {m}x{n}x{k} {acc}: {differ} elements differ between "
+                             "the rule's CTA count and one CTA a block")
     witnessed = ring_tile_bits = 0
     orders = {}
     for cfg, zero_one, bad in pending:
@@ -2784,7 +2899,8 @@ def _jax_space_sweep(torch, mods, pl, gen, m: int, n: int, k: int, acc: str,
         witnessed += int((beyond & ~off).sum().item())
         ring_tile_bits += int(off.sum().item())
     return {"blocks": len(blocks), "launches": 2 * len(blocks), "plain_outputs": len(plain),
-            "ring_order_witnessed": witnessed, "ring_tile_bits": ring_tile_bits}
+            "ring_order_witnessed": witnessed, "ring_tile_bits": ring_tile_bits,
+            "bit_identical": len(other_bits)}
 
 
 def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host_time) -> tuple:
@@ -2802,7 +2918,7 @@ def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host
 
     from tpul2_torch import dispatch
     from tpul2_torch.autotune import db as db_mod
-    from tpul2_torch.config import candidate_configs
+    from tpul2_torch.config import candidate_configs, wide_walk
     from tpul2_torch.models import BlockParams, block_forward
     from tpul2_torch.models.entry import N_HEADS
     from tpul2_torch.models.entry import entry as block_entry
@@ -2811,12 +2927,13 @@ def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host
     KernelConfig, mm, bmm = mods
     t_phase = time.perf_counter()
     rec = {"sweep": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
 
     # ---- (a) the JAX space at the sample shapes ----
     zero_counters()
-    total = 0
+    total = identical = 0
     for m, n, k in JAX_SPACE_SHAPES:
         for acc in ("float32", "bfloat16"):
             t0 = time.perf_counter()
@@ -2829,18 +2946,22 @@ def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host
                     raise AssertionError(f"jax space {m}x{n}x{k}: {cfg} refused")
                 seen.add(key)
                 blocks.append(cfg)
-            got = _jax_space_sweep(torch, mods, pl, gen, m, n, k, acc, blocks)
+            got = _jax_space_sweep(torch, lib, mods, pl, gen, m, n, k, acc, blocks)
             got.update(mnk=[m, n, k], acc=acc, seconds=time.perf_counter() - t0)
             rec["sweep"].append(got)
             total += got["blocks"]
+            identical += got["bit_identical"]
             print(f"  (a) {m}x{n}x{k} {acc}: {got['blocks']} blocks, {got['launches']} launches "
                   f"correct ({got['plain_outputs']} plain outputs; beyond allowed_error: "
                   f"{got['ring_order_witnessed']} elements on the ring-order bits, "
-                  f"{got['ring_tile_bits']} on the 128x128 ring tile's; "
-                  f"{got['seconds']:.1f} s)", flush=True)
+                  f"{got['ring_tile_bits']} on the 128x128 ring tile's; {got['bit_identical']} "
+                  f"wide launches bit-identical at one CTA a block; {got['seconds']:.1f} s)",
+                  flush=True)
     sweep_counts = counters()
     rec["sweep_launches"] = {key: v for key, v in sweep_counts.items() if v}
-    print(f"  (a) {total} blocks of the JAX space, 0 refused, every launch correct; launches "
+    rec["bit_identical_launches"] = identical
+    print(f"  (a) {total} blocks of the JAX space, 0 refused, every launch correct; {identical} "
+          "wide launches bit-identical at the rule's CTA count and at a second; launches "
           + json.dumps(rec["sweep_launches"]))
     if sweep_counts["mma_sync"] or any(sweep_counts[key] <= 0 for key in JAX_SPACE_KEYS):
         raise AssertionError(f"the sweep missed a variant: {rec['sweep_launches']}")
@@ -2946,7 +3067,20 @@ def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host
 
             def reference(a=a, b=b, cfg=cfg):
                 return mm.matmul_reference(a, b, cfg.bk, cfg.acc_dtype, out_dtype=torch.bfloat16)
-        turns = [host_time.alone_ms(torch, make) for _ in range(2)]
+        ctas = per_block = None
+        if cfg.wide:  # the rule's CTA count in turns with one CTA a block
+            walk = wide_walk(m, n, cfg.bm, cfg.bn, batch)
+            ctas = min(walk.items, sms)
+            depth = pl.staged_depth(cfg.pipeline_depth, k // cfg.bk) if cfg.pipeline_depth else 0
+
+            def make_blocks(a=a, b=b, out=out, cfg=cfg, batch=batch, m=m, n=n, k=k,
+                            blocks=walk.items // (walk.strips * walk.cols), depth=depth):
+                return lambda: _witness_launch(torch, lib, mm, a, b, cfg, out, None, None,
+                                               batch, m, n, k, blocks, depth)
+
+            turns, per_block = _timed_turns(torch, host_time, make, make_blocks)
+        else:
+            turns = [host_time.alone_ms(torch, make) for _ in range(2)]
         library = host_time.alone_ms(torch, lambda a=a, b=b: (lambda: torch.matmul(a, b)))
         plain_ms = _time_ms(torch, reference, reps=3)
         # `out` holds the kernel's result on these inputs (every timed launch wrote it)
@@ -2957,11 +3091,14 @@ def _jax_space_phase(torch, repo: Path, lib, mods, counters, zero_counters, host
                                  m, n, k))
         row = {"name": name, "mnk": [batch, m, n, k], "turns_ms": turns, "max_abs_err": err,
                "ms": sum(turns) / 2, "torch_alone_ms": library, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "route": route}
+               "bound_ms": bound_ms, "bound_by": bound_by, "route": route, "ctas": ctas,
+               "one_cta_a_block_ms": per_block}
         rec["timed"].append(row)
-        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({route}, bfloat16 out) alone ms "
-              f"{json.dumps(turns)}; torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, "
-              f"plain {plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), max |err| {err:.4g}")
+        print(f"  (c) {name} at {batch}x{m}x{n}x{k} ({route}, bfloat16 out"
+              + (f", {ctas} CTAs" if ctas else "") + f") alone ms {json.dumps(turns)}"
+              + (f"; one CTA a block {per_block:.5f}" if ctas else "")
+              + f"; torch.{'bmm' if batch > 1 else 'matmul'} {library:.5f}, plain "
+              f"{plain_ms:.5f}, bound {bound_ms:.5f} ({bound_by}), max |err| {err:.4g}")
         label = f"{batch}x{m}x{n}x{k}" if batch > 1 else f"{m}x{n}x{k}"
         rows_out.append({"name": f"{'tl2_wgmma_staged' if cfg.pipeline_depth else 'tl2_wgmma'} "
                                  f"({name}, {label})",
@@ -3071,7 +3208,7 @@ def main(argv=None) -> int:
         print(f"  carry ring depths {json.dumps(depths)}; smem models and route rules agree "
               f"with the kernels ({n_route[0]} route cases, {n_route[1]} of them TMA; "
               f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA; {n_wide[0]} wide "
-              f"route cases, {n_wide[1]} of them TMA)")
+              f"route cases, {n_wide[1]} of them TMA; {n_wide[2]} wide CTA counts)")
         record["carry_stages"] = depths
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
         record["build_seconds"] = lib.build_seconds

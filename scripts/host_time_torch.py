@@ -3,7 +3,7 @@
 device time of each kernel body alone.
 
     python scripts/host_time_torch.py [--root DIR] [--reps 7] [--json_out PATH]
-    python scripts/host_time_torch.py [--root DIR] --alone M,N,K,BM,BN,BK [--alone ...]
+    python scripts/host_time_torch.py [--root DIR] --alone M,N,K,BM,BN,BK[,ACC[,A_OFF]] [...]
 
 Imports the ``tpul2_torch`` package under ``--root`` (default: this checkout), so that
 two trees can be compared on one card, each in a process of its own.  For each bring-up
@@ -50,10 +50,12 @@ device time per call:
   torch_alone_ms  torch.matmul (torch.bmm) the same way.
 Prints one JSON object per shape, then the card's nvidia-smi name and power limit.
 
-With ``--alone`` it times only the named configs (the f32 family, 'kn', bf16 output, no
-epilogue, normal inputs), each body alone as above through the tree's tl2_wgmma launcher:
-one JSON object per config with its ``alone_ms``.  A wide block takes the tree's wide
-route, so two trees' wide kernels compare on one card.
+With ``--alone`` it times only the named configs ('kn', bf16 output, no epilogue, normal
+inputs; the f32 family unless ACC is bfloat16; A's base A_OFF elements into its
+allocation, 1 being 2 bytes off 16, which hands A to the loads producer), each body alone
+as above through the tree's tl2_wgmma launcher: one JSON object per config with its
+``alone_ms``.  A wide block takes the tree's wide route, so two trees' wide kernels compare
+on one card.
 """
 
 from __future__ import annotations
@@ -167,7 +169,8 @@ def main(argv=None) -> int:
                     help="checkout whose tpul2_torch is measured")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--json_out", default=None)
-    ap.add_argument("--alone", action="append", default=[], metavar="M,N,K,BM,BN,BK",
+    ap.add_argument("--alone", action="append", default=[],
+                    metavar="M,N,K,BM,BN,BK[,ACC[,A_OFF]]",
                     help="time only this config's kernel alone (repeatable)")
     args = ap.parse_args(argv)
 
@@ -192,9 +195,15 @@ def main(argv=None) -> int:
     gen.manual_seed(3)
     rows = []
     for spec in args.alone:
-        m, n, k, bm, bn, bk = map(int, spec.split(","))
-        cfg = KernelConfig(bm=bm, bn=bn, bk=bk)
+        fields = spec.split(",")
+        m, n, k, bm, bn, bk = map(int, fields[:6])
+        acc = fields[6] if len(fields) > 6 else "float32"
+        a_off = int(fields[7]) if len(fields) > 7 else 0
+        cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc)
         a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        if a_off:
+            a = torch.empty(a.numel() + a_off, dtype=a.dtype, device="cuda")[a_off:].view(
+                m, k).copy_(a)
         b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
         out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
 
@@ -203,7 +212,8 @@ def main(argv=None) -> int:
             return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
 
         row = {"root": str(Path(args.root).resolve()), "mnk": [m, n, k],
-               "config": f"{bm}x{bn} bk={bk}", "alone_ms": alone_ms(torch, make)}
+               "config": f"{bm}x{bn} bk={bk} {acc}" + (f" A off {a_off}" if a_off else ""),
+               "alone_ms": alone_ms(torch, make)}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del a, b, out

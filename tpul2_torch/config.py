@@ -21,10 +21,12 @@ field names are the JAX package's, so a configuration carries across
                   Or a wide block (``is_wide``: an edge above 128), the JAX space's
                   "longest contiguous C stripes" (``tpul2/config.py:422-447``): bm up to
                   WIDE_BM_MAX, bn up to WIDE_BN_MAX.  It runs tl2_wgmma_wide.cu at any bk,
-                  2-D and batched: one CTA walks the block in ``wide_sub_m``-row x
-                  128-column sub-tiles (swapped at bm <= 32: the sub-tile's columns are
-                  wgmma's M), the last of each clipped at the block's edge, the bf16
-                  family's K carry rounded at every bk as on the ring.  A stays resident
+                  2-D and batched, in ``wide_sub_m``-row x 128-column sub-tiles (swapped
+                  at bm <= 32: the sub-tile's columns are wgmma's M), the last of each
+                  clipped at the block's edge, the bf16 family's K carry rounded at every bk
+                  as on the ring; every sub-tile of every block is a work item, dealt out to
+                  ``wide_ctas`` persistent CTAs in runs (``wide_walk``, ``wide_item``,
+                  ``wide_strips``).  A stays resident
                   per strip where all of K fits beside two ring stages, else streams
                   through the ring beside B (``wide_streamed``, from K at the launch; always
                   in the swapped walk).  The route ('wgmma_wide', or 'wgmma_wide_lsu' where
@@ -201,6 +203,22 @@ def wide_streamed(bm: int, k: int) -> bool:
     return bm <= WIDE_SWAP_M or _wide_fit(bm, k, False) < WIDE_MIN_STAGES
 
 
+#: The depth up to which a wide launch streams A where TMA reads it (``wide_streams``).
+WIDE_THIN_K = 128
+
+
+def wide_streams(bm: int, k: int, tma_a: bool) -> bool:
+    """Whether a wide launch streams A (``tl2wg::wide_streams``, the launcher's choice):
+    where its strip does not fit (``wide_streamed``), and at K <= WIDE_THIN_K where TMA
+    reads A (``tma_a``).  There a strip is one or two 64-deep boxes: keeping it saves
+    little L2 traffic, while each strip of a CTA's run costs a load and a barrier round
+    trip before its first wgmma; streamed, the box rides in the ring beside B.  The loads
+    producer's gather of A costs more per item than the strip's reloads, so there A stays
+    resident.  ``KernelConfig.smem_bytes`` counts the mode ``wide_streamed`` gives: both
+    modes fit at thin K."""
+    return wide_streamed(bm, k) or (tma_a and k <= WIDE_THIN_K)
+
+
 def wide_stages(bm: int, k: int) -> int:
     """The wide route's ring depth at depth K in the mode K takes (``tl2_wgmma_wide_stages``):
     WIDE_STAGES, or as many as fit; below WIDE_MIN_STAGES the block does not fit."""
@@ -214,6 +232,86 @@ def wide_c_grid(m: int, n: int, bm: int, bn: int) -> bool:
     predicated."""
     return (bm > WIDE_SWAP_M and (bm % wide_sub_m(bm) == 0 or bm >= m)
             and (bn % WIDE_SUB_N == 0 or bn >= n))
+
+
+@dataclasses.dataclass(frozen=True)
+class WideWalk:
+    """The work items of a wide launch (``tl2wg::wide_walk``): one per sub-tile of each
+    block of each batch element, ordered (batch element, block, strip, column), the column
+    fastest, the blocks in the launch's raster.  Every block has ``strips`` strips of
+    ``sub_m`` rows and ``cols`` columns of WIDE_SUB_N: its edge, or the problem's where that
+    is nearer, rounded up to them."""
+
+    m: int
+    n: int
+    bm: int
+    bn: int
+    raster_nm: bool
+    sub_m: int
+    blocks_m: int
+    blocks_n: int
+    strips: int
+    cols: int
+    items: int
+
+
+def wide_walk(m: int, n: int, bm: int, bn: int, batch: int = 1,
+              raster_nm: bool = False) -> WideWalk:
+    """The work items of a wide launch of bm x bn blocks over batch x M x N."""
+    sub_m = wide_sub_m(bm)
+    strips, cols = cdiv(min(bm, m), sub_m), cdiv(min(bn, n), WIDE_SUB_N)
+    blocks_m, blocks_n = cdiv(m, bm), cdiv(n, bn)
+    return WideWalk(m, n, bm, bn, bool(raster_nm), sub_m, blocks_m, blocks_n, strips, cols,
+                    batch * blocks_m * blocks_n * strips * cols)
+
+
+def wide_item(walk: WideWalk, i: int) -> tuple:
+    """Item i of a walk (``tl2wg::wide_item``): (batch element, block, strip, column, the
+    block's first row, its first column, the stored edges m_lim and n_lim (the block's or
+    the problem's, the nearer), empty).  An item past the problem's edge in an edge block is
+    empty: no CTA computes it."""
+    per_block = walk.strips * walk.cols
+    z, block = divmod(i // per_block, walk.blocks_m * walk.blocks_n)
+    strip, col = divmod(i % per_block, walk.cols)
+    if walk.raster_nm:
+        bn_i, bm_i = divmod(block, walk.blocks_m)
+    else:
+        bm_i, bn_i = divmod(block, walk.blocks_n)
+    m_blk, n_blk = bm_i * walk.bm, bn_i * walk.bn
+    m_lim, n_lim = min(walk.m, m_blk + walk.bm), min(walk.n, n_blk + walk.bn)
+    empty = (strip >= cdiv(m_lim - m_blk, walk.sub_m)
+             or col >= cdiv(n_lim - n_blk, WIDE_SUB_N))
+    return z, block, strip, col, m_blk, n_blk, m_lim, n_lim, empty
+
+
+def wide_first(items: int, ctas: int, c: int) -> int:
+    """The first item of CTA c of ``ctas`` (``tl2wg::wide_first``): floor(c * items / ctas).
+    CTA c walks [wide_first(c), wide_first(c + 1)); the runs differ by at most one item."""
+    return c * items // ctas
+
+
+def wide_strips(walk: WideWalk, ctas: int, c: int) -> list:
+    """CTA c's run [wide_first(c), wide_first(c + 1)) as the kernel walks it, one strip at a
+    time (``for_each_strip`` with ``tl2wg::wide_segment``): (first item, end column) of each
+    segment of the run with a non-empty item.  A segment holds its strip's items from the
+    first one's column up to the strip's last column or the run's end, whichever comes
+    first; the items to compute are its columns up to ``end`` (the non-empty ones).  A
+    resident A strip is loaded once per segment."""
+    i, last = wide_first(walk.items, ctas, c), wide_first(walk.items, ctas, c + 1)
+    out = []
+    while i < last:
+        _, _, _, col, _, n_blk, _, n_lim, empty = wide_item(walk, i)
+        stop = min(walk.cols, col + last - i)
+        if not empty:
+            out.append((i, min(stop, cdiv(n_lim - n_blk, WIDE_SUB_N))))
+        i += stop - col
+    return out
+
+
+def wide_ctas(m: int, n: int, bm: int, bn: int, batch: int = 1, sms: int = NUM_SMS) -> int:
+    """The CTAs of a wide launch (``tl2_wgmma_wide_ctas``): one per SM, the kernel's
+    one CTA an SM, or one per work item where there are fewer."""
+    return min(wide_walk(m, n, bm, bn, batch).items, sms)
 
 
 def _vendor_for_xla(variant: str) -> str:

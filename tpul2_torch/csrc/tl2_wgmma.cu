@@ -304,14 +304,30 @@ WgParams base_params(const void* a, const void* b, int m, int n, int k, long lon
   return p;
 }
 
+// The card's SMs (cudaDevAttrMultiProcessorCount of the current device), read once per
+// process; 0 until it can be read.
+int card_sms() {
+  static int sms = 0;
+  if (sms <= 0) {
+    int dev = 0, got = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess &&
+        cudaDeviceGetAttribute(&got, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+      sms = got;
+  }
+  return sms;
+}
+
 // A wide block's launch (routes 3 and 4): TMA reads each operand it can (vec_a / vec_b = 0
 // hands it to the loads producer) and stores C where it can (wide_c_grid), else predicated
-// stores. A resident or a streamed A by K (wide_streamed); the bf16 family's carry only with
-// gk > 1. depth > 0: a staged launch, A streamed through a ring of `depth` stages.
+// stores. A resident or a streamed A by K and A's producer (wide_streams); the bf16
+// family's carry only with gk > 1. depth > 0: a staged launch, A streamed through a ring of `depth` stages. The work
+// items go to `ctas` persistent CTAs; 0: the rule's count (wide_ctas over the card's SMs),
+// which every dispatch takes.
 int launch_wide_route(const void* a, const void* b, const void* bias, void* c, int batch,
                       int m, int n, int k, long long sa, long long sb, long long sc, int bm,
                       int bn, int bk, int rhs_nk, int acc_bf16, int act, int raster_nm,
-                      bool out_f32, int vec_a, int vec_b, cudaStream_t stream, int depth = 0) {
+                      bool out_f32, int vec_a, int vec_b, cudaStream_t stream, int depth = 0,
+                      int ctas = 0) {
   if (c == nullptr) return (int)cudaErrorInvalidValue;
   const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
   const bool tma_c = tma_c_ok(c, n) && wide_c_grid(m, n, bm, bn);
@@ -326,13 +342,15 @@ int launch_wide_route(const void* a, const void* b, const void* bias, void* c, i
   p.c = c;
   p.bk = bk;
   p.sc = sc;
-  p.wide_stream = depth > 0 || wide_streamed(bm, k);
-  p.stages = depth > 0 ? depth : wide_stages(bm, k);
+  p.wide_stream = depth > 0 || wide_streams(bm, k, tma_a);
+  p.stages = depth > 0 ? depth : wide_fit(bm, k, p.wide_stream);
   p.split_steps = cdiv(k, KSTAGE);
   p.act = act; p.raster_nm = raster_nm; p.out_f32 = out_f32;
   p.vec_out = pairs_ok(c, n, batch, sc, out_f32 ? 4 : 2) && bn % 2 == 0;
   p.tma_c = tma_c;
-  return (int)launch_wide_block(ta, tb, tc, p, batch, rhs_nk, acc_bf16 && cdiv(k, bk) > 1,
+  p.batch = batch;
+  if (ctas == 0) ctas = wide_ctas(wide_walk(m, n, bm, bn, batch, raster_nm).items, card_sms());
+  return (int)launch_wide_block(ta, tb, tc, p, ctas, rhs_nk, acc_bf16 && cdiv(k, bk) > 1,
                                 stream);
 }
 
@@ -423,18 +441,26 @@ int splits_ok(int k, int splits) {
          cdiv(steps, cdiv(steps, splits)) == splits;
 }
 
+// A staged launch at a wide block: the wide walk's f32 sum over all of K (bk = K), A and B
+// streamed through `depth` stages, no split, on `ctas` CTAs (0: the rule's).
+int staged_wide(const void* a, const void* b, void* c, int m, int n, int k, int bm, int bn,
+                int depth, int rhs_nk, int raster_nm, int out_f32, void* stream, int ctas) {
+  if (!wide_block(bm, bn) || !staged_route_code(m, n, k, bm, bn, rhs_nk, a, b) ||
+      !wide_staged_ok(bm, depth) || c == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_wide_route(a, b, nullptr, c, 1, m, n, k, (long long)m * k, (long long)n * k,
+                           (long long)m * n, bm, bn, k, rhs_nk, 0, ACT_NONE, raster_nm,
+                           out_f32 != 0, 1, 1, static_cast<cudaStream_t>(stream), depth, ctas);
+}
+
 int staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k, int bm, int bn,
            int depth, int splits, int rhs_nk, int raster_nm, int out_f32, void* stream) {
   if (!staged_route_code(m, n, k, bm, bn, rhs_nk, a, b) || depth < 2 || depth > MAX_STAGES ||
       !splits_ok(k, splits) || c == nullptr)
     return (int)cudaErrorInvalidValue;
   if (wide_block(bm, bn)) {
-    // the wide walk's f32 sum over all of K (bk = K), A and B streamed through `depth`
-    // stages; no split
-    if (splits != 1 || !wide_staged_ok(bm, depth)) return (int)cudaErrorInvalidValue;
-    return launch_wide_route(a, b, nullptr, c, 1, m, n, k, (long long)m * k, (long long)n * k,
-                             (long long)m * n, bm, bn, k, rhs_nk, 0, ACT_NONE, raster_nm,
-                             out_f32 != 0, 1, 1, static_cast<cudaStream_t>(stream), depth);
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    return staged_wide(a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm, out_f32, stream, 0);
   }
   if (smem_bytes(bm, bn, depth) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (splits > 1 && !reduce_ok(ws, c, (long long)m * n, splits))
@@ -528,8 +554,9 @@ int tl2_wgmma_wide_smem_bytes(int bm, int k, int stages, int streamed) {
   return wide_smem_bytes(bm, k, stages, streamed != 0);
 }
 
-// Whether a bm-row block's A streams through the ring at depth k (1) or stays resident (0);
-// mirrors config.wide_streamed.
+// Whether a bm-row block's A must stream through the ring at depth k (1: its strip does not
+// fit) or may stay resident (0); mirrors config.wide_streamed. At thin K a launch streams A
+// where TMA reads it (wide_streams).
 int tl2_wgmma_wide_streamed(int bm, int k) { return wide_streamed(bm, k); }
 
 // The wide route's ring depth for a bm-row block at depth k; mirrors config.wide_stages.
@@ -542,6 +569,36 @@ int tl2_wgmma_wide_stages(int bm, int k) { return wide_stages(bm, k); }
 int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                     const void* b, const void* c) {
   return route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c);
+}
+
+// The CTAs a wide launch of a bm x bn block over batch x M x N takes by the rule: one per
+// SM of this card, or one per work item where there are fewer; mirrors config.wide_ctas.
+// 0 for a block that is not wide or an empty problem.
+int tl2_wgmma_wide_ctas(int m, int n, int bm, int bn, int batch) {
+  if (m <= 0 || n <= 0 || batch <= 0 || !wide_block_ok(bm, bn)) return 0;
+  return wide_ctas(wide_walk(m, n, bm, bn, batch, 0).items, card_sms());
+}
+
+// A wide launch on `ctas` CTAs instead of the rule's (1 up to its work items), to show that
+// the output's bits do not depend on the count: the argument list of tl2_wgmma_bf16out,
+// then out_f32 (the output's dtype), depth and ctas. depth > 0 makes it tl2_wgmma_staged's
+// wide launch at that (clamped) depth, which ignores bias, bk, acc_bf16, act and vec_a /
+// vec_b. No route calls it; chip_smoke.py does. Returns the cudaError_t of the launch.
+int tl2_wgmma_wide_witness(const void* a, const void* b, const void* bias, void* c, int batch,
+                           int m, int n, int k, long long sa, long long sb, long long sc,
+                           int bm, int bn, int bk, int rhs_nk, int acc_bf16, int act,
+                           int raster_nm, int vec_a, int vec_b, void* stream, int out_f32,
+                           int depth, int ctas) {
+  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  if (depth > 0)
+    return batch == 1 ? staged_wide(a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm,
+                                    out_f32, stream, ctas)
+                      : (int)cudaErrorInvalidValue;
+  if (batch <= 0 || batch > 65535 || route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c) < 3)
+    return (int)cudaErrorInvalidValue;
+  return launch_wide_route(a, b, bias, c, batch, m, n, k, sa, sb, sc, bm, bn, bk, rhs_nk,
+                           acc_bf16, act, raster_nm, out_f32 != 0, vec_a, vec_b,
+                           static_cast<cudaStream_t>(stream), 0, ctas);
 }
 
 // The same for a staged launch (tl2_wgmma_staged): 1 'ring', 2 'ring_lsu', for a wide block

@@ -47,6 +47,7 @@ struct WgParams {
   int blk_m, blk_n;      // the block: the CTAs' stride, and where their stores stop
   int wide_stream;       // the wide route: 1 where A streams through the ring beside B
   int tma_c;             // the wide route: 1 where TMA stores C, 0 predicated stores
+  int batch;             // the wide route: the batch, whose elements its work items span
 };
 
 // The tile's shape on the tensor cores. wgmma takes 64 rows and a width that is a multiple
@@ -437,9 +438,10 @@ __device__ __forceinline__ void store_pair(bf16* p, float v0, float v1, bool bot
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(bf16* p, float v) { *p = __float2bfloat16(v); }
 
+// C of batch element z (and of the CTA's split, blockIdx.y).
 template <typename OutT>
-__device__ __forceinline__ OutT* out_base(const WgParams& p) {
-  return static_cast<OutT*>(p.c) + (long long)blockIdx.z * p.sc + blockIdx.y * p.ssplit;
+__device__ __forceinline__ OutT* out_base(const WgParams& p, int z) {
+  return static_cast<OutT*>(p.c) + (long long)z * p.sc + blockIdx.y * p.ssplit;
 }
 
 // Bias, activation and the cast of one consumer thread's m64 x N fragment: element
@@ -447,8 +449,8 @@ __device__ __forceinline__ OutT* out_base(const WgParams& p) {
 // Stores stop at row m_lim and column n_lim: the block's edge or the problem's, the nearer.
 template <typename OutT, int N>
 __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N], int row0,
-                                         int col0, int m_lim, int n_lim) {
-  OutT* C = out_base<OutT>(p);
+                                         int col0, int m_lim, int n_lim, int z) {
+  OutT* C = out_base<OutT>(p, z);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
     const int col = col0 + 8 * j;
@@ -474,8 +476,9 @@ __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N],
 // (m_lim, n_lim) as in epilogue.
 template <typename OutT, int N>
 __device__ __forceinline__ void epilogue_swapped(const WgParams& p, const float (&v)[N],
-                                                 int ncol0, int mrow0, int m_lim, int n_lim) {
-  OutT* C = out_base<OutT>(p);
+                                                 int ncol0, int mrow0, int m_lim, int n_lim,
+                                                 int z) {
+  OutT* C = out_base<OutT>(p, z);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int col = ncol0 + 8 * h;
@@ -697,16 +700,17 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
     const int frag_row = wg * 64 + (warp % 4) * 16 + (lane >> 2);  // row of wgmma's M
     // nothing beyond the block's edge or the problem's is stored
     const int m_lim = min(p.m, m0 + p.blk_m), n_lim = min(p.n, n0 + p.blk_n);
+    const int z = blockIdx.z;
     if constexpr (T::SWAP) {
       if (p.out_f32)
-        epilogue_swapped<float>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim);
+        epilogue_swapped<float>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim, z);
       else
-        epilogue_swapped<bf16>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim);
+        epilogue_swapped<bf16>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim, z);
     } else if (BM >= 64 || warp % 4 < 2) {  // at bm = 32, warps 2 and 3 hold rows 32..63
       if (p.out_f32)
-        epilogue<float>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim);
+        epilogue<float>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim, z);
       else
-        epilogue<bf16>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim);
+        epilogue<bf16>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim, z);
     }
   }
 }
@@ -765,19 +769,20 @@ TL2_WGMMA_LAUNCHER(launch_wide);      // tl2_wgmma.cu: 64/128 tiles, TMA
 TL2_WGMMA_LAUNCHER(launch_wide_lsu);  // tl2_wgmma_lsu.cu: 64/128 tiles, loads producer
 TL2_WGMMA_LAUNCHER(launch_n32);       // tl2_wgmma_n32.cu: bn = 32, both producers
 TL2_WGMMA_LAUNCHER(launch_swap);      // tl2_wgmma_swap.cu: bm = 32 over 64/128, both
-// tl2_wgmma_wide.cu: a wide block (p.blk_m x p.blk_n over `batch` problems; tc the
-// output's map where p.tma_c). acc_bf16: the bf16 family's K carry (gk > 1). Dispatches to
-// the instance file of the family, the producer and A's mode (p.wide_stream), or of the
-// swapped walk (bm <= 32): cudaErrorInvalidValue for a block it has no instance of.
+// tl2_wgmma_wide.cu: a wide block (p.blk_m x p.blk_n over p.batch problems; tc the
+// output's map where p.tma_c), its work items spread over `ctas` persistent CTAs (1 up to
+// the items of wide_walk). acc_bf16: the bf16 family's K carry (gk > 1). Dispatches to the
+// instance file of the family, the producer and A's mode (p.wide_stream), or of the swapped
+// walk (bm <= 32): cudaErrorInvalidValue for a block it has no instance of.
 cudaError_t launch_wide_block(const CUtensorMap& ta, const CUtensorMap& tb,
-                              const CUtensorMap& tc, const WgParams& p, int batch, int rhs_nk,
+                              const CUtensorMap& tc, const WgParams& p, int ctas, int rhs_nk,
                               int acc_bf16, cudaStream_t s);
 // Each wide instance file's launcher (tl2_wgmma_wide.cuh's TL2_WIDE_INSTANCES): the file
 // tl2_wgmma_wide{_bf16}{_lsu}{_stream}.cu of NAME's parts (tma: TMA; lsu: the loads
 // producer and predicated stores; bf16: the bf16 carry; stream: a streamed A).
 #define TL2_WIDE_LAUNCHER(NAME)                                                          \
   cudaError_t NAME(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,  \
-                   const WgParams& p, int batch, int rhs_nk, cudaStream_t s)
+                   const WgParams& p, int ctas, int rhs_nk, cudaStream_t s)
 TL2_WIDE_LAUNCHER(wide_tma);
 TL2_WIDE_LAUNCHER(wide_tma_stream);
 TL2_WIDE_LAUNCHER(wide_tma_bf16);

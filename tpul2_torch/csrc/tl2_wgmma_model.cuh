@@ -89,8 +89,10 @@ inline bool wide_block_ok(int bm, int bn) {
 
 // Rows of a wide block's sub-tile and A strip (config.wide_sub_m): WIDE_SWAP_M at bm <= 32
 // (the swapped walk), 64 at bm <= 64, else 128.
-inline int wide_sub_m(int bm) { return bm <= WIDE_SWAP_M ? WIDE_SWAP_M : bm <= 64 ? 64 : 128; }
-inline bool wide_swapped(int bm) { return bm <= WIDE_SWAP_M; }
+TL2_HD inline int wide_sub_m(int bm) {
+  return bm <= WIDE_SWAP_M ? WIDE_SWAP_M : bm <= 64 ? 64 : 128;
+}
+TL2_HD inline bool wide_swapped(int bm) { return bm <= WIDE_SWAP_M; }
 
 // Shared memory of a wide CTA at depth K (config.wide_smem_bytes): the alignment slack,
 // `stages` ring stages (a B box of WIDE_SUB_N rows, and with a streamed A the strip's A box
@@ -120,6 +122,17 @@ inline bool wide_streamed(int bm, int k) {
   return wide_swapped(bm) || wide_fit(bm, k, false) < WIDE_MIN_STAGES;
 }
 
+// A launch's A mode (config.wide_streams): streamed where the strip does not fit
+// (wide_streamed), and also at K <= WIDE_THIN_K where TMA reads A. There a strip is one or
+// two 64-deep boxes: keeping it saves little L2 traffic, while each strip of a CTA's run
+// costs a load and a barrier round trip before its first wgmma, and a run at thin K holds
+// many strips; streamed, the box rides in the ring beside B. Where the loads producer
+// gathers A, its copies per item cost more than the strip's reloads, so A stays resident.
+constexpr int WIDE_THIN_K = 128;
+inline bool wide_streams(int bm, int k, bool tma_a) {
+  return wide_streamed(bm, k) || (tma_a && k <= WIDE_THIN_K);
+}
+
 // The ring's depth at depth K in the mode K takes (config.wide_stages).
 inline int wide_stages(int bm, int k) { return wide_fit(bm, k, wide_streamed(bm, k)); }
 
@@ -137,6 +150,99 @@ inline bool wide_staged_ok(int bm, int depth) {
 inline bool wide_c_grid(int m, int n, int bm, int bn) {
   return !wide_swapped(bm) && (bm % wide_sub_m(bm) == 0 || bm >= m) &&
          (bn % WIDE_SUB_N == 0 || bn >= n);
+}
+
+// ---- the wide walk's schedule (config.wide_walk / wide_item / wide_first / wide_strips /
+// wide_ctas; tl2_wgmma_wide.cuh's for_each_strip walks a CTA's run with wide_segment) ----
+
+// A work item is one sub-tile of one block: (batch element, block, strip, column), in that
+// order, the column fastest; blocks in the launch's raster (raster_nm: down the columns of
+// blocks first). Every block has `strips` x `cols` items: its strips of wide_sub_m rows and
+// columns of WIDE_SUB_N, the block's edge (or the problem's, where it is nearer) rounded up
+// to them. An edge block's items past the problem's edge are empty: no CTA computes them.
+struct WideWalk {
+  int m, n, bm, bn, raster_nm, sm;
+  int blocks_m, blocks_n, strips, cols;
+  long long items;  // batch x blocks x strips x cols
+};
+
+TL2_HD inline WideWalk wide_walk(int m, int n, int bm, int bn, int batch, int raster_nm) {
+  WideWalk w;
+  w.m = m; w.n = n; w.bm = bm; w.bn = bn; w.raster_nm = raster_nm;
+  w.sm = wide_sub_m(bm);
+  w.blocks_m = cdiv(m, bm);
+  w.blocks_n = cdiv(n, bn);
+  w.strips = cdiv(bm < m ? bm : m, w.sm);
+  w.cols = cdiv(bn < n ? bn : n, WIDE_SUB_N);
+  w.items = (long long)batch * w.blocks_m * w.blocks_n * w.strips * w.cols;
+  return w;
+}
+
+// An item's place: its batch element z, block, strip and column; its block's first row and
+// column, stored edges (m_lim, n_lim: the block's edge or the problem's, the nearer) and
+// non-empty strips and columns; and whether the item is empty.
+struct WideItem {
+  int z, block, strip, col;
+  int m_blk, n_blk, m_lim, n_lim, strips, cols;
+  bool empty;
+};
+
+// Item i's place (in 32-bit arithmetic where the walk's items allow it).
+TL2_HD inline WideItem wide_item(const WideWalk& w, long long i) {
+  WideItem t;
+  const int per_block = w.strips * w.cols;
+  const int blocks = w.blocks_m * w.blocks_n;
+  int rest;
+  if (w.items <= 0x7fffffff) {
+    const int bi = (int)i / per_block;  // batch element and block
+    rest = (int)i - bi * per_block;
+    t.z = bi / blocks;
+    t.block = bi - t.z * blocks;
+  } else {
+    const long long bi = i / per_block;
+    rest = (int)(i - bi * per_block);
+    t.z = (int)(bi / blocks);
+    t.block = (int)(bi - (long long)t.z * blocks);
+  }
+  t.strip = rest / w.cols;
+  t.col = rest - t.strip * w.cols;
+  const int bm_i = w.raster_nm ? t.block % w.blocks_m : t.block / w.blocks_n;
+  const int bn_i = w.raster_nm ? t.block / w.blocks_m : t.block % w.blocks_n;
+  t.m_blk = bm_i * w.bm;
+  t.n_blk = bn_i * w.bn;
+  t.m_lim = w.m < t.m_blk + w.bm ? w.m : t.m_blk + w.bm;
+  t.n_lim = w.n < t.n_blk + w.bn ? w.n : t.n_blk + w.bn;
+  t.strips = cdiv(t.m_lim - t.m_blk, w.sm);
+  t.cols = cdiv(t.n_lim - t.n_blk, WIDE_SUB_N);
+  t.empty = t.strip >= t.strips || t.col >= t.cols;
+  return t;
+}
+
+// The first item of CTA c of `ctas`: floor(c * items / ctas), computed without the product
+// (which a witness launch's CTA count could carry past 64 bits). CTA c walks the run
+// [wide_first(c), wide_first(c + 1)): runs differ by at most one item.
+TL2_HD inline long long wide_first(long long items, int ctas, int c) {
+  const long long q = items / ctas, r = items % ctas;
+  return c * q + (long long)c * r / ctas;
+}
+
+// A run is walked one strip at a time. The segment that starts at item i of the run [i, last)
+// holds i's strip's items up to the strip's last column or the run's end, whichever comes
+// first. t: item i's place; returns the item after the segment; end: the segment's end
+// column, clipped to the strip's non-empty columns (end <= t.col: nothing to compute).
+TL2_HD inline long long wide_segment(const WideWalk& w, long long i, long long last,
+                                     WideItem& t, int& end) {
+  t = wide_item(w, i);
+  const long long left = last - i;
+  const int stop = left < w.cols - t.col ? t.col + (int)left : w.cols;
+  end = t.empty ? t.col : stop < t.cols ? stop : t.cols;
+  return i + (stop - t.col);
+}
+
+// The CTAs of a wide launch: one per SM (the kernel runs one CTA an SM), or one per item
+// where there are fewer items.
+inline int wide_ctas(long long items, int sms) {
+  return items < sms ? (int)items : sms;
 }
 
 }  // namespace tl2wg

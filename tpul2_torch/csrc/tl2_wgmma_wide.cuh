@@ -1,10 +1,15 @@
 // tl2_wgmma_wide.cuh — the wide route's kernel, tl2_wgmma_wide_kernel, and its launcher: what it
-// computes and the design are in tl2_wgmma_wide.cu's header. Included by the eight instance
-// files of the plain walk (TL2_WIDE_INSTANCES), one per (family of the K carry, producer, A's
-// mode): tl2_wgmma_wide{,_bf16}{,_lsu}{,_stream}.cu (TMA or the loads producer and predicated
-// stores; the f32 sum or the bf16 carry; A resident or streamed); and by the two of the
-// swapped walk (TL2_WIDE_SWAP_INSTANCES, bm <= 32): tl2_wgmma_wide_swap{,_bf16}.cu. nvcc
-// builds them side by side.
+// computes and the design are in tl2_wgmma_wide.cu's header. The kernel is persistent: a
+// launch of G CTAs deals the launch's work items (every 128-column sub-tile of every strip of
+// every block of every batch element, wide_walk in tl2_wgmma_model.cuh) out to its CTAs in
+// contiguous runs, each walked one strip at a time (for_each_strip), a resident A loaded once
+// per strip of the run; G is an argument of the launch (the rule's, one CTA an SM, on every
+// dispatch).
+// Included by the eight instance files of the plain walk (TL2_WIDE_INSTANCES), one per
+// (family of the K carry, producer, A's mode): tl2_wgmma_wide{,_bf16}{,_lsu}{,_stream}.cu
+// (TMA or the loads producer and predicated stores; the f32 sum or the bf16 carry; A
+// resident or streamed); and by the two of the swapped walk (TL2_WIDE_SWAP_INSTANCES,
+// bm <= 32): tl2_wgmma_wide_swap{,_bf16}.cu. nvcc builds them side by side.
 
 #pragma once
 
@@ -139,13 +144,31 @@ __device__ __forceinline__ void tma_b_box(uint32_t dst, const CUtensorMap* map, 
   }
 }
 
+// The CTA's work items, its run [wide_first(c), wide_first(c + 1)) in order, one strip at a
+// time: f(w, end) for each strip segment of the run with a non-empty item (wide_segment),
+// where w is the segment's first item and its columns w.col .. end - 1 are the items to
+// compute. Producer and consumers walk the same segments, so the barriers' phases stay in
+// step; config.wide_strips mirrors them. A resident A is loaded once per segment.
+template <typename F>
+__device__ __forceinline__ void for_each_strip(const WideWalk& walk, F&& f) {
+  const long long last = wide_first(walk.items, gridDim.x, blockIdx.x + 1);
+  WideItem w;
+  int end;
+  for (long long i = wide_first(walk.items, gridDim.x, blockIdx.x); i < last;) {
+    i = wide_segment(walk, i, last, w, end);
+    if (w.col < end) f(w, end);
+  }
+}
+
 // SM: rows of a sub-tile (wide_sub_m: 32, the swapped walk, at bm <= 32; 64 at bm <= 64;
 // else 128); ACC_BF16: the bf16 family's K carry
 // (rounded at the end of every bk interval); LOADS: an instance with the loads producer and
 // predicated stores (chosen per operand and for C at run time), which the TMA-only instances
 // carry none of; STREAM: A streams through the ring beside B, else the strip stays resident
-// (a run-time choice cost the resident walk 2.5-9% at thin K on the H100). The batch index
-// is blockIdx.z, as on the ring.
+// (a run-time choice cost the resident walk 2.5-9% at thin K on the H100).
+// The schedule: the launch's work items (wide_walk: every sub-tile of every block of every
+// batch element) are dealt out to the gridDim.x CTAs in runs (for_each_strip). Each item is
+// a whole sub-tile over all of K, so its bits do not depend on the CTA count.
 template <int SM, bool RHS_NK, bool OUT_F32, bool ACC_BF16, bool LOADS, bool STREAM>
 __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
     tl2_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -166,19 +189,10 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
   auto empty_bar = [&](int s) { return bars + 8 * (stages + s); };
   const uint32_t a_full = bars + 16 * stages, a_empty = a_full + 8;
 
-  const int z = blockIdx.z;
-  const int blocks_m = cdiv(p.m, p.blk_m), blocks_n = cdiv(p.n, p.blk_n);
-  const int block = blockIdx.x;
-  const int bm_i = p.raster_nm ? block % blocks_m : block / blocks_n;
-  const int bn_i = p.raster_nm ? block / blocks_m : block % blocks_n;
-  const int m_blk = bm_i * p.blk_m, n_blk = bn_i * p.blk_n;
-  // the strips and sub-tile columns of this block that hold part of C; the last of each may
-  // reach past the block's edge (an edge off the sub-tile grid: a cover of an unaligned
-  // dimension, bn < 128, bm < the sub-tile's rows), where it reads the next block's rows or
-  // columns and stores nothing
-  const int strips = cdiv(min(p.blk_m, p.m - m_blk), SM);
-  const int cols = cdiv(min(p.blk_n, p.n - n_blk), WIDE_SUB_N);
-  const int m_lim = min(p.m, m_blk + p.blk_m), n_lim = min(p.n, n_blk + p.blk_n);
+  // the launch's work items; a block's last strip or column may reach past the block's edge
+  // (an edge off the sub-tile grid: a cover of an unaligned dimension, bn < 128, bm < the
+  // sub-tile's rows), where it reads the next block's rows or columns and stores nothing
+  const WideWalk walk = wide_walk(p.m, p.n, p.blk_m, p.blk_n, p.batch, p.raster_nm);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -202,8 +216,6 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int t = threadIdx.x - T::CONSUMERS * 128;
     if (!LOADS && t != 0) return;
-    const bf16* a = p.a + z * p.sa;
-    const bf16* b = p.b + z * p.sb;
     const bool a_by_tma = !LOADS || !p.load_a, b_by_tma = !LOADS || !p.load_b;
     // the loads producer's arrivals lag its copies by up to `lag` stages; `owed` stages
     // (the newest issued) still wait for theirs
@@ -215,14 +227,17 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
       fence_proxy_async();
       for (; owed > 0; --owed) mbar_arrive(full_bar((it - owed) % stages));
     };
-    for (int strip = 0; strip < strips; ++strip) {
-      const int m0 = m_blk + strip * SM;
+    int loads = 0;  // strips (segments) walked so far
+    for_each_strip(walk, [&](const WideItem& w, int end) {
+      const int z = w.z, m0 = w.m_blk + w.strip * SM;
+      const bf16* a = p.a + z * p.sa;
+      const bf16* b = p.b + z * p.sb;
       if (!streamed) {
         // the strip's A, once the last strip's last wgmma has read the buffer (which needs
         // every stage issued so far)
-        if (strip > 0) {
+        if (loads > 0) {
           if (LOADS) settle();
-          mbar_wait(a_empty, (strip - 1) & 1);
+          mbar_wait(a_empty, (loads - 1) & 1);
         }
         if (t == 0) {
           mbar_expect_tx(a_full, a_by_tma ? ksteps * T::A_BOX : 0);
@@ -242,8 +257,9 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
           mbar_arrive(a_full);
         }
       }
-      for (int col = 0; col < cols; ++col) {
-        const int n0 = n_blk + col * WIDE_SUB_N;
+      ++loads;
+      for (int col = w.col; col < end; ++col) {
+        const int n0 = w.n_blk + col * WIDE_SUB_N;
         for (int ks = 0; ks < ksteps; ++ks) {
           if (it >= stages) mbar_wait(empty_bar(s), phase ^ 1);  // the stage's last use is read
           const uint32_t dst = ring + s * stage_bytes;
@@ -278,7 +294,7 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
           }
         }
       }
-    }
+    });
     if (LOADS) settle();
     return;
   }
@@ -299,13 +315,15 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
   float st[T::ACC];   // the stage product (wgmma accumulator)
   float sum[T::ACC];  // f32: the sum; bf16 carry: the interval's part
   __nv_bfloat162 carry[ACC_BF16 ? T::ACC / 2 : 1];  // bf16 family: the carry, packed
-  int s = 0, tile = 0;
+  int s = 0, tile = 0, loads = 0;
   uint32_t phase = 0;
-  for (int strip = 0; strip < strips; ++strip) {
-    if (!streamed) mbar_wait(a_full, strip & 1);
-    const int row0 = m_blk + strip * SM + wg * 64;  // this warpgroup's first row of C
-    for (int col = 0; col < cols; ++col, ++tile) {
-      const int n0 = n_blk + col * WIDE_SUB_N;
+  for_each_strip(walk, [&](const WideItem& w, int end) {
+    if (!streamed) mbar_wait(a_full, loads & 1);
+    ++loads;
+    const int z = w.z;
+    const int row0 = w.m_blk + w.strip * SM + wg * 64;  // this warpgroup's first row of C
+    for (int col = w.col; col < end; ++col, ++tile) {
+      const int n0 = w.n_blk + col * WIDE_SUB_N;
 #pragma unroll
       for (int i = 0; i < T::ACC; ++i) sum[i] = 0.0f;
 #pragma unroll
@@ -317,8 +335,8 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
         const uint32_t a_s = streamed ? b_s + T::B_BYTES : a_strip + ks * T::A_BOX;
         const int k0 = ks * KSTAGE;
         const bool last = ks + 1 == ksteps;
-        // the strip's last wgmma: the producer may load the next strip over it
-        const bool strip_read = !streamed && col + 1 == cols && last;
+        // the segment's last wgmma: the producer may load the next strip over it
+        const bool strip_read = !streamed && col + 1 == end && last;
         if (!halves) {
           fence_regs(st);
           wgmma_fence();
@@ -365,11 +383,11 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
         // the fragment is the sub-tile's C^T: its rows are columns of C, its columns the
         // block's rows (the ring's swapped epilogue, stores within the block's edges)
         const int ncol = n0 + wg * 64 + warp4 * 16 + (lane >> 2);
-        const int mrow = m_blk + 2 * (lane & 3);
+        const int mrow = w.m_blk + 2 * (lane & 3);
         if (OUT_F32)
-          epilogue_swapped<float>(p, sum, ncol, mrow, m_lim, n_lim);
+          epilogue_swapped<float>(p, sum, ncol, mrow, w.m_lim, w.n_lim, z);
         else
-          epilogue_swapped<bf16>(p, sum, ncol, mrow, m_lim, n_lim);
+          epilogue_swapped<bf16>(p, sum, ncol, mrow, w.m_lim, w.n_lim, z);
       } else {
         if (store_tma) {
           // the buffer's last stores must have read it before it is written again
@@ -390,19 +408,19 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
           // stores within the block's edges
           const int row = row0 + warp4 * 16 + (lane >> 2), col0 = n0 + 2 * (lane & 3);
           if (OUT_F32)
-            epilogue<float>(p, sum, row, col0, m_lim, n_lim);
+            epilogue<float>(p, sum, row, col0, w.m_lim, w.n_lim, z);
           else
-            epilogue<bf16>(p, sum, row, col0, m_lim, n_lim);
+            epilogue<bf16>(p, sum, row, col0, w.m_lim, w.n_lim, z);
         }
       }
     }
-  }
+  });
   if (store_tma && leader) bulk_wait_all();  // the staging must outlive its stores
 }
 
 template <int SM, bool RHS_NK, bool OUT_F32, bool ACC_BF16, bool LOADS, bool STREAM>
 cudaError_t launch_instance(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
-                            const WgParams& p, int batch, cudaStream_t stream) {
+                            const WgParams& p, int ctas, cudaStream_t stream) {
   using T = WideTile<SM, OUT_F32>;
   const auto kernel = tl2_wgmma_wide_kernel<SM, RHS_NK, OUT_F32, ACC_BF16, LOADS, STREAM>;
   static int regs_checked = 0;  // per instance: the registers fit
@@ -427,21 +445,20 @@ cudaError_t launch_instance(const CUtensorMap& ta, const CUtensorMap& tb, const 
     }
     regs_checked = 1;
   }
-  const dim3 grid(cdiv(p.m, p.blk_m) * cdiv(p.n, p.blk_n), 1, batch);
-  kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, tc, p);
+  kernel<<<ctas, T::THREADS, smem, stream>>>(ta, tb, tc, p);
   return cudaGetLastError();
 }
 
 template <int SM, bool ACC_BF16, bool LOADS, bool STREAM>
 cudaError_t launch_sub(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
-                       const WgParams& p, int batch, int rhs_nk, cudaStream_t s) {
+                       const WgParams& p, int ctas, int rhs_nk, cudaStream_t s) {
   if (rhs_nk)
     return p.out_f32
-               ? launch_instance<SM, true, true, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, s)
-               : launch_instance<SM, true, false, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, s);
+               ? launch_instance<SM, true, true, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, s)
+               : launch_instance<SM, true, false, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, s);
   return p.out_f32
-             ? launch_instance<SM, false, true, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, s)
-             : launch_instance<SM, false, false, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, s);
+             ? launch_instance<SM, false, true, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, s)
+             : launch_instance<SM, false, false, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, s);
 }
 
 }  // namespace
@@ -454,8 +471,8 @@ cudaError_t launch_sub(const CUtensorMap& ta, const CUtensorMap& tb, const CUten
   TL2_WIDE_LAUNCHER(NAME) {                                                              \
     if (wide_swapped(p.blk_m)) return cudaErrorInvalidValue;                             \
     return wide_sub_m(p.blk_m) == 64                                                     \
-               ? launch_sub<64, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, rhs_nk, s) \
-               : launch_sub<128, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, batch, rhs_nk, s); \
+               ? launch_sub<64, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, rhs_nk, s) \
+               : launch_sub<128, ACC_BF16, LOADS, STREAM>(ta, tb, tc, p, ctas, rhs_nk, s); \
   }                                                                                      \
   }
 
@@ -466,6 +483,6 @@ cudaError_t launch_sub(const CUtensorMap& ta, const CUtensorMap& tb, const CUten
   namespace tl2wg {                                                                      \
   TL2_WIDE_LAUNCHER(NAME) {                                                              \
     if (!wide_swapped(p.blk_m) || !p.wide_stream || p.tma_c) return cudaErrorInvalidValue; \
-    return launch_sub<WIDE_SWAP_M, ACC_BF16, true, true>(ta, tb, tc, p, batch, rhs_nk, s); \
+    return launch_sub<WIDE_SWAP_M, ACC_BF16, true, true>(ta, tb, tc, p, ctas, rhs_nk, s); \
   }                                                                                      \
   }

@@ -151,6 +151,12 @@ def load_library() -> ctypes.CDLL:
     for name in ("tl2_wgmma_wide_stages", "tl2_wgmma_wide_streamed"):  # bm, k
         getattr(lib, name).argtypes = [_I, _I]
         getattr(lib, name).restype = ctypes.c_int
+    # m, n, bm, bn, batch
+    lib.tl2_wgmma_wide_ctas.argtypes = [_I, _I, _I, _I, _I]
+    lib.tl2_wgmma_wide_ctas.restype = ctypes.c_int
+    # a launcher's arguments, then out_f32, depth, ctas (only chip_smoke.py calls it)
+    lib.tl2_wgmma_wide_witness.argtypes = _LAUNCH_ARGTYPES + [_I, _I, _I]
+    lib.tl2_wgmma_wide_witness.restype = ctypes.c_int
     # m, n, k, bm, bn, bk, rhs_nk, a, b, c (None: a fresh output)
     lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.tl2_wgmma_route.restype = ctypes.c_int

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
                                 WIDE_BM_CHOICES, WIDE_SUB_N, WIDE_SWAP_M, KernelConfig,
                                 carry_stages, ring_edge, wgmma_smem_bytes, wide_c_grid,
-                                wide_streamed, wide_sub_m)
+                                wide_streamed, wide_streams, wide_sub_m)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -73,7 +73,7 @@ LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
 #: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn <= 32),
 #: of a swapped tile (bm <= 32 over bn 33..128), of a bf16-family carry that rounds in
 #: the middle of a stage (bk % 64 == 32), of a wide block whose A streams through its
-#: ring (``config.wide_streamed``), and of a wide block taller than WIDE_BM_CHOICES' largest
+#: ring (``config.wide_streams``), and of a wide block taller than WIDE_BM_CHOICES' largest
 #: (bm above 2048, the JAX DB's tall blocks).
 LAUNCHES_WIDTH32 = 0
 LAUNCHES_SWAPPED = 0
@@ -339,11 +339,12 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
 _GLOBALS = globals()
 
 
-def launch_variants(cfg: KernelConfig, k: int) -> list:
+def launch_variants(cfg: KernelConfig, k: int, tma_a: bool = False) -> list:
     """The variant counters (this module's names) a launch of ``cfg`` at depth K adds one to:
     the tile (width 32, swapped, a ring block narrower than its tile), a mid-stage rounding
-    point, and for a wide block its A's mode, its height above 2048, the swapped walk,
-    narrow columns, an edge inside a sub-tile and more than 16384 columns."""
+    point, and for a wide block its A's mode (``config.wide_streams``; ``tma_a``: TMA reads
+    A), its height above 2048, the swapped walk, narrow columns, an edge inside a sub-tile
+    and more than 16384 columns."""
     keys = []
     if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
         keys.append("LAUNCHES_MIDSTAGE")
@@ -356,7 +357,7 @@ def launch_variants(cfg: KernelConfig, k: int) -> list:
         if (tm, tn) != (cfg.bm, cfg.bn):
             keys.append("LAUNCHES_RING_NARROW")
         return keys
-    if wide_streamed(cfg.bm, k):
+    if wide_streams(cfg.bm, k, tma_a):
         keys.append("LAUNCHES_WIDE_STREAMED")
     if cfg.bm > WIDE_BM_CHOICES[-1]:
         keys.append("LAUNCHES_WIDE_TALL")
@@ -388,7 +389,7 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
         err = getattr(load_library(), name)(*args)
     if err:  # the message formats the config, so only on failure
         check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
-    for key in launch_variants(cfg, k):
+    for key in launch_variants(cfg, k, bool(args[18])):
         _GLOBALS[key] += 1
     # launch_route's answer, read off the launch's own vec_a and vec_b
     tma = args[18] and args[19]
