@@ -8,14 +8,18 @@ Run from the repository root, on a machine with one Hopper card:
 Phases (each prints one line; any failure raises and the exit code is non-zero):
   0  require an sm_90 card; print the environment record and nvidia-smi's name/power line
   1  build csrc/*.cu for sm_90a (nvcc, one process per source, at first use), print the
-     build time and ptxas report; the shared-memory models of config.py must equal the
+     build time and ptxas report, and each ring instance's (tl2_wgmma_kernel: tile, layout,
+     family, producer) registers and spills, failing where any ring instance spills
+     (record["ring_ptxas"]); the shared-memory models of config.py must equal the
      ring's own counts for every tile at its carry depth (config.carry_stages against
      tl2_wgmma_carry_stages) and at every staged depth, and validate must refuse exactly
      what exceeds 227 KB; tl2_wgmma_route must agree with ops.matmul.launch_route (1
-     'wgmma', 2 'wgmma_lsu') over a grid of shapes (M and N of 1, 8, 17, 31, 32 among
-     them), all nine tiles, bk (96 and 160, single intervals included), layouts and
-     operand alignments, and tl2_staged_route with ops.pipelined.staged_route over
-     shapes, tiles, depths, layouts and alignments; the wide route's models
+     'wgmma', 2 'wgmma_lsu') and launch_store (+ 8 for the TMA store) over a grid of shapes
+     (M and N of 1, 8, 17, 31, 32 among them), all nine tiles and narrower blocks ('kn'
+     column blocks off 16 bytes among them), bk (96 and 160, single intervals included),
+     layouts and the alignments of the operands and the output, and tl2_staged_route with
+     ops.pipelined.staged_route and launch_store over shapes, tiles, depths, layouts,
+     alignments and the output each launch writes; the wide route's models
      (config.wide_streamed, wide_stages and wide_smem_bytes in both modes against
      tl2_wgmma_wide_streamed, _stages and _smem_bytes, validate taking every block) and
      its route (3 'wgmma_wide', 4 'wgmma_wide_lsu', launch_route against tl2_wgmma_route)
@@ -72,7 +76,9 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      gate must pass; then the entry points (dispatch.matmul, dispatch.batched_matmul) at
      shapes with K % 8 != 0, which TMA cannot read, with one K interval and with several,
      at decode shapes (the swapped and width-32 tiles, 2-D and batched), with a bf16
-     config whose bk is 96 (a rounding point mid-stage), dispatch.matmul with a wide block
+     config whose bk is 96 (a rounding point mid-stage), at 'kn' blocks whose columns start
+     off 16 bytes (bn 100 and 300 at N = 600, ring and wide: the loads producer reads B),
+     dispatch.matmul with a wide block
      (256x1024, one interval, 'kn' and 'nk', bias + relu, M and N off the block), with
      the other wide variants (the bf16 family's carry with a resident and a streamed A, a
      4096-row block, batched at one interval and with a carry, the loads producer at
@@ -85,7 +91,8 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      both producers, single-K and multi-K, 2-D and batched, the wide route with both
      producers, single-K and multi-K, 2-D and batched, a streamed A and a block above
      2048 rows, the width-32, swapped and mid-stage launches, the JAX space's narrow and
-     unaligned edges (every counter of ops.COUNTERS), and the staged ring with both
+     unaligned edges, both stores of C (TMA and predicated; every counter of
+     ops.COUNTERS), and the staged ring with both
      producers, a split, a 32-edge tile and a wide block; and no mma.sync launch: the
      bring-up shapes and the gate's batched variants
      take TMA (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0
@@ -280,6 +287,7 @@ import io
 import json
 import math
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -434,43 +442,87 @@ def _ring_source(cfg, route: str) -> str:
     return f"tpul2_torch/csrc/{name}"
 
 
+#: A ring instance's mangled name: tl2_wgmma_kernel<BM, BN, RHS_NK, ACC_BF16, LOADS>.
+_RING_KERNEL = re.compile(r"tl2_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E")
+
+
+def _ring_ptxas(build_log: str) -> dict:
+    """Registers and spills of every ring instance (tl2_wgmma_kernel) from the build's ptxas
+    report, printed one line each, by tile, layout, family and producer; raises where any
+    spills (the consumer's products, sum and carry must stay in registers) or where the
+    report names no ring instance."""
+    from tpul2_torch.ops._build import ptxas_report
+    out = {}
+    for name, rep in ptxas_report(build_log).items():
+        m = _RING_KERNEL.search(name)
+        if m:
+            bm, bn, nk, bf16, loads = m.groups()
+            label = (f"{bm}x{bn} {'nk' if nk == '1' else 'kn'} {'bf16' if bf16 == '1' else 'f32'}"
+                     f"{' loads' if loads == '1' else ''}")
+            out[label] = rep
+    if not out:
+        raise AssertionError("the build's ptxas report names no ring instance")
+    for label, rep in sorted(out.items()):
+        print(f"  ring {label}: {rep.get('registers')} registers at entry, "
+              f"{rep.get('spill_stores')} / {rep.get('spill_loads')} bytes spilled "
+              "(stores / loads)")
+    spilled = [label for label, rep in out.items()
+               if rep.get("spill_stores") or rep.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"ring instances spill registers: {sorted(spilled)}")
+    return out
+
+
 #: The C route codes of each route name.
 ROUTE_CODES = {"wgmma": 1, "wgmma_lsu": 2, "ring": 1, "ring_lsu": 2, "wgmma_wide": 3,
                "wgmma_wide_lsu": 4}
 
 
+def _route_code(mm, cfg, a, b, m: int, n: int, k: int, out=None) -> int:
+    """The C route code ops.matmul's rules give: launch_route's, with ROUTE_TMA_STORE where
+    launch_store names the TMA store."""
+    store = mm.launch_store(cfg, m, n, out) == "tma"
+    return ROUTE_CODES[mm.launch_route(cfg, a, b, m, n, k, out)] | (
+        mm.ROUTE_TMA_STORE if store else 0)
+
+
 def _check_route_mirror(torch, lib, mm, KernelConfig) -> tuple:
-    """tl2_wgmma_route against ops.matmul.launch_route over shapes (decode-size M and N
-    among them), ring blocks (the tiles and the narrower blocks of the JAX space), bk (one
-    interval and several, mid-stage rounding points included), layouts and operand
-    alignments (views 2, 8 and 16 bytes into one allocation); return (cases, TMA cases).
-    Raises on the first disagreement."""
+    """tl2_wgmma_route against ops.matmul.launch_route and launch_store over shapes
+    (decode-size M and N among them), ring blocks (the tiles and the narrower blocks of the
+    JAX space, 'kn' column blocks off 16 bytes among them: bn 1 and 100), bk (one interval
+    and several, mid-stage rounding points included), layouts and the alignments of the
+    operands and the output (views 2, 8 and 16 bytes into one allocation, a fresh output);
+    return (cases, TMA cases, TMA-store cases).  Raises on the first disagreement."""
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
     shapes = ((256, 256, 1024), (200, 1001, 328), (64, 8192, 8192), (96, 160, 1004),
               (128, 128, 64), (8192, 128, 64), (1000, 1000, 1000), (1, 4096, 4096),
-              (8, 4096, 14336), (17, 31, 328), (31, 17, 1001), (32, 8, 256), (4096, 1, 96))
-    n = n_wgmma = 0
+              (8, 4096, 14336), (17, 31, 328), (31, 17, 1001), (32, 8, 256), (4096, 1, 96),
+              (600, 600, 256))
+    n = n_wgmma = n_store = 0
     for off_a in (0, 1, 8):
         for off_b in (0, 4):
-            a, b = buf[off_a:], buf[off_b:]
-            for m, nn, k in shapes:
-                for bm in (1, 16, 32, 48, 64, 128):
-                    for bn in (1, 16, 32, 64, 128):
-                        for bk in (64, 96, 128, 160, 256, 1024, 8192):
-                            for layout in ("kn", "nk"):
-                                cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
-                                route = mm.launch_route(cfg, a, b, m, nn, k)
-                                py = route == "wgmma"
-                                c = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
-                                                        int(layout == "nk"), a.data_ptr(),
-                                                        b.data_ptr(), None)
-                                if ROUTE_CODES[route] != c:
-                                    raise AssertionError(
-                                        f"route rule differs at {m}x{nn}x{k} {cfg} "
-                                        f"offsets {off_a}, {off_b}: python {py}, C {c}")
-                                n += 1
-                                n_wgmma += py
-    return n, n_wgmma
+            for off_c in (None, 0, 4):
+                a, b = buf[off_a:], buf[off_b:]
+                c = None if off_c is None else buf[off_c:]
+                for m, nn, k in shapes:
+                    for bm in (1, 16, 32, 48, 64, 128):
+                        for bn in (1, 16, 32, 64, 100, 128):
+                            for bk in (64, 96, 128, 160, 256, 1024, 8192):
+                                for layout in ("kn", "nk"):
+                                    cfg = KernelConfig(bm=bm, bn=bn, bk=bk, rhs_layout=layout)
+                                    want = _route_code(mm, cfg, a, b, m, nn, k, c)
+                                    got = lib.tl2_wgmma_route(
+                                        m, nn, k, bm, bn, bk, int(layout == "nk"),
+                                        a.data_ptr(), b.data_ptr(),
+                                        None if c is None else c.data_ptr())
+                                    if want != got:
+                                        raise AssertionError(
+                                            f"route rule differs at {m}x{nn}x{k} {cfg} offsets "
+                                            f"{off_a}, {off_b}, {off_c}: python {want}, C {got}")
+                                    n += 1
+                                    n_wgmma += want & 7 == 1
+                                    n_store += bool(want & mm.ROUTE_TMA_STORE)
+    return n, n_wgmma, n_store
 
 
 def _check_wide_mirror(torch, lib, mm, config) -> tuple:
@@ -521,13 +573,13 @@ def _check_wide_mirror(torch, lib, mm, config) -> tuple:
                                 code = lib.tl2_wgmma_route(m, nn, k, bm, bn, bk,
                                                            int(layout == "nk"), a.data_ptr(),
                                                            b.data_ptr(), c.data_ptr())
-                                route = mm.launch_route(cfg, a, b, m, nn, k, c)
-                                if cfg.validate() is not None or ROUTE_CODES[route] != code:
+                                want = _route_code(mm, cfg, a, b, m, nn, k, c)
+                                if cfg.validate() is not None or want != code:
                                     raise AssertionError(
                                         f"wide route differs at {m}x{nn}x{k} {cfg} offsets "
-                                        f"{off_a}, {off_b}, {off_c}: python {route}, C {code}")
+                                        f"{off_a}, {off_b}, {off_c}: python {want}, C {code}")
                                 n += 1
-                                n_tma += code == 3
+                                n_tma += code & 7 == 3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_ctas = 0
     for m, nn, _ in shapes:
@@ -571,36 +623,49 @@ def _bits(torch, t):
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
-def _check_staged_route_mirror(torch, lib, pl, KernelConfig) -> tuple:
-    """tl2_staged_route against ops.pipelined.staged_route over shapes, ring blocks (narrow
-    ones included) and wide blocks (codes 3 and 4), depths, layouts and operand
-    alignments; return (cases, TMA cases).  Raises on the first disagreement."""
+def _check_staged_route_mirror(torch, lib, pl, mm, KernelConfig) -> tuple:
+    """tl2_staged_route against ops.pipelined.staged_route and ops.matmul.launch_store over
+    shapes, ring blocks (narrow ones included) and wide blocks (codes 3 and 4), depths,
+    layouts, operand alignments and outputs (16-byte aligned, as the staged wrapper takes
+    them; N % 8 != 0 among the shapes): the store is asked of the output the launch writes, a
+    split launch's f32 workspace or the output; return (cases, TMA cases, TMA-store cases).
+    Raises on the first disagreement."""
     buf = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    ws = torch.zeros(8, dtype=torch.float32, device="cuda")  # a fresh workspace's base
     shapes = ((64, 8192, 8192), (64, 64, 12288), (96, 160, 1004), (128, 100, 2048),
               (128, 128, 2080), (32, 14336, 4096), (16, 4096, 4096))
-    n = n_ring = 0
+    n = n_ring = n_store = 0
     for off_a in (0, 1, 8):
         for off_b in (0, 4):
-            a, b = buf[off_a:], buf[off_b:]
-            for m, nn, k in shapes:
-                for bm in (16, 32, 64, 128, 256):
-                    for bn in (16, 32, 64, 128, 11008):
-                        for depth in (2, 3, 4, 6, 8):
-                            for layout in ("kn", "nk"):
-                                cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
-                                                   pipeline_depth=depth)
-                                route = pl.staged_route(cfg, a, b, m, nn, k)
-                                py = route in ("ring", "wgmma_wide")
-                                c = lib.tl2_staged_route(m, nn, k, bm, bn,
-                                                         int(layout == "nk"), a.data_ptr(),
-                                                         b.data_ptr())
-                                if ROUTE_CODES[route] != c:
-                                    raise AssertionError(
-                                        f"staged route differs at {m}x{nn}x{k} {cfg} "
-                                        f"offsets {off_a}, {off_b}: python {py}, C {c}")
-                                n += 1
-                                n_ring += py
-    return n, n_ring
+            for off_c in (0, 8):
+                a, b, c = buf[off_a:], buf[off_b:], buf[off_c:]
+                for m, nn, k in shapes:
+                    for bm in (16, 32, 64, 128, 256):
+                        for bn in (16, 32, 64, 128, 11008):
+                            for depth in (2, 3, 4, 6, 8):
+                                for layout in ("kn", "nk"):
+                                    cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
+                                                       pipeline_depth=depth)
+                                    route = pl.staged_route(cfg, a, b, m, nn, k)
+                                    split = not cfg.wide and pl.staged_splits(
+                                        m, nn, k, bm, bn, depth) > 1
+                                    out = ws if split else c
+                                    tma_store = mm.launch_store(cfg, m, nn, out) == "tma"
+                                    want = ROUTE_CODES[route] | (
+                                        mm.ROUTE_TMA_STORE if tma_store else 0)
+                                    got = lib.tl2_staged_route(m, nn, k, bm, bn,
+                                                               int(layout == "nk"),
+                                                               a.data_ptr(), b.data_ptr(),
+                                                               out.data_ptr())
+                                    if want != got:
+                                        raise AssertionError(
+                                            f"staged route differs at {m}x{nn}x{k} {cfg} "
+                                            f"offsets {off_a}, {off_b}, {off_c}, split {split}: "
+                                            f"python {want}, C {got}")
+                                    n += 1
+                                    n_ring += route in ("ring", "wgmma_wide")
+                                    n_store += tma_store
+    return n, n_ring, n_store
 
 
 def _offset(torch, t, off: int):
@@ -764,12 +829,17 @@ def _narrow_cases(mm) -> list:
     return cases
 
 
-def _narrow_want(mm, cfg, batch, k, route) -> dict:
+def _store_want(mm, cfg, m: int, n: int) -> dict:
+    """The store counter a launch into a fresh output moves (ops.matmul.launch_store)."""
+    return {mm.STORE_COUNTER[mm.launch_store(cfg, m, n)].removeprefix("LAUNCHES_").lower(): 1}
+
+
+def _narrow_want(mm, cfg, batch, m, n, k, route) -> dict:
     """The counters a 32-edge case moves per launch: its body's on its route, its tile
-    kind's, and the mid-stage rounding's (bf16 family, bk % 64 == 32, gk > 1)."""
+    kind's, its store's, and the mid-stage rounding's (bf16 family, bk % 64 == 32, gk > 1)."""
     gk = -(-k // cfg.bk)
     want = {f"{'batched_' if batch > 1 else ''}{'multi' if gk > 1 else 'single'}_k_{route}": 1,
-            "width32" if cfg.bn == 32 else "swapped": 1}
+            "width32" if cfg.bn == 32 else "swapped": 1, **_store_want(mm, cfg, m, n)}
     if cfg.acc_dtype == "bfloat16" and cfg.bk % mm.WGMMA_KSTAGE and gk > 1:
         want["midstage"] = 1
     return want
@@ -3168,6 +3238,7 @@ def main(argv=None) -> int:
                 if "registers" in ln or "entry function" in ln or "spill" in ln]
         for ln in regs:
             print(f"  ptxas: {ln}")
+        record["ring_ptxas"] = _ring_ptxas(lib.build_log)
         # the mma.sync bodies: this script's direct launches go through `mma`; a call
         # through the library's attribute (what a package path would make) is counted
         mma = {name: getattr(lib, name)
@@ -3202,12 +3273,14 @@ def main(argv=None) -> int:
                         raise AssertionError(f"validate at {bm}x{bn} depth {depth} does not "
                                              f"follow the kernel's {kernel} bytes")
         n_route = _check_route_mirror(torch, lib, mm, KernelConfig)
-        n_staged = _check_staged_route_mirror(torch, lib, pl, KernelConfig)
+        n_staged = _check_staged_route_mirror(torch, lib, pl, mm, KernelConfig)
         from tpul2_torch import config as config_mod
         n_wide = _check_wide_mirror(torch, lib, mm, config_mod)
         print(f"  carry ring depths {json.dumps(depths)}; smem models and route rules agree "
-              f"with the kernels ({n_route[0]} route cases, {n_route[1]} of them TMA; "
-              f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA; {n_wide[0]} wide "
+              f"with the kernels ({n_route[0]} route cases, {n_route[1]} of them TMA, "
+              f"{n_route[2]} storing C by TMA; "
+              f"{n_staged[0]} staged route cases, {n_staged[1]} of them TMA, {n_staged[2]} "
+              f"storing C by TMA; {n_wide[0]} wide "
               f"route cases, {n_wide[1]} of them TMA; {n_wide[2]} wide CTA counts)")
         record["carry_stages"] = depths
         print(f"  build {lib.build_seconds:.1f} s (0.0 = library was current)")
@@ -3297,7 +3370,8 @@ def main(argv=None) -> int:
                 (*lead, *((n, k) if cfg.rhs_layout == "nk" else (k, n))),
                 dtype=torch.bfloat16, device="cuda"), offs[1])
             route = mm.launch_route(cfg, probe_a, probe_b, m, n, k)
-            want = {key: 2 * v for key, v in _narrow_want(mm, cfg, batch, k, route).items()}
+            want = {key: 2 * v
+                    for key, v in _narrow_want(mm, cfg, batch, m, n, k, route).items()}
             if moved != want:
                 raise AssertionError(f"{name}: launches {moved}, expected {want}")
             for key in want:
@@ -3370,14 +3444,17 @@ def main(argv=None) -> int:
                                   repeat=splits > 1 and not zero_one, offset_a=off_a)
                     for zero_one in (True, False)]
             moved = {key: v - before[key] for key, v in counters().items() if v != before[key]}
+            store = _store_want(mm, cfg, m, n)
             if route is None:  # gk == 1: one single-K launch per input set
-                want = {key: 2 for key in moved if key.startswith("single_k")} or {"single_k": 2}
+                want = ({key: 2 for key in moved if key.startswith("single_k")}
+                        or {"single_k": 2}) | {key: 2 for key in store}
             elif route == "wide":
-                want = {"staged_wide": 2}
+                want = {"staged_wide": 2} | {key: 2 for key in store}
             else:  # a split case runs its normal inputs twice
                 runs = 3 if splits > 1 else 2
                 want = ({f"staged_{route}": runs} | ({"staged_split": runs} if splits > 1 else {})
-                        | ({"staged_narrow": runs} if narrow else {}))
+                        | ({"staged_narrow": runs} if narrow else {})
+                        | {key: runs for key in store})
             if moved != want:
                 raise AssertionError(f"{name}: launches {moved}, expected {want}")
             if route is not None and route != "wide":
@@ -3497,6 +3574,21 @@ def main(argv=None) -> int:
                 raise AssertionError(f"entry point at bk 96 ({bm}x{bn}) is not exact")
             print(f"  entry point 24x520x1000 {bm}x{bn} bk=96 bf16 acc (mid-stage rounding): "
                   "exact on 0/1 inputs")
+        # 'kn' blocks whose columns start off 16 bytes (bn % 8 != 0 over several column
+        # blocks), on the ring and the wide walk: the loads producer reads B (a TMA box there
+        # would trap the launch)
+        for m in (600, 2000):
+            for bm, bn in ((128, 100), (300, 300), (1000, 300)):
+                cfg = KernelConfig(bm=bm, bn=bn, bk=256)
+                a = _inputs(torch, gen, (m, 256), True)
+                b = _inputs(torch, gen, (256, 600), True)
+                route = mm.launch_route(cfg, a, b, m, 600, 256)
+                got = dispatch.matmul(a, b, config=cfg, out_dtype=torch.float32)
+                torch.cuda.synchronize()
+                if not route.endswith("lsu") or not torch.equal(got, a.float() @ b.float()):
+                    raise AssertionError(f"entry point at {m}x600x256 {bm}x{bn} 'kn' ({route}) "
+                                         "is not exact or not on the loads producer")
+                print(f"  entry point {m}x600x256 kn {bm}x{bn} ({route}): exact on 0/1 inputs")
         # the entry point with a wide block (the thin-K band's stripes, tl2_wgmma_wide.cu):
         # 'kn' and 'nk' (b_t read with no copy), bias + relu, M and N off the block
         for (m, n, k), layout in (((4096, 8192, 64), "kn"), ((1000, 3000, 200), "nk")):

@@ -3,7 +3,7 @@
 device time of each kernel body alone.
 
     python scripts/host_time_torch.py [--root DIR] [--reps 7] [--json_out PATH]
-    python scripts/host_time_torch.py [--root DIR] --alone M,N,K,BM,BN,BK[,ACC[,A_OFF]] [...]
+    python scripts/host_time_torch.py [--root DIR] --alone M,N,K,BM,BN,BK[,ACC[,A_OFF[,LAYOUT[,DEPTH[,BATCH]]]]] [...]
 
 Imports the ``tpul2_torch`` package under ``--root`` (default: this checkout), so that
 two trees can be compared on one card, each in a process of its own.  For each bring-up
@@ -50,11 +50,16 @@ device time per call:
   torch_alone_ms  torch.matmul (torch.bmm) the same way.
 Prints one JSON object per shape, then the card's nvidia-smi name and power limit.
 
-With ``--alone`` it times only the named configs ('kn', bf16 output, no epilogue, normal
-inputs; the f32 family unless ACC is bfloat16; A's base A_OFF elements into its
-allocation, 1 being 2 bytes off 16, which hands A to the loads producer), each body alone
-as above through the tree's tl2_wgmma launcher: one JSON object per config with its
-``alone_ms``.  A wide block takes the tree's wide route, so two trees' wide kernels compare
+With ``--alone`` it times only the named configs (bf16 output, no epilogue, normal inputs
+made from seed 3 for each config, so that every tree and every order of configs gets the
+same ones; the f32 family unless ACC is bfloat16; A's base A_OFF elements into its
+allocation, 1 being 2 bytes off 16, which hands A to the loads producer; LAYOUT 'kn' (the
+default) or 'nk'; DEPTH > 0 a staged launch, tl2_wgmma_staged at that depth clamped to the
+K intervals, with the split count the tree's ``ops.pipelined.staged_splits`` gives; BATCH
+> 1 a batched launch), each body alone as above through the tree's tl2_wgmma launcher: one
+JSON object per config with its ``alone_ms`` and ``sha256``, the digest of the output's
+bytes after the timed launches (every launch writes the same values), so that two trees'
+bits compare.  A wide block takes the tree's wide route, so two trees' wide kernels compare
 on one card.
 """
 
@@ -63,6 +68,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
 import statistics
 import sys
@@ -170,7 +176,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--json_out", default=None)
     ap.add_argument("--alone", action="append", default=[],
-                    metavar="M,N,K,BM,BN,BK[,ACC[,A_OFF]]",
+                    metavar="M,N,K,BM,BN,BK[,ACC[,A_OFF[,LAYOUT[,DEPTH[,BATCH]]]]]",
                     help="time only this config's kernel alone (repeatable)")
     args = ap.parse_args(argv)
 
@@ -195,25 +201,45 @@ def main(argv=None) -> int:
     gen.manual_seed(3)
     rows = []
     for spec in args.alone:
-        fields = spec.split(",")
+        fields = spec.split(",") + [""] * 5
         m, n, k, bm, bn, bk = map(int, fields[:6])
-        acc = fields[6] if len(fields) > 6 else "float32"
-        a_off = int(fields[7]) if len(fields) > 7 else 0
-        cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc)
-        a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        acc = fields[6] or "float32"
+        a_off = int(fields[7] or 0)
+        layout = fields[8] or "kn"
+        depth = int(fields[9] or 0)
+        batch = int(fields[10] or 1)
+        cfg = KernelConfig(bm=bm, bn=bn, bk=bk, acc_dtype=acc, rhs_layout=layout)
+        lead = (batch,) if batch > 1 else ()
+        gen.manual_seed(3)
+        a = torch.randn((*lead, m, k), generator=gen, device="cuda").bfloat16()
         if a_off:
             a = torch.empty(a.numel() + a_off, dtype=a.dtype, device="cuda")[a_off:].view(
-                m, k).copy_(a)
-        b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
-        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+                a.shape).copy_(a)
+        b = torch.randn((*lead, *((n, k) if layout == "nk" else (k, n))), generator=gen,
+                        device="cuda").bfloat16()
+        out = torch.empty((*lead, m, n), dtype=torch.bfloat16, device="cuda")
+        label = f"{bm}x{bn} bk={bk} {acc} {layout}" + (f" A off {a_off}" if a_off else "")
+        if depth:
+            from tpul2_torch.ops import pipelined as pl
+            clamped = pl.staged_depth(depth, k // bk)
+            splits = 1 if cfg.wide else pl.staged_splits(m, n, k, bm, bn, clamped)
+            ws = torch.empty((splits, m, n), dtype=torch.float32, device="cuda")
+            label += f" staged depth {clamped}, {splits} splits"
 
-        def make(a=a, b=b, out=out, cfg=cfg, m=m, n=n, k=k):
-            call = _launch_args(torch, a, b, cfg, out, 1, m, n, k)
-            return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
+            def make(a=a, b=b, out=out, ws=ws, m=m, n=n, k=k, d=clamped, s=splits):
+                call = (a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, k, bm,
+                        bn, d, s, int(layout == "nk"), 0, 0,
+                        torch.cuda.current_stream().cuda_stream)
+                return lambda: check_launch(lib.tl2_wgmma_staged(*call), "tl2_wgmma_staged")
+        else:
+            def make(a=a, b=b, out=out, cfg=cfg, m=m, n=n, k=k, batch=batch):
+                call = _launch_args(torch, a, b, cfg, out, batch, m, n, k)
+                return lambda: check_launch(lib.tl2_wgmma_bf16out(*call), "tl2_wgmma")
 
-        row = {"root": str(Path(args.root).resolve()), "mnk": [m, n, k],
-               "config": f"{bm}x{bn} bk={bk} {acc}" + (f" A off {a_off}" if a_off else ""),
-               "alone_ms": alone_ms(torch, make)}
+        ms = alone_ms(torch, make)
+        digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        row = {"root": str(Path(args.root).resolve()), "batch": batch, "mnk": [m, n, k],
+               "config": label, "alone_ms": ms, "sha256": digest}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del a, b, out

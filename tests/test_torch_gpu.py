@@ -183,14 +183,16 @@ def test_wgmma_long_interval_stays_in_f32_tolerance(cuda, layout):
 def test_wgmma_refused_launch_raises(cuda):
     """A launch outside the ring's route (bk 48, not a multiple of 32, which validate also
     refuses) is refused by the C launcher before any work, and check_launch raises
-    LaunchRefused; K % 8 != 0 is on the route, with the loads producer."""
+    LaunchRefused; K % 8 != 0 is on the route, with the loads producer (and C stored by
+    TMA: the route code's ROUTE_TMA_STORE bit)."""
     lib = load_library()
     m, n, k = 64, 64, 1001
     cfg = KernelConfig(bm=64, bn=64, bk=48)
     assert cfg.validate() is not None
     a, b = _01((m, k), 22).to(cuda), _01((k, n), 23).to(cuda)
     out = torch.empty((m, n), dtype=torch.float32, device=cuda)
-    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr(), None) == 2
+    assert lib.tl2_wgmma_route(m, n, k, 64, 64, 128, 0, a.data_ptr(), b.data_ptr(),
+                               None) == 2 | mm.ROUTE_TMA_STORE
     assert lib.tl2_wgmma_route(m, n, k, 64, 64, 48, 0, a.data_ptr(), b.data_ptr(), None) == 0
     err = lib.tl2_wgmma_f32out(*mm.launch_args(a, b, cfg, out, None, None, 1, m, n, k))
     with pytest.raises(LaunchRefused, match="launch failed"):
@@ -273,10 +275,12 @@ def test_staged_smem_model_matches_the_kernel(cuda):
 
 
 def test_staged_route_matches_the_c_rule(cuda):
-    """ops.pipelined.staged_route against tl2_staged_route over tiles, layouts, shapes and
-    operand alignments (views 2, 8 and 16 bytes into one allocation)."""
+    """ops.pipelined.staged_route, with ops.matmul.launch_store's ROUTE_TMA_STORE bit for an
+    aligned output, against tl2_staged_route over tiles, layouts, shapes and operand
+    alignments (views 2, 8 and 16 bytes into one allocation)."""
     lib = load_library()
     buf = torch.zeros(64, dtype=torch.bfloat16, device=cuda)
+    out = torch.zeros(8, dtype=torch.float32, device=cuda)
     for off_a in (0, 1, 8):
         for off_b in (0, 4):
             a, b = buf[off_a:], buf[off_b:]
@@ -288,9 +292,11 @@ def test_staged_route_matches_the_c_rule(cuda):
                             cfg = KernelConfig(bm=bm, bn=bn, rhs_layout=layout,
                                                pipeline_depth=2)
                             py = {"ring": 1, "ring_lsu": 2}[pl.staged_route(cfg, a, b, m, n, k)]
+                            if mm.launch_store(cfg, m, n, out) == "tma":
+                                py |= mm.ROUTE_TMA_STORE
                             assert py == lib.tl2_staged_route(
                                 m, n, k, bm, bn, int(layout == "nk"), a.data_ptr(),
-                                b.data_ptr()), (m, n, k, cfg, off_a, off_b)
+                                b.data_ptr(), out.data_ptr()), (m, n, k, cfg, off_a, off_b)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -684,3 +690,29 @@ def test_next_block_nan_rows_are_never_stored(cuda, block, key):
     assert launch_counts()[key] == before + 1
     assert torch.equal(got[:bm], a[:bm].float() @ b.float())
     assert bool(torch.isnan(got[bm:]).all())
+
+
+#: (block, counter): 'kn' blocks whose every column but the first starts off 16 bytes
+#: (bn % 8 != 0 over several column blocks), on the ring and on the wide walk.
+KN_OFF_16 = [((128, 100), "single_k_wgmma_lsu"), ((64, 60), "single_k_wgmma_lsu"),
+             ((300, 300), "single_k_wgmma_wide_lsu"), ((1000, 300), "single_k_wgmma_wide_lsu")]
+
+
+@pytest.mark.parametrize("block,key", KN_OFF_16)
+@pytest.mark.parametrize("m", [600, 2000])
+def test_kn_block_columns_off_16_bytes_take_the_loads_producer(cuda, block, key, m):
+    """A 'kn' B block whose columns start off 16 bytes (bn 300 or 100 at N = 600) is read by
+    the loads producer, not by TMA (whose box would start off 16 bytes and trap the launch):
+    one launch on the loads producer's counter, equal to the plain version, and the card
+    still answers afterwards."""
+    from tpul2_torch.ops import launch_counts
+    bm, bn = block
+    n, k = 600, 256
+    cfg = KernelConfig(bm=bm, bn=bn, bk=256)
+    a, b = _01((m, k), 10).to(cuda), _01((k, n), 11).to(cuda)
+    assert mm.operand_producers(cfg, a, b, n, k) == (True, False)
+    before = launch_counts()[key]
+    got = mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert launch_counts()[key] == before + 1
+    assert torch.equal(got, mm.matmul_reference(a, b, cfg.bk, out_dtype=torch.float32))

@@ -20,6 +20,10 @@ takes (bn a multiple of its 128 lanes), since its result depends on bk, not on t
 
 import dataclasses
 import functools
+import json
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +32,13 @@ import torch
 
 import tpul2.config as jcfg
 from tpul2.ops.matmul import pallas_matmul, pallas_matmul_fused, pallas_matmul_tn
-from tpul2_torch.config import KernelConfig
+from tpul2_torch.config import (PIPELINE_DEPTHS, KernelConfig, kn_tma_cols, ring_c_grid,
+                                ring_edge, wide_c_grid)
 from tpul2_torch.ops import batched as bmm
 from tpul2_torch.ops import matmul as mm
+from tpul2_torch.ops._build import ptxas_report
+
+CSRC = Path(__file__).resolve().parent.parent / "tpul2_torch" / "csrc"
 
 torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 
@@ -76,6 +84,12 @@ ROUTE_CASES = [
     ("bk96_a_off", {"bk": 96, "off_a": 1}, "wgmma_lsu", "a"),
     ("lsu_a_only_nk", {"off_a": 2, "layout": "nk", "bn": 32}, "wgmma_lsu", "a"),
     ("lsu_b_only_nk", {"off_b": 1, "layout": "nk", "bm": 32}, "wgmma_lsu", "b"),
+    # a 'kn' column block that starts off 16 bytes: TMA's box would too (bn % 8 != 0 over
+    # several blocks); one block of N, or B_t, is read by TMA
+    ("kn_bn100_cols_off_16", {"bn": 100, "n": 600}, "wgmma_lsu", "b"),
+    ("kn_bn100_one_block", {"bn": 100, "n": 96}, "wgmma", ""),
+    ("nk_bn100", {"bn": 100, "n": 600, "layout": "nk"}, "wgmma", ""),
+    ("kn_bn1_cols_off_16", {"bn": 1, "n": 64}, "wgmma_lsu", "b"),
 ]
 
 
@@ -119,6 +133,123 @@ def test_wgmma_smem_model_fits_every_tile():
     assert mm.wgmma_smem_bytes(128, 128) == 1024 + 4 * 256 * 128 + 64
     assert [mm.carry_stages(bm, bn) for bm, bn in ((32, 64), (32, 128), (32, 32), (64, 32),
                                                     (128, 32))] == [8, 4, 16, 16, 11]
+
+
+_RING_MIRROR = r"""
+#include <cstdio>
+#include "tl2_wgmma_model.cuh"
+int main() {
+  const int edges[] = {1, 16, 31, 32, 33, 48, 64, 100, 128};
+  const int dims[] = {1, 40, 64, 96, 600};
+  std::printf("[");
+  bool first = true;
+  for (int bm : edges)
+    for (int bn : edges)
+      for (int stages = 0; stages <= tl2wg::MAX_STAGES; ++stages)
+        for (int m : dims)
+          for (int n : dims) {
+            const int tm = tl2wg::ring_edge(bm), tn = tl2wg::ring_edge(bn);
+            std::printf("%s[%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d,%d]", first ? "" : ",", bm,
+                        bn, stages, m, n, tl2wg::carry_stages(bm, bn),
+                        tl2wg::smem_bytes(bm, bn, stages), (int)tl2wg::ring_c_grid(m, n, bm, bn),
+                        (int)tl2wg::kn_tma_cols(n, bn), tl2wg::ring_c_rows(tm, tn),
+                        tl2wg::ring_c_cols(tm, tn), tl2wg::ring_c_box_cols(tm, tn, 2),
+                        tl2wg::ring_c_box_cols(tm, tn, 4), (int)tl2wg::ring_swapped(tm, tn));
+            first = false;
+          }
+  std::printf("]\n");
+  return 0;
+}
+"""
+
+
+def test_ring_model_equals_its_c_mirror(tmp_path):
+    """``carry_stages``, ``KernelConfig.smem_bytes`` (the carry ring and every staged depth),
+    ``config.ring_c_grid`` and ``config.kn_tma_cols`` against ``tl2_wgmma_model.cuh``, which
+    the launcher and the route use, built here with g++, at every ring tile, narrower blocks
+    and shapes on either side of each edge; and the C staging of each tile (its rows, columns
+    and boxes of 128 or 64 bytes) lies within the ring's first two stages in both output
+    dtypes, as the kernel's static_assert says."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the C mirror"
+    src, exe = tmp_path / "ring.cpp", tmp_path / "ring"
+    src.write_text(_RING_MIRROR)
+    subprocess.run([gxx, "-std=c++17", "-O0", f"-I{CSRC}", str(src), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=120)
+    rows = json.loads(subprocess.run([str(exe)], check=True, capture_output=True, text=True,
+                                     timeout=60).stdout)
+    assert len(rows) == 9 * 9 * 9 * 5 * 5
+    for (bm, bn, stages, m, n, depth, smem, c_grid, kn_cols, c_rows, c_cols, box_bf16,
+         box_f32, swapped) in rows:
+        assert depth == mm.carry_stages(bm, bn)
+        assert smem == mm.wgmma_smem_bytes(bm, bn, stages)
+        if stages == 0:  # the carry ring's model, as validate reads it
+            assert KernelConfig(bm=bm, bn=bn).smem_bytes() == mm.wgmma_smem_bytes(bm, bn)
+        elif stages in PIPELINE_DEPTHS:
+            assert smem == KernelConfig(bm=bm, bn=bn, pipeline_depth=stages).smem_bytes()
+        assert bool(c_grid) == ring_c_grid(m, n, bm, bn)
+        assert bool(kn_cols) == kn_tma_cols(n, bn)
+        tm, tn = ring_edge(bm), ring_edge(bn)
+        consumers = (tn if swapped else max(tm, 64)) // 64
+        for box, elem in ((box_bf16, 2), (box_f32, 4)):
+            assert box * elem in (64, 128) and c_cols % box == 0
+            assert consumers * c_rows * c_cols * elem <= 2 * (tm + tn) * 128
+        assert (c_rows, c_cols) == ((32, 64) if swapped else (min(tm, 64), tn))
+
+
+@pytest.mark.parametrize("bn,layout,tma_b", [(300, "kn", False), (256, "kn", True),
+                                              (600, "kn", True), (300, "nk", True)])
+@pytest.mark.parametrize("m", [600, 2000])
+def test_wide_kn_block_columns_off_16_bytes_take_the_loads_producer(m, bn, layout, tma_b):
+    """A wide 'kn' block of bn 300 at N = 600 starts its second column block 600 bytes into
+    B's rows, off 16: the loads producer reads B (TMA's box would trap the launch on the
+    card); bn 256, one block of N, or B_t are read by TMA."""
+    n, k = 600, 256
+    for bm in (300, 1000):
+        cfg = KernelConfig(bm=bm, bn=bn, bk=256, rhs_layout=layout)
+        assert cfg.validate() is None and cfg.wide
+        a, rhs = _operands(m, n, k, layout)
+        assert mm.operand_producers(cfg, a, rhs, n, k) == (True, tma_b)
+        assert mm.launch_route(cfg, a, rhs, m, n, k) == (
+            "wgmma_wide" if tma_b and wide_c_grid(m, n, bm, bn) else "wgmma_wide_lsu")
+
+
+#: (case, changes to the base launch, store): the TMA store where TMA can write C and every
+#: block edge is the tile's or past the problem's; predicated stores elsewhere.
+STORE_CASES = [
+    ("tile", {}, "tma"),
+    ("tile_64x32", {"bm": 64, "bn": 32}, "tma"),
+    ("swapped_32x128", {"bm": 32, "bn": 128}, "tma"),
+    ("bf16_width32", {"bm": 32, "bn": 32}, "tma"),
+    ("m_edge_off_tile", {"m": 200}, "tma"),
+    ("bm48_clipped", {"bm": 48}, "predicated"),
+    ("bn100_clipped", {"bn": 100}, "predicated"),
+    ("bm16_clipped", {"bm": 16, "bn": 64}, "predicated"),
+    ("bm48_one_block", {"bm": 48, "m": 40}, "tma"),
+    ("bn100_one_block", {"bn": 100, "n": 96}, "tma"),
+    ("n_not_8", {"n": 1001}, "predicated"),
+    ("out_off_16", {"off_c": 2}, "predicated"),
+    ("out_16_bytes_in", {"off_c": 4}, "tma"),
+    ("wide_grid", {"bm": 256, "bn": 1024, "n": 2048}, "tma"),
+    ("wide_clipped", {"bm": 200, "bn": 256}, "predicated"),
+    ("wide_swapped", {"bm": 16, "bn": 512}, "predicated"),
+]
+
+
+@pytest.mark.parametrize("case,change,store", STORE_CASES, ids=[c[0] for c in STORE_CASES])
+def test_store_rule(case, change, store):
+    """``launch_store`` (``tl2_wgmma_route``'s ROUTE_TMA_STORE bit on the card): C goes out
+    by TMA from shared memory at a block equal to the tile, or one whose edges lie past the
+    problem's, where N % 8 == 0 and ``out=`` is 16-byte aligned; by predicated stores at
+    clipped blocks, N % 8 != 0 and an ``out=`` off 16 bytes."""
+    d = dict(m=256, n=256, bm=128, bn=128, off_c=None)
+    d.update(change)
+    cfg = KernelConfig(bm=d["bm"], bn=d["bn"], bk=128)
+    assert cfg.validate() is None
+    out = None
+    if d["off_c"] is not None:
+        out = torch.zeros(d["m"] * d["n"] + d["off_c"])[d["off_c"]:].view(d["m"], d["n"])
+    assert mm.launch_store(cfg, d["m"], d["n"], out) == store
 
 
 def _counts():
@@ -269,3 +400,23 @@ def test_bf16_family_single_interval_matches_jax(layout, zero_one):
     # the sum rounded to bf16 before the epilogue lies outside that tolerance
     rounded = mm.ACTIVATIONS[act]((a.float() @ b.float()).bfloat16().float() + bias)
     assert bool(((rounded - theirs).abs() > tol).any())
+
+
+def test_ptxas_report_reads_each_kernels_registers_and_spills():
+    """``ops._build.ptxas_report`` (phase 1's spill check) on nvcc's -Xptxas -v lines: each
+    entry function's registers from its "Used" line, its spills from its properties."""
+    ring = "_ZN5tl2wg16tl2_wgmma_kernelILi128ELi128ELb0ELb1ELb0EEEv14CUtensorMap_stS1_S1_NS_8WgParamsE"
+    other = "_Z20tl2_splitk_reduce_kernelIfEvPKfPT_xi"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{ring}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ring}",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 1552 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {other}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 22 registers, 380 bytes cmem[0]"])
+    assert ptxas_report(log) == {
+        ring: {"registers": 168, "stack": 8, "spill_stores": 8, "spill_loads": 4},
+        other: {"registers": 22, "stack": 0, "spill_stores": 0, "spill_loads": 0}}

@@ -136,7 +136,7 @@ _TPU_ONLY_FIELDS = ("vmem_limit_bytes", "parallel_mn")
 def ring_edge(edge: int) -> int:
     """The ring tile's edge that runs a block edge of 1..128 (``tl2wg::ring_edge``): the least
     of TILE_CHOICES that holds it."""
-    return next(t for t in TILE_CHOICES if t >= edge)
+    return 32 if edge <= 32 else 64 if edge <= 64 else 128  # on every call: no generator
 
 
 def carry_stages(bm: int, bn: int) -> int:
@@ -160,6 +160,21 @@ def wgmma_smem_bytes(bm: int, bn: int, stages: Optional[int] = None) -> int:
     if stages is None:
         stages = carry_stages(bm, bn)
     return 1024 + stages * (ring_edge(bm) + ring_edge(bn)) * WGMMA_KSTAGE * 2 + 2 * stages * 8
+
+
+def kn_tma_cols(n: int, bn: int) -> bool:
+    """Whether TMA can read a 'kn' B at every block's first column (``tl2wg::kn_tma_cols``):
+    its boxes start there, j * bn, and a box must start on 16 bytes, so bn % 8 == 0 or one
+    block covers N; elsewhere the loads producer reads B."""
+    return bn % 8 == 0 or bn >= n
+
+
+def ring_c_grid(m: int, n: int, bm: int, bn: int) -> bool:
+    """Whether TMA stores can write a ring block's C (``tl2wg::ring_c_grid``): they write the
+    tile's rows and columns whole and clip only at the problem's edges, so each block edge
+    must be the tile's own (``ring_edge``) or lie past the problem's edge (one block along
+    that dimension)."""
+    return (bm == ring_edge(bm) or bm >= m) and (bn == ring_edge(bn) or bn >= n)
 
 
 def is_wide(bm: int, bn: int) -> bool:

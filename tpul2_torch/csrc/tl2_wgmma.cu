@@ -15,12 +15,17 @@
 // i.e. a block of edges in 1..128 (on the tile of ring_edge(bm) x ring_edge(bn), the CTAs
 // stepping by the block's edges) and bk a multiple of 32, runs here; the route names the
 // producer: 1 ('wgmma') where TMA can read both operands (16-byte aligned bases and rows of
-// a multiple of 16 bytes: K % 8 for A and B_t, N % 8 for B), 2 ('wgmma_lsu') where one of
-// them is read by the loads producer. A wide block (an edge above 128, up to 16384 x 32768,
-// any edges, tl2_wgmma_wide.cu) takes 3 ('wgmma_wide') where TMA can read both operands and
-// write C (N % 8 == 0, a 16-byte aligned C, and every block edge on the sub-tile grid or
-// past the problem's: wide_c_grid), else 4 ('wgmma_wide_lsu': the loads producer and
-// predicated stores; the swapped walk of bm <= 32 always), at any bk and batch. The staged
+// a multiple of 16 bytes: K % 8 for A and B_t, N % 8 for B; and for 'kn' B a box start on
+// 16 bytes at every block column, bn % 8 == 0 or one block of N: kn_tma_cols, since a box
+// off 16 bytes never lands and traps the launch), 2 ('wgmma_lsu') where one of them is read
+// by the loads producer; and the store: ROUTE_TMA_STORE (8) added where C goes out by TMA
+// from shared memory (N % 8 == 0, a 16-byte aligned C, and each block edge the tile's own
+// or past the problem's: ring_c_grid; ops/matmul.py::launch_store), else predicated
+// stores. A wide block (an edge above 128, up to 16384 x 32768, any edges,
+// tl2_wgmma_wide.cu) takes 3 ('wgmma_wide') where TMA can read both operands and write C
+// (N % 8 == 0, a 16-byte aligned C, and every block edge on the sub-tile grid or past the
+// problem's: wide_c_grid), else 4 ('wgmma_wide_lsu': the loads producer or predicated
+// stores; the swapped walk of bm <= 32 always), at any bk and batch. The staged
 // route (tl2_staged_route, mirrored by ops/pipelined.py::staged_route) is the same without
 // bk ('ring' / 'ring_lsu' for a ring block, 3 / 4 for a wide one). A launch is refused
 // (cudaErrorInvalidValue, before any work) outside them, never redirected; the mma.sync
@@ -51,8 +56,21 @@
 // cores. So the design keeps wgmma issuing: one producer thread keeps the ring's K slices in
 // flight with TMA, and the consumer warpgroups run m64 x N x k16 wgmmas on whichever stage
 // has landed, each releasing its stage through an mbarrier as soon as its wgmmas have read
-// it. The skinny (64 x 8192 x 8192), thin-K (8192 x 128 x 64) and decode-size (M <= 32)
-// shapes are bound by bytes instead: B, and at thin K the output's stores. At decode sizes
+// it (ring_mainloop). Each stage's wgmmas start from a fresh accumulator, which a thread
+// must wait for (wgmma.wait_group 0) before it adds it into the f32 sum: on the 128 x 128
+// tile of the f32 family (TMA producer) warpgroup 1 starts once warpgroup 0 has issued its
+// first stage (a named barrier), so that the two work out of step, one's wait and add under
+// the other's wgmmas, instead of both draining the tensor cores at once. Two stage
+// products in flight per thread (stage i + 1 issued before stage i is waited for) ran
+// slower than one on every tile measured (PERF.md), and the 128 x 128 tile's threads
+// cannot hold the second 64-register product beside the sum.
+// The skinny (64 x 8192 x 8192), thin-K (8192 x 128 x 64) and decode-size (M <= 32)
+// shapes are bound by bytes instead: B, and at thin K the output's stores. At thin K a CTA
+// takes one stage of K and then writes its whole tile, so its epilogue is most of its life:
+// the consumers stage C in the ring's free stages (the activation a template argument, its
+// switch taken once) and one thread per warpgroup stores it by TMA, in 64-row boxes of 128
+// bytes (64 of bf16 at width 32) with the 128-byte (64-byte) swizzle; the swapped tile
+// writes its C^T fragment transposed into the same boxes. At decode sizes
 // (1..32 x 4096 x 4096: 34 MB of B against 0.5 GFLOP) MMAs spent on zero rows cost nothing;
 // what counts is enough of B in flight on every SM that holds a CTA.
 //
@@ -64,8 +82,8 @@
 //     the tile's N rows are wgmma's M (a warpgroup per 64), A's 32 K-major rows wgmma's B at
 //     width 32; B_t ('nk') is K-major, wgmma's natural A layout, B ('kn') MN-major, read with
 //     the transpose flag on the shared-memory A operand. The epilogue is transposed: the bias
-//     follows the accumulator's rows, and each element is stored on its own, predicated to
-//     (M, N).
+//     follows the accumulator's rows, and each element is written on its own (into the C
+//     staging, or predicated to (M, N)).
 // TMA zero-fills rows past M, so M = 1..31 needs no case of its own. A block narrower than its
 // tile (bm or bn not 32, 64 or 128: the JAX space's sublane 16, its covers of M < 16 or of
 // N < 128, any full-dim cover) runs the least tile that holds it (ring_edge), with the CTAs
@@ -100,11 +118,13 @@
 // without it) and arrives on the stage's full barrier. The consumer code does not know which
 // producer filled a stage. A direct launch with vec_a / vec_b = 0 forces the loads producer
 // on an aligned operand: the same stages, the same wgmmas, the same bits.
-// Edges: stores are predicated to (M, N), so the gate's guard bands test the kernel's own
-// writes.
+// Edges: TMA stores clip at (M, N) and predicated stores stop there, so the gate's guard
+// bands test the kernel's own writes.
 // Registers: a consumer thread holds N / 2 floats of the stage product, N / 2 of the carry
 // (f32) or of `part` plus N / 4 packed bf16 carry registers; with two consumer warpgroups
-// the producer warpgroup gives registers up (setmaxnreg) and the consumers take them.
+// the producer warpgroup gives registers up (setmaxnreg: 40 / 232, and 56 / 224 where the
+// loads producer's copies need them) and the consumers take them; ptxas reports no spill in
+// any ring instance (chip_smoke.py phase 1 fails on one).
 // Staged launches (tl2_wgmma_staged, the port of pipelined.py::_kernel): one f32 sum over
 // all of K through a ring of `depth` stages, then one cast, in both families (the f32-carry
 // instance), on every tile, the 32-edge ones included. The TPU kernel's grid runs in order
@@ -113,10 +133,14 @@
 // stages into an f32 partial in a workspace (splits x M x N, allocated by the wrapper), and
 // tl2_splitk_reduce_kernel then adds the partials of each element in split order and casts
 // once. No atomics: two runs on the same inputs give the same bits.
-// Left for later: a split K for the carry launches, a persistent schedule, a TMA store
-// staged through shared memory (the swapped tile's scattered stores), overlapping one
-// stage's adds with the next stage's wgmmas, and n16 / n8 tiles for blocks of an edge of 16
-// or less (they run the width-32 and swapped tiles).
+// Left for later: the warpgroups out of step on the bf16 family's 128 x 128 tile and the
+// loads producer's (the barrier code needs a few registers those instances do not have); a
+// split K for the carry launches; a
+// persistent schedule, so that one tile's
+// epilogue overlaps the next tile's loads (at thin K one CTA an SM still waits for its one
+// stage, then stores); TMA stores for blocks narrower than their tile
+// (clipped at the block's edge, they use predicated stores); and n16 / n8 tiles for blocks of
+// an edge of 16 or less (they run the width-32 and swapped tiles).
 
 #include <string.h>
 
@@ -178,22 +202,25 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows, int batch
   return r == CUDA_SUCCESS;
 }
 
-// The output's rank-3 map for the wide route's TMA stores: (batch, M, N) of bf16 or f32, batch
-// stride sc elements, in boxes of 64 rows x 128 bytes, 128-byte swizzle; stores past M or N
-// are clipped.
-bool make_out_map(CUtensorMap* map, void* c, int batch, int m, int n, long long sc, bool f32) {
+// The output's rank-3 map for TMA stores: (planes, M, N) of bf16 or f32 (planes: the batch,
+// or a split launch's partials), plane stride `stride` elements, in boxes of box_rows rows x
+// box_cols columns, whose rows of 128 or 64 bytes take the swizzle of that span; stores
+// past M or N are clipped.
+bool make_c_map(CUtensorMap* map, void* c, int planes, int m, int n, long long stride, bool f32,
+                int box_cols, int box_rows) {
   const EncodeTiled enc = encode_fn();
   if (enc == nullptr) return false;
   const int elem = f32 ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)m, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)n * elem, (cuuint64_t)sc * elem};
-  const cuuint32_t box[3] = {(cuuint32_t)(ROW_BYTES / elem), 64, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)m, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * elem, (cuuint64_t)stride * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapDataType type =
       f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUresult r = enc(map, type, 3, c, dims, strides, box, step,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r =
+      enc(map, type, 3, c, dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          box_cols * elem == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
 }
 
@@ -202,11 +229,31 @@ bool tma_ok(const void* p, int row) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row % 8 == 0;
 }
 
-// TMA can write the wide route's C (bf16 or f32): N % 8 == 0 and a 16-byte aligned base (a
-// null c, the route's question before an output exists, counts as aligned: a fresh
-// allocation is).
+// TMA can read the RHS: B_t's rows of K, or B's rows of N, by tma_ok; and 'kn' B's boxes,
+// which start at each block's first column, on 16 bytes (kn_tma_cols).
+bool tma_b_ok(const void* b, int n, int k, int bn, int rhs_nk) {
+  return rhs_nk ? tma_ok(b, k) : tma_ok(b, n) && kn_tma_cols(n, bn);
+}
+
+// TMA can write C (bf16 or f32): N % 8 == 0 and a 16-byte aligned base (a null c, the
+// route's question before an output exists, counts as aligned: a fresh allocation is). The
+// block's edges decide the rest: ring_c_grid, wide_c_grid.
 bool tma_c_ok(const void* c, int n) {
   return n % 8 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+}
+
+// A ring launch of a bm x bn block stores C by TMA from shared memory.
+bool ring_tma_c(const void* c, int m, int n, int bm, int bn) {
+  return tma_c_ok(c, n) && ring_c_grid(m, n, bm, bn);
+}
+
+// The map of a ring launch's C (`planes` of M x N at `stride` elements) in the boxes of its
+// tile's staging (ring_c_rows x ring_c_box_cols).
+bool make_ring_c_map(CUtensorMap* map, void* c, int planes, int m, int n, long long stride,
+                     bool f32, int bm, int bn) {
+  const int tm = ring_edge(bm), tn = ring_edge(bn);
+  return make_c_map(map, c, planes, m, n, stride, f32, ring_c_box_cols(tm, tn, f32 ? 4 : 2),
+                    ring_c_rows(tm, tn));
 }
 
 // The loads producer's copy width in elements: the widest of 8, 4, 2 that the base's
@@ -226,7 +273,7 @@ int load_width(const void* p, int row, int step) {
 int ring_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
                     const void* b) {
   if (m <= 0 || n <= 0 || k <= 0 || !ring_block_ok(bm, bn)) return 0;
-  return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) ? 1 : 2;
+  return tma_ok(a, k) && tma_b_ok(b, n, k, bn, rhs_nk) ? 1 : 2;
 }
 
 // The wide route, at any bk and batch: 3 where TMA reads both operands and writes C, 4 where
@@ -235,7 +282,7 @@ int ring_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void*
 int wide_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
                     const void* b, const void* c) {
   if (m <= 0 || n <= 0 || k <= 0 || !wide_block_ok(bm, bn)) return 0;
-  return tma_ok(a, k) && tma_ok(b, rhs_nk ? k : n) && tma_c_ok(c, n) &&
+  return tma_ok(a, k) && tma_b_ok(b, n, k, bn, rhs_nk) && tma_c_ok(c, n) &&
                  wide_c_grid(m, n, bm, bn)
              ? 3
              : 4;
@@ -249,13 +296,27 @@ int staged_route_code(int m, int n, int k, int bm, int bn, int rhs_nk, const voi
   return ring_route_code(m, n, k, bm, bn, rhs_nk, a, b);
 }
 
+// tl2_wgmma_route's and tl2_staged_route's bit for a launch whose C TMA stores from shared
+// memory; without it, predicated stores.
+constexpr int ROUTE_TMA_STORE = 8;
+
+// A launch stores C by TMA into c: the ring's ring_tma_c, a wide block's tma_c_ok and
+// wide_c_grid.
+bool store_by_tma(const void* c, int m, int n, int bm, int bn) {
+  return wide_block(bm, bn) ? tma_c_ok(c, n) && wide_c_grid(m, n, bm, bn)
+                            : ring_tma_c(c, m, n, bm, bn);
+}
+
 // The same for the carry and single-K launches: bk must be a positive multiple of 32, so
-// that a rounding point falls on a stage's start or its middle.
+// that a rounding point falls on a stage's start or its middle; with ROUTE_TMA_STORE where
+// the launch stores C by TMA.
 int route_code(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                const void* b, const void* c) {
   if (bk <= 0 || bk % (KSTAGE / 2)) return 0;
-  if (wide_block(bm, bn)) return wide_route_code(m, n, k, bm, bn, rhs_nk, a, b, c);
-  return ring_route_code(m, n, k, bm, bn, rhs_nk, a, b);
+  const bool wide = wide_block(bm, bn);
+  const int code = wide ? wide_route_code(m, n, k, bm, bn, rhs_nk, a, b, c)
+                        : ring_route_code(m, n, k, bm, bn, rhs_nk, a, b);
+  return code && store_by_tma(c, m, n, bm, bn) ? code | ROUTE_TMA_STORE : code;
 }
 
 // The TMA maps of the operands TMA reads (false if cuTensorMapEncodeTiled refuses one), in
@@ -280,12 +341,13 @@ int pairs_ok(const void* c, int n, int batch, long long sc, int elem_bytes) {
 
 // Launch the instance of the tile of p.blk_m x p.blk_n (ring_edge of each) from its file;
 // cudaErrorInvalidValue for a tile it has none of.
-cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
-                         int splits, int batch, int rhs_nk, int acc_bf16, cudaStream_t s) {
+cudaError_t launch_tiles(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
+                         const WgParams& p, int splits, int batch, int rhs_nk, int acc_bf16,
+                         cudaStream_t s) {
   const int tm = ring_edge(p.blk_m), tn = ring_edge(p.blk_n);
   const auto fn = tm >= 64 && tn >= 64 ? (p.load_a || p.load_b ? launch_wide_lsu : launch_wide)
                   : tn == 32 ? launch_n32 : launch_swap;
-  return fn(tm, tn, ta, tb, p, splits, batch, rhs_nk, acc_bf16, s);
+  return fn(tm, tn, ta, tb, tc, p, splits, batch, rhs_nk, acc_bf16, s);
 }
 
 // The parameters shared by every launch of a bm x bn block; the caller sets c, bk, the batch
@@ -329,13 +391,13 @@ int launch_wide_route(const void* a, const void* b, const void* bias, void* c, i
                       bool out_f32, int vec_a, int vec_b, cudaStream_t stream, int depth = 0,
                       int ctas = 0) {
   if (c == nullptr) return (int)cudaErrorInvalidValue;
-  const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
-  const bool tma_c = tma_c_ok(c, n) && wide_c_grid(m, n, bm, bn);
+  const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_b_ok(b, n, k, bn, rhs_nk);
+  const bool tma_c = store_by_tma(c, m, n, bm, bn);
   CUtensorMap ta, tb, tc;
   memset(&tc, 0, sizeof(tc));
   if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, wide_sub_m(bm), WIDE_SUB_N, rhs_nk,
                  tma_a, tma_b) ||
-      (tma_c && !make_out_map(&tc, c, batch, m, n, sc, out_f32)))
+      (tma_c && !make_c_map(&tc, c, batch, m, n, sc, out_f32, ROW_BYTES / (out_f32 ? 4 : 2), 64)))
     return (int)cudaErrorInvalidValue;
   WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
   p.bias = static_cast<const float*>(bias);
@@ -358,19 +420,23 @@ template <typename OutT>
 int launch(const void* a, const void* b, const void* bias, void* c, int batch, int m, int n,
            int k, long long sa, long long sb, long long sc, int bm, int bn, int bk, int rhs_nk,
            int acc_bf16, int act, int raster_nm, int vec_a, int vec_b, void* stream) {
-  const int route = route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c);
-  if (batch <= 0 || batch > 65535 || !route) return (int)cudaErrorInvalidValue;
-  if (route >= 3)
+  if (batch <= 0 || batch > 65535 || !route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c))
+    return (int)cudaErrorInvalidValue;
+  if (wide_block(bm, bn))
     return launch_wide_route(a, b, bias, c, batch, m, n, k, sa, sb, sc, bm, bn, bk, rhs_nk,
                              acc_bf16, act, raster_nm, sizeof(OutT) == 4, vec_a, vec_b,
                              static_cast<cudaStream_t>(stream));
-  const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_ok(b, rhs_nk ? k : n);
-  CUtensorMap ta, tb;
+  const bool tma_a = vec_a && tma_ok(a, k), tma_b = vec_b && tma_b_ok(b, n, k, bn, rhs_nk);
+  const bool tma_c = ring_tma_c(c, m, n, bm, bn);
+  CUtensorMap ta, tb, tc;
+  memset(&tc, 0, sizeof(tc));
   if (!make_maps(&ta, &tb, a, b, batch, m, n, k, sa, sb, ring_edge(bm), ring_edge(bn), rhs_nk,
-                 tma_a, tma_b))
+                 tma_a, tma_b) ||
+      (tma_c && !make_ring_c_map(&tc, c, batch, m, n, sc, sizeof(OutT) == 4, bm, bn)))
     return (int)cudaErrorInvalidValue;
   if (cdiv(k, bk) == 1) acc_bf16 = 0;  // one interval: the f32 sum is never rounded
   WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
+  p.tma_c = tma_c;
   p.bias = static_cast<const float*>(bias);
   p.c = c;
   p.bk = bk;
@@ -379,7 +445,7 @@ int launch(const void* a, const void* b, const void* bias, void* c, int batch, i
   p.split_steps = cdiv(k, KSTAGE);
   p.act = act; p.raster_nm = raster_nm; p.out_f32 = sizeof(OutT) == 4;
   p.vec_out = pairs_ok(c, n, batch, sc, sizeof(OutT)) && bn % 2 == 0;
-  return (int)launch_tiles(ta, tb, p, 1, batch, rhs_nk, acc_bf16,
+  return (int)launch_tiles(ta, tb, tc, p, 1, batch, rhs_nk, acc_bf16,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -465,23 +531,30 @@ int staged(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
   if (smem_bytes(bm, bn, depth) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (splits > 1 && !reduce_ok(ws, c, (long long)m * n, splits))
     return (int)cudaErrorInvalidValue;
-  const bool tma_a = tma_ok(a, k), tma_b = tma_ok(b, rhs_nk ? k : n);
+  const bool tma_a = tma_ok(a, k), tma_b = tma_b_ok(b, n, k, bn, rhs_nk);
   const long long sa = (long long)m * k, sb = (long long)n * k;
-  CUtensorMap ta, tb;
+  void* out = splits > 1 ? ws : c;  // a split writes its f32 partial, the reduction casts
+  const bool out_f32_here = splits > 1 || out_f32;
+  const bool tma_c = ring_tma_c(out, m, n, bm, bn);
+  CUtensorMap ta, tb, tc;
+  memset(&tc, 0, sizeof(tc));
   if (!make_maps(&ta, &tb, a, b, 1, m, n, k, sa, sb, ring_edge(bm), ring_edge(bn), rhs_nk,
-                 tma_a, tma_b))
+                 tma_a, tma_b) ||
+      (tma_c && !make_ring_c_map(&tc, out, splits, m, n, (long long)m * n, out_f32_here, bm,
+                                 bn)))
     return (int)cudaErrorInvalidValue;
   WgParams p = base_params(a, b, m, n, k, sa, sb, bm, bn, rhs_nk, tma_a, tma_b);
-  p.c = splits > 1 ? ws : c;  // a split writes its f32 partial, the reduction casts
+  p.c = out;
+  p.tma_c = tma_c;
   p.bk = k;  // one interval: the f32-carry instance sums all of K, never rounded
   p.ssplit = splits > 1 ? (long long)m * n : 0;
   p.stages = depth;
   p.split_steps = cdiv(cdiv(k, KSTAGE), splits);
   p.act = ACT_NONE; p.raster_nm = raster_nm;
-  p.out_f32 = splits > 1 ? 1 : out_f32;
+  p.out_f32 = out_f32_here;
   p.vec_out = pairs_ok(p.c, n, 1, 0, p.out_f32 ? 4 : 2) && bn % 2 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = launch_tiles(ta, tb, p, splits, 1, rhs_nk, 0, s);
+  const cudaError_t e = launch_tiles(ta, tb, tc, p, splits, 1, rhs_nk, 0, s);
   if (e != cudaSuccess || splits == 1) return (int)e;
   return (int)launch_reduce(static_cast<const float*>(ws), c, (long long)m * n, splits,
                             out_f32, s);
@@ -565,7 +638,9 @@ int tl2_wgmma_wide_stages(int bm, int k) { return wide_stages(bm, k); }
 // The producer a launch takes: 1 TMA for both operands ('wgmma'), 2 the loads producer for
 // one or both ('wgmma_lsu'), 3 a wide block with TMA for both operands and C ('wgmma_wide'),
 // 4 a wide block with the loads producer or predicated stores ('wgmma_wide_lsu'), 0 refused;
-// mirrors ops/matmul.py::launch_route. c: the output (null: a fresh allocation, aligned).
+// mirrors ops/matmul.py::launch_route. The code carries ROUTE_TMA_STORE (8) where the launch
+// stores C by TMA from shared memory, else predicated stores (ops/matmul.py::launch_store).
+// c: the output (null: a fresh allocation, aligned).
 int tl2_wgmma_route(int m, int n, int k, int bm, int bn, int bk, int rhs_nk, const void* a,
                     const void* b, const void* c) {
   return route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c);
@@ -594,7 +669,8 @@ int tl2_wgmma_wide_witness(const void* a, const void* b, const void* bias, void*
     return batch == 1 ? staged_wide(a, b, c, m, n, k, bm, bn, depth, rhs_nk, raster_nm,
                                     out_f32, stream, ctas)
                       : (int)cudaErrorInvalidValue;
-  if (batch <= 0 || batch > 65535 || route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c) < 3)
+  if (batch <= 0 || batch > 65535 || !wide_block(bm, bn) ||
+      !route_code(m, n, k, bm, bn, bk, rhs_nk, a, b, c))
     return (int)cudaErrorInvalidValue;
   return launch_wide_route(a, b, bias, c, batch, m, n, k, sa, sb, sc, bm, bn, bk, rhs_nk,
                            acc_bf16, act, raster_nm, out_f32 != 0, vec_a, vec_b,
@@ -602,10 +678,20 @@ int tl2_wgmma_wide_witness(const void* a, const void* b, const void* bias, void*
 }
 
 // The same for a staged launch (tl2_wgmma_staged): 1 'ring', 2 'ring_lsu', for a wide block
-// 3 'wgmma_wide', 4 'wgmma_wide_lsu', 0 refused; mirrors ops/pipelined.py::staged_route.
+// 3 'wgmma_wide', 4 'wgmma_wide_lsu', 0 refused (ops/pipelined.py::staged_route), with
+// ROUTE_TMA_STORE where it stores C by TMA into `out`, the output or a split launch's f32
+// workspace (ops/matmul.py::launch_store).
 int tl2_staged_route(int m, int n, int k, int bm, int bn, int rhs_nk, const void* a,
-                     const void* b) {
-  return staged_route_code(m, n, k, bm, bn, rhs_nk, a, b);
+                     const void* b, const void* out) {
+  const int code = staged_route_code(m, n, k, bm, bn, rhs_nk, a, b);
+  return code && store_by_tma(out, m, n, bm, bn) ? code | ROUTE_TMA_STORE : code;
 }
+
+#ifdef TL2_RING_TIMELINE
+// The stage timeline's buffer (tl2_wgmma.cuh), or none (null).
+int tl2_timeline_set(void* buf) {
+  return (int)cudaMemcpyToSymbol(tl2wg::tl2_stamps, &buf, sizeof(buf));
+}
+#endif
 
 }  // extern "C"

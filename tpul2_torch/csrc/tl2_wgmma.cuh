@@ -23,6 +23,16 @@ typedef __nv_bfloat16 bf16;
 // (384 threads), so 4 producer warps at 40 and 8 consumer warps at 232 use the same total
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
+// The ring's loads producer needs more for its copies (at 40 it spilled in ptxas's report),
+// which its consumers give up: 56 / 224 beside the bf16 carry, 64 / 216 in the f32 family,
+// whose consumers hold no carry (at 56 its 128 x 128 'kn' instance still spilled).
+template <bool LOADS, bool ACC_BF16>
+struct RingRegs {
+  static constexpr int PRODUCER = !LOADS ? PRODUCER_REGS : ACC_BF16 ? 56 : 64;
+  static constexpr int CONSUMER = !LOADS ? CONSUMER_REGS : ACC_BF16 ? 224 : 216;
+  static_assert(4 * PRODUCER + 8 * CONSUMER <= 4 * PRODUCER_REGS + 8 * CONSUMER_REGS,
+                "the split fits the registers allocated at entry");
+};
 constexpr int PRODUCER_THREADS = 128;   // the producer warpgroup
 // A wait that outlasts this many polls is a fault of the ring protocol: trap (a launch
 // error) instead of hanging the card.
@@ -46,7 +56,7 @@ struct WgParams {
                        // of that many elements; 1: its gather path
   int blk_m, blk_n;      // the block: the CTAs' stride, and where their stores stop
   int wide_stream;       // the wide route: 1 where A streams through the ring beside B
-  int tma_c;             // the wide route: 1 where TMA stores C, 0 predicated stores
+  int tma_c;             // 1 where TMA stores C from shared memory, 0 predicated stores
   int batch;             // the wide route: the batch, whose elements its work items span
 };
 
@@ -79,6 +89,31 @@ struct WgTile {
   static constexpr int ACC = WG_N / 2;                        // f32 registers of m64 x WG_N
 };
 
+// The C staging of a tile for the TMA store (tl2_wgmma_model.cuh's ring_c_*): a consumer
+// warpgroup's part, C_ROWS x C_COLS of OutT, in BOXES boxes of C_ROWS rows x BOX_COLS
+// columns, each row BOX_W bytes (128 or 64) swizzled as TMA's 128- or 64-byte mode lays it
+// out (the 16-byte unit u of row r at u ^ (r % 8), or at u ^ ((r / 2) % 4)).
+template <int BM, int BN, typename OutT>
+struct CStage {
+  static constexpr int E = sizeof(OutT);
+  static constexpr int C_ROWS = ring_c_rows(BM, BN);
+  static constexpr int BOX_COLS = ring_c_box_cols(BM, BN, E);
+  static constexpr int BOX_W = BOX_COLS * E;
+  static constexpr int BOXES = ring_c_cols(BM, BN) / BOX_COLS;
+  static constexpr int BOX_BYTES = C_ROWS * BOX_W;
+  static constexpr int WG_BYTES = BOXES * BOX_BYTES;
+  static_assert(BOX_W == 128 || BOX_W == 64, "a box row is one swizzle span");
+  static_assert(WgTile<BM, BN>::CONSUMERS * WG_BYTES <= 2 * WgTile<BM, BN>::STAGE_BYTES,
+                "the staging lies within the ring's first two stages");
+
+  // Byte offset of element (r, c) of a warpgroup's part.
+  __device__ static __forceinline__ uint32_t offset(int r, int c) {
+    const int byte = (c % BOX_COLS) * E, unit = byte >> 4;
+    const int sw = BOX_W == 128 ? unit ^ (r & 7) : unit ^ ((r >> 1) & 3);
+    return (c / BOX_COLS) * BOX_BYTES + r * BOX_W + (sw << 4) + (byte & 15);
+  }
+};
+
 __device__ __forceinline__ float act_fn(float x, int act) {
   switch (act) {
     case ACT_RELU: return fmaxf(x, 0.0f);
@@ -89,6 +124,36 @@ __device__ __forceinline__ float act_fn(float x, int act) {
     case ACT_SILU: return x / (1.0f + expf(-x));
     case ACT_TANH: return tanhf(x);
     default: return x;
+  }
+}
+
+// The activation as a compile-time choice (act_fn's, one case each): act_fn's switch on the
+// run-time code, inlined at each element of a fragment, made the ring's epilogue and the
+// wide route's several times slower at thin K on the H100, even with no activation.
+template <int ACT>
+__device__ __forceinline__ float act_apply(float x) {
+  if constexpr (ACT == ACT_NONE) {
+    return x;
+  } else {
+    return act_fn(x, ACT);
+  }
+}
+
+template <int A>
+struct ActC {
+  static constexpr int value = A;
+};
+
+// f(ActC<ACT>{}) for the launch's activation code `act`: an epilogue switches once, not at
+// each element, and each of its bodies applies its activation with act_apply<ACT>.
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F&& f) {
+  switch (act) {
+    case ACT_RELU: f(ActC<ACT_RELU>{}); break;
+    case ACT_GELU: f(ActC<ACT_GELU>{}); break;
+    case ACT_SILU: f(ActC<ACT_SILU>{}); break;
+    case ACT_TANH: f(ActC<ACT_TANH>{}); break;
+    default: f(ActC<ACT_NONE>{}); break;
   }
 }
 
@@ -133,6 +198,48 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One TMA box from shared memory to global memory (the map clips at the tensor's edges).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups have not yet read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The 128 threads of consumer warpgroup wg (named barrier 1 + wg; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Every consumer thread of a CTA with `consumers` warpgroups (named barrier 3).
+__device__ __forceinline__ void consumers_sync(int consumers) {
+  asm volatile("bar.sync 3, %0;\n" ::"r"(consumers * 128) : "memory");
+}
+
+// The ring's two consumer warpgroups out of step (named barrier `id`, 256 threads): arrive
+// without waiting, or wait until the other warpgroup has arrived.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
 // ---- the loads producer: ordinary loads into the same swizzled stages ----
@@ -447,9 +554,9 @@ __device__ __forceinline__ OutT* out_base(const WgParams& p, int z) {
 // Bias, activation and the cast of one consumer thread's m64 x N fragment: element
 // 4j + 2h + e sits at row 16 * warp + g + 8h, column 8j + 2q + e of the warpgroup's tile.
 // Stores stop at row m_lim and column n_lim: the block's edge or the problem's, the nearer.
-template <typename OutT, int N>
-__device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N], int row0,
-                                         int col0, int m_lim, int n_lim, int z) {
+template <typename OutT, int ACT, int N>
+__device__ __forceinline__ void epilogue_act(const WgParams& p, const float (&v)[N], int row0,
+                                             int col0, int m_lim, int n_lim, int z) {
   OutT* C = out_base<OutT>(p, z);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j) {
@@ -465,19 +572,28 @@ __device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N],
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row < m_lim)
-        store_pair(C + (long long)row * p.n + col, act_fn(v[4 * j + 2 * h] + b0, p.act),
-                   act_fn(v[4 * j + 2 * h + 1] + b1, p.act), both, p.vec_out);
+        store_pair(C + (long long)row * p.n + col, act_apply<ACT>(v[4 * j + 2 * h] + b0),
+                   act_apply<ACT>(v[4 * j + 2 * h + 1] + b1), both, p.vec_out);
     }
   }
+}
+
+// epilogue_act of the launch's activation: the switch is taken once, not at each element.
+template <typename OutT, int N>
+__device__ __forceinline__ void epilogue(const WgParams& p, const float (&v)[N], int row0,
+                                         int col0, int m_lim, int n_lim, int z) {
+  with_act(p.act, [&](auto act) {
+    epilogue_act<OutT, decltype(act)::value>(p, v, row0, col0, m_lim, n_lim, z);
+  });
 }
 
 // The swapped tile's epilogue: the fragment is C^T, so its rows are columns of C (the bias
 // follows them) and its columns rows of C; each element is stored on its own, within
 // (m_lim, n_lim) as in epilogue.
-template <typename OutT, int N>
-__device__ __forceinline__ void epilogue_swapped(const WgParams& p, const float (&v)[N],
-                                                 int ncol0, int mrow0, int m_lim, int n_lim,
-                                                 int z) {
+template <typename OutT, int ACT, int N>
+__device__ __forceinline__ void epilogue_swapped_act(const WgParams& p, const float (&v)[N],
+                                                     int ncol0, int mrow0, int m_lim,
+                                                     int n_lim, int z) {
   OutT* C = out_base<OutT>(p, z);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -490,9 +606,109 @@ __device__ __forceinline__ void epilogue_swapped(const WgParams& p, const float 
       for (int e = 0; e < 2; ++e) {
         const int row = mrow0 + 8 * j + e;
         if (row < m_lim)
-          store_one(C + (long long)row * p.n + col, act_fn(v[4 * j + 2 * h + e] + bias, p.act));
+          store_one(C + (long long)row * p.n + col, act_apply<ACT>(v[4 * j + 2 * h + e] + bias));
       }
     }
+  }
+}
+
+template <typename OutT, int N>
+__device__ __forceinline__ void epilogue_swapped(const WgParams& p, const float (&v)[N],
+                                                 int ncol0, int mrow0, int m_lim, int n_lim,
+                                                 int z) {
+  with_act(p.act, [&](auto act) {
+    epilogue_swapped_act<OutT, decltype(act)::value>(p, v, ncol0, mrow0, m_lim, n_lim, z);
+  });
+}
+
+__device__ __forceinline__ void st_shared_pair(uint32_t dst, float x0, float x1, float*) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(dst), "f"(x0), "f"(x1) : "memory");
+}
+__device__ __forceinline__ void st_shared_pair(uint32_t dst, float x0, float x1, bf16*) {
+  const __nv_bfloat162 pair = __floats2bfloat162_rn(x0, x1);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+               "r"(*reinterpret_cast<const uint32_t*>(&pair))
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_one(uint32_t dst, float x, float*) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst), "f"(x) : "memory");
+}
+__device__ __forceinline__ void st_shared_one(uint32_t dst, float x, bf16*) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(dst),
+               "h"(__bfloat16_as_ushort(__float2bfloat16(x)))
+               : "memory");
+}
+
+// Bias, activation and the cast of one consumer thread's fragment into its warpgroup's part
+// of the C staging `buf` (CStage), whose first column is column col0 of C. The values and
+// their casts are the predicated epilogue's, element for element. The plain tile's element
+// 4j + 2h + e sits at row 16 * warp4 + g + 8h, column 8j + 2q + e of the part (g = lane / 4,
+// q = lane % 4); the swapped tile's fragment is C^T: that element sits at row 8j + 2q + e,
+// column 16 * warp4 + g + 8h. N % 8 == 0 (the TMA store's rule), so col0 + c < N holds for
+// a pair's second column where it does for its first.
+template <int BM, int BN, typename OutT, int ACT>
+__device__ __forceinline__ void stage_c_ring(uint32_t buf, const float (&v)[WgTile<BM, BN>::ACC],
+                                            const WgParams& p, int col0, int warp4, int lane) {
+  using T = WgTile<BM, BN>;
+  using S = CStage<BM, BN, OutT>;
+  const int q = lane & 3, g = lane >> 2;
+  if constexpr (!T::SWAP) {
+#pragma unroll
+    for (int j = 0; j < T::WG_N / 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      float b0 = 0.0f, b1 = 0.0f;
+      if (p.bias != nullptr && col0 + c < p.n) {
+        b0 = p.bias[col0 + c];
+        b1 = p.bias[col0 + c + 1];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp4 + g + 8 * h;
+        st_shared_pair(buf + S::offset(r, c), act_apply<ACT>(v[4 * j + 2 * h] + b0),
+                       act_apply<ACT>(v[4 * j + 2 * h + 1] + b1), static_cast<OutT*>(nullptr));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * warp4 + g + 8 * h;
+      const float bias = p.bias != nullptr && col0 + c < p.n ? p.bias[col0 + c] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < T::WG_N / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          st_shared_one(buf + S::offset(8 * j + 2 * q + e, c),
+                        act_apply<ACT>(v[4 * j + 2 * h + e] + bias), static_cast<OutT*>(nullptr));
+      }
+    }
+  }
+}
+
+// The ring's C by TMA: consumer warpgroup wg stages its fragment at `staging` + its part
+// (CStage), fences the writes into the async proxy, and once its 128 threads have written,
+// its first thread stores the part's boxes to (col0, row0) of plane `plane` of the output's
+// map and waits until they have read the staging (the CTA's shared memory must outlive
+// that; the writes drain on their own).
+template <int BM, int BN, typename OutT>
+__device__ __forceinline__ void store_c_tma(uint32_t staging, const CUtensorMap* map,
+                                            const float (&v)[WgTile<BM, BN>::ACC],
+                                            const WgParams& p, int row0, int col0, int plane,
+                                            int wg, int warp4, int lane) {
+  using S = CStage<BM, BN, OutT>;
+  const uint32_t buf = staging + wg * S::WG_BYTES;
+  if (BM >= 64 || WgTile<BM, BN>::SWAP || warp4 < 2) {  // at bm = 32, rows 32..63 are not C's
+    with_act(p.act, [&](auto act) {
+      stage_c_ring<BM, BN, OutT, decltype(act)::value>(buf, v, p, col0, warp4, lane);
+    });
+  }
+  fence_proxy_async();
+  wg_sync(wg);
+  if (threadIdx.x % 128 == 0) {
+#pragma unroll
+    for (int bx = 0; bx < S::BOXES; ++bx)
+      tma_store(map, buf + bx * S::BOX_BYTES, col0 + bx * S::BOX_COLS, row0, plane);
+    bulk_commit();
+    bulk_wait_read<0>();
   }
 }
 
@@ -540,14 +756,126 @@ __device__ __forceinline__ void fold(float (&sum)[ACC], const float (&st)[ACC],
   }
 }
 
+// ---- the stage timeline: stamps of the consumer's time in a build that defines
+// TL2_RING_TIMELINE (scripts/ring_timeline_torch.py); every other build compiles them to
+// nothing ----
+// The first thread of each of the two consumer warpgroups of the first TIMELINE_CTAS CTAs
+// (blockIdx.y = blockIdx.z = 0) keeps clock64 stamps in shared memory, slot by slot: 0 and 1
+// the epilogue's start and end, 2 and 3 %globaltimer at the mainloop's start and the
+// epilogue's end, 4 + 5u + j unit u's point j (before the wait for its stage, after it, after
+// the commit of its wgmmas, after the wait for them, after the fold); the epilogue's end
+// copies them to tl2_stamps[(blockIdx.x * 2 + wg) * TIMELINE_SLOTS + slot].
+#ifdef TL2_RING_TIMELINE
+constexpr int TIMELINE_CTAS = 264, TIMELINE_SLOTS = 4 + 5 * 64;
+static __device__ unsigned long long* tl2_stamps;
+__device__ __forceinline__ unsigned long long* timeline_local(int wg) {
+  __shared__ unsigned long long buf[2][TIMELINE_SLOTS];
+  return buf[wg];
+}
+__device__ __forceinline__ bool timeline_stamper() {
+  return tl2_stamps != nullptr && threadIdx.x % 128 == 0 && threadIdx.x / 128 < 2 &&
+         blockIdx.x < TIMELINE_CTAS && blockIdx.y == 0 && blockIdx.z == 0;
+}
+__device__ __forceinline__ void timeline_clock(int slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+  if (timeline_stamper() && slot < TIMELINE_SLOTS) timeline_local(threadIdx.x / 128)[slot] = t;
+}
+__device__ __forceinline__ void timeline_global(int slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (timeline_stamper()) timeline_local(threadIdx.x / 128)[slot] = t;
+}
+template <int N>
+__device__ __forceinline__ void timeline_after(float (&d)[N], int slot) {
+  fence_regs(d);  // the stamp follows the writes of d
+  timeline_clock(slot);
+}
+__device__ __forceinline__ void timeline_end() {
+  timeline_clock(1);
+  timeline_global(3);
+  if (!timeline_stamper()) return;
+  const int wg = threadIdx.x / 128;
+  unsigned long long* dst = tl2_stamps + ((long long)blockIdx.x * 2 + wg) * TIMELINE_SLOTS;
+  for (int i = 0; i < TIMELINE_SLOTS; ++i) dst[i] = timeline_local(wg)[i];
+}
+#else
+__device__ __forceinline__ void timeline_clock(int) {}
+__device__ __forceinline__ void timeline_global(int) {}
+template <int N>
+__device__ __forceinline__ void timeline_after(float (&)[N], int) {}
+__device__ __forceinline__ void timeline_end() {}
+#endif
+
+// The consumer's mainloop over `steps` 64-deep stages from stage `first` of K, into sum (and
+// the bf16 family's carry). A unit is a stage of four k16 wgmmas, or where a bk that is a
+// multiple of 32 but not of 64 puts every other rounding point in the middle of a stage, the
+// bf16 family's half stage of two (UPS: units per stage). Each unit's wgmmas start from a
+// fresh accumulator st; once they are complete the warp releases the stage after its last
+// unit, and st joins the f32 total, rounded to bf16 where an interval of bk ends (or K).
+// OFFSET: warpgroup 1 of the tile's two starts only once warpgroup 0 has issued its first
+// unit (named barrier 4), so that the two do not wait and fold in step: one's wait and fold
+// run under the other's wgmmas, which keep the tensor cores of the SM sub-partitions busy;
+// the sums and their order are the same. (Holding warpgroup 1 behind warpgroup 0 at every
+// unit, by half a unit or by one, ran slower on the H100: PERF.md.)
+template <int BM, int BN, bool RHS_NK, bool ACC_BF16, int UPS, bool OFFSET, int NC>
+__device__ __forceinline__ void ring_mainloop(float (&sum)[WgTile<BM, BN>::ACC],
+                                              __nv_bfloat162 (&carry)[NC],
+                                              float (&st)[WgTile<BM, BN>::ACC], uint32_t ring,
+                                              uint32_t bars, int stages, int first, int steps,
+                                              int bk, int wg, int lane) {
+  using T = WgTile<BM, BN>;
+  constexpr int COUNT = 4 / UPS;  // k16 wgmmas a unit
+  const int units = steps * UPS;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int u = 0; u < units; ++u) {
+    const int h = u % UPS;
+    if (OFFSET && wg == 1 && u == 0) pair_sync(4);
+    if (u == 0) timeline_global(2);
+    timeline_clock(4 + 5 * u);
+    if (h == 0) mbar_wait(bars + 8 * s, phase);  // the stage has landed
+    timeline_clock(5 + 5 * u);
+    const uint32_t a_s = ring + s * T::STAGE_BYTES;
+    fence_regs(st);
+    wgmma_fence();
+    stage_mma<BM, BN, RHS_NK, COUNT>(st, a_s, a_s + T::A_BYTES, wg, h * COUNT);
+    wgmma_commit();
+    timeline_clock(6 + 5 * u);
+    if (OFFSET && wg == 0 && u == 0) pair_arrive(4);
+    wgmma_wait_all();
+    fence_regs(st);
+    timeline_clock(7 + 5 * u);
+    if (h == UPS - 1) {
+      if (lane == 0) mbar_arrive(bars + 8 * (stages + s));  // this warp is done with the stage
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    const int k_end = (first + u / UPS) * KSTAGE + (h + 1) * (KSTAGE / UPS);
+    fold<ACC_BF16>(sum, st, carry, ACC_BF16 && (k_end % bk == 0 || u + 1 == units));
+    timeline_after(sum, 8 + 5 * u);
+  }
+}
+
 // LOADS: an instance with the loads producer (one operand or both); the TMA-only instances
 // carry none of its code (compiled into every instance, it made ptxas spill registers in
-// the two-warpgroup tiles).
+// the two-warpgroup tiles). tma_c: the output's map where p.tma_c (the TMA store).
 template <int BM, int BN, bool RHS_NK, bool ACC_BF16, bool LOADS>
 __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
     tl2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                     const __grid_constant__ CUtensorMap tma_b, WgParams p) {
+                     const __grid_constant__ CUtensorMap tma_b,
+                     const __grid_constant__ CUtensorMap tma_c, WgParams p) {
   using T = WgTile<BM, BN>;
+  // The 128 x 128 tile's warpgroups work out of step (ring_mainloop; faster than in step on
+  // the H100, PERF.md). Two products in flight per thread do not fit its registers (ptxas
+  // spilled ~640 bytes at every split) and ran slower than one on the other tiles. Where
+  // the bf16 carry or the loads producer's share of the registers leaves none (the barrier
+  // code spilled 4-44 bytes there), and on the smaller two-warpgroup tiles (turns cost them
+  // 7-12%), the warpgroups work in step.
+  constexpr bool OFFSET = T::CONSUMERS == 2 && T::ACC == 64 && !ACC_BF16 && !LOADS;
+  using Regs = RingRegs<LOADS, ACC_BF16>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int stages = p.stages;
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -582,7 +910,7 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
     // stage, wait for their copies `lag` stages later, fence them into the async proxy and
     // arrive. Without loads the other threads leave.
     if constexpr (T::CONSUMERS == 2)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Regs::PRODUCER));
     const int t = threadIdx.x - T::CONSUMERS * 128;
     const int z = blockIdx.z;
     int s = 0;
@@ -635,11 +963,11 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
       }
     }
   } else {
-    // ---- consumer warpgroups: wgmma on each landed stage ----
+    // ---- consumer warpgroups: wgmma on each landed stage (ring_mainloop), then C out ----
     if constexpr (T::CONSUMERS == 2)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Regs::CONSUMER));
     const int wg = warp / 4;
-    float st[T::ACC];                             // the stage product (wgmma accumulator)
+    float st[T::ACC];                             // the unit product (wgmma accumulator)
     float sum[T::ACC];                            // f32: the carry; bf16: the interval's part
     __nv_bfloat162 carry[ACC_BF16 ? T::ACC / 2 : 1];  // bf16 family: the carry, packed
 #pragma unroll
@@ -648,46 +976,12 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
     for (int i = 0; i < (ACC_BF16 ? T::ACC / 2 : 1); ++i)
       carry[i] = __floats2bfloat162_rn(0.0f, 0.0f);
 
-    // A bk that is a multiple of 32 but not of 64 puts every other rounding point in the
-    // middle of a stage: the bf16 family then runs each stage as two halves of two k16
-    // wgmmas and may round after either
-    const bool halves = ACC_BF16 && p.bk % KSTAGE != 0;
-    int s = 0;
-    uint32_t phase = 0;
-    for (int it = 0; it < steps; ++it) {
-      mbar_wait(full_bar(s), phase);
-      const uint32_t a_s = ring + s * T::STAGE_BYTES;
-      const uint32_t b_s = a_s + T::A_BYTES;
-      const int k0 = (first + it) * KSTAGE;
-      const bool last = it + 1 == steps;
-      if (!halves) {
-        fence_regs(st);
-        wgmma_fence();
-        stage_mma<BM, BN, RHS_NK, 4>(st, a_s, b_s, wg, 0);  // a fresh sum every stage
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(st);
-        if (lane == 0) mbar_arrive(empty_bar(s));  // this warp is done reading the stage
-        fold<ACC_BF16>(sum, st, carry, ACC_BF16 && ((k0 + KSTAGE) % p.bk == 0 || last));
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          fence_regs(st);
-          wgmma_fence();
-          stage_mma<BM, BN, RHS_NK, 2>(st, a_s, b_s, wg, 2 * h);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(st);
-          if (h == 1 && lane == 0) mbar_arrive(empty_bar(s));
-          fold<ACC_BF16>(sum, st, carry,
-                         ACC_BF16 && ((k0 + 32 * (h + 1)) % p.bk == 0 || (last && h == 1)));
-        }
-      }
-      if (++s == stages) {
-        s = 0;
-        phase ^= 1;
-      }
-    }
+    if (ACC_BF16 && p.bk % KSTAGE != 0)
+      ring_mainloop<BM, BN, RHS_NK, ACC_BF16, 2, OFFSET>(sum, carry, st, ring, bars, stages,
+                                                         first, steps, p.bk, wg, lane);
+    else
+      ring_mainloop<BM, BN, RHS_NK, ACC_BF16, 1, OFFSET>(sum, carry, st, ring, bars, stages,
+                                                         first, steps, p.bk, wg, lane);
 
     if constexpr (ACC_BF16) {
 #pragma unroll
@@ -697,10 +991,24 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
         sum[2 * i + 1] = a.y;
       }
     }
+    timeline_clock(0);
+    const int z = blockIdx.z;
+    if (p.tma_c) {
+      // C through shared memory: the ring's first stages, once every consumer warpgroup's
+      // wgmmas have read their last stage (the producer has landed every stage it issues)
+      if constexpr (T::CONSUMERS > 1) consumers_sync(T::CONSUMERS);
+      const int row0 = m0 + (T::SWAP ? 0 : wg * 64), col0 = n0 + (T::SWAP ? wg * 64 : 0);
+      const int plane = z + blockIdx.y;  // a batch element, or a split's partial
+      if (p.out_f32)
+        store_c_tma<BM, BN, float>(ring, &tma_c, sum, p, row0, col0, plane, wg, warp % 4, lane);
+      else
+        store_c_tma<BM, BN, bf16>(ring, &tma_c, sum, p, row0, col0, plane, wg, warp % 4, lane);
+      timeline_end();
+      return;
+    }
     const int frag_row = wg * 64 + (warp % 4) * 16 + (lane >> 2);  // row of wgmma's M
     // nothing beyond the block's edge or the problem's is stored
     const int m_lim = min(p.m, m0 + p.blk_m), n_lim = min(p.n, n0 + p.blk_n);
-    const int z = blockIdx.z;
     if constexpr (T::SWAP) {
       if (p.out_f32)
         epilogue_swapped<float>(p, sum, n0 + frag_row, m0 + 2 * (lane & 3), m_lim, n_lim, z);
@@ -712,14 +1020,15 @@ __global__ void __launch_bounds__(WgTile<BM, BN>::THREADS, 1)
       else
         epilogue<bf16>(p, sum, m0 + frag_row, n0 + 2 * (lane & 3), m_lim, n_lim, z);
     }
+    timeline_end();
   }
 }
 
 // ---- host side: one instance per (tile, layout, family) ----
 
 template <int BM, int BN, bool RHS_NK, bool ACC_BF16, bool LOADS>
-cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
-                        int splits, int batch, cudaStream_t stream) {
+cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
+                        const WgParams& p, int splits, int batch, cudaStream_t stream) {
   using T = WgTile<BM, BN>;
   const auto kernel = tl2_wgmma_kernel<BM, BN, RHS_NK, ACC_BF16, LOADS>;
   static int regs_checked = 0;  // per instance: the registers fit
@@ -739,32 +1048,34 @@ cudaError_t launch_tile(const CUtensorMap& ta, const CUtensorMap& tb, const WgPa
       const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
       if (e != cudaSuccess) return e;
       const int per_warp = (attr.numRegs + 7) / 8 * 8;
-      const int want = T::CONSUMERS * 4 * CONSUMER_REGS + 4 * PRODUCER_REGS;
+      using Regs = RingRegs<LOADS, ACC_BF16>;
+      const int want = T::CONSUMERS * 4 * Regs::CONSUMER + 4 * Regs::PRODUCER;
       if (want > (T::CONSUMERS + 1) * 4 * per_warp) return cudaErrorInvalidConfiguration;
     }
     regs_checked = 1;
   }
   const dim3 grid(cdiv(p.m, p.blk_m) * cdiv(p.n, p.blk_n), splits, batch);
-  kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, p);
+  kernel<<<grid, T::THREADS, smem, stream>>>(ta, tb, tc, p);
   return cudaGetLastError();
 }
 
 template <int BM, int BN, bool LOADS>
-cudaError_t launch_variant(const CUtensorMap& ta, const CUtensorMap& tb, const WgParams& p,
-                           int splits, int batch, int rhs_nk, int acc_bf16, cudaStream_t s) {
+cudaError_t launch_variant(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
+                           const WgParams& p, int splits, int batch, int rhs_nk, int acc_bf16,
+                           cudaStream_t s) {
   if (rhs_nk)
-    return acc_bf16 ? launch_tile<BM, BN, true, true, LOADS>(ta, tb, p, splits, batch, s)
-                    : launch_tile<BM, BN, true, false, LOADS>(ta, tb, p, splits, batch, s);
-  return acc_bf16 ? launch_tile<BM, BN, false, true, LOADS>(ta, tb, p, splits, batch, s)
-                  : launch_tile<BM, BN, false, false, LOADS>(ta, tb, p, splits, batch, s);
+    return acc_bf16 ? launch_tile<BM, BN, true, true, LOADS>(ta, tb, tc, p, splits, batch, s)
+                    : launch_tile<BM, BN, true, false, LOADS>(ta, tb, tc, p, splits, batch, s);
+  return acc_bf16 ? launch_tile<BM, BN, false, true, LOADS>(ta, tb, tc, p, splits, batch, s)
+                  : launch_tile<BM, BN, false, false, LOADS>(ta, tb, tc, p, splits, batch, s);
 }
 
 // Each instance file's launcher: its tiles (with the loads producer where p.load_a or
-// p.load_b says so), cudaErrorInvalidValue for any other.
+// p.load_b says so; tc the output's map where p.tma_c), cudaErrorInvalidValue for any other.
 #define TL2_WGMMA_LAUNCHER(NAME)                                                         \
   cudaError_t NAME(int bm, int bn, const CUtensorMap& ta, const CUtensorMap& tb,         \
-                   const WgParams& p, int splits, int batch, int rhs_nk, int acc_bf16,   \
-                   cudaStream_t s)
+                   const CUtensorMap& tc, const WgParams& p, int splits, int batch,      \
+                   int rhs_nk, int acc_bf16, cudaStream_t s)
 TL2_WGMMA_LAUNCHER(launch_wide);      // tl2_wgmma.cu: 64/128 tiles, TMA
 TL2_WGMMA_LAUNCHER(launch_wide_lsu);  // tl2_wgmma_lsu.cu: 64/128 tiles, loads producer
 TL2_WGMMA_LAUNCHER(launch_n32);       // tl2_wgmma_n32.cu: bn = 32, both producers
@@ -799,4 +1110,4 @@ TL2_WIDE_LAUNCHER(wide_swap_bf16);  // tl2_wgmma_wide_swap_bf16.cu: bm <= 32, th
 // One tile's instances with the TMA producer (LOADS_ false) or the loads producer (true).
 #define TL2_WGMMA_TILE(BM_, BN_, LOADS_)                                                   \
   if (bm == BM_ && bn == BN_)                                                              \
-    return launch_variant<BM_, BN_, LOADS_>(ta, tb, p, splits, batch, rhs_nk, acc_bf16, s);
+    return launch_variant<BM_, BN_, LOADS_>(ta, tb, tc, p, splits, batch, rhs_nk, acc_bf16, s);

@@ -63,6 +63,36 @@ inline int carry_stages(int bm, int bn) {
   return d < MAX_RING ? (d < fit ? d : fit) : (MAX_RING < fit ? MAX_RING : fit);
 }
 
+// ---- TMA at a block's edges ----
+
+// TMA reads 'kn' B (K, N) in boxes that start at a block's first column, j * bn, and a box
+// must start on 16 bytes: TMA reads it where every block column does (bn % 8 == 0) or one
+// block covers N; elsewhere the loads producer does (config.kn_tma_cols).
+inline bool kn_tma_cols(int n, int bn) { return bn % 8 == 0 || bn >= n; }
+
+// The ring's C by TMA stores (config.ring_c_grid): they write the tile's rows and columns
+// whole and clip only at the problem's edges, so each block edge must be the tile's own
+// (ring_edge) or lie past the problem's (one block along that dimension). N % 8 == 0 and a
+// 16-byte aligned C are the launcher's to check, as for the wide route.
+inline bool ring_c_grid(int m, int n, int bm, int bn) {
+  return (bm == ring_edge(bm) || bm >= m) && (bn == ring_edge(bn) || bn >= n);
+}
+
+// The C staging of a ring tile tm x tn for the TMA store: each consumer warpgroup's part is
+// ring_c_rows x ring_c_cols (the swapped tile: its 32 rows x the warpgroup's 64 columns; else
+// the warpgroup's 64 rows, the tile's 32 at tm = 32, x tn), in boxes of ring_c_rows rows and
+// ring_c_box_cols columns of `elem` bytes: 128 bytes, or all of a narrower part (64 bytes of
+// bf16 at tn = 32). It lies over the ring's first stages, which are free by then: two stages
+// hold it at every tile (the ring is never shallower).
+TL2_HD constexpr bool ring_swapped(int tm, int tn) { return tm == 32 && tn > 32; }
+TL2_HD constexpr int ring_c_rows(int tm, int tn) {
+  return ring_swapped(tm, tn) ? tm : tm < 64 ? tm : 64;
+}
+TL2_HD constexpr int ring_c_cols(int tm, int tn) { return ring_swapped(tm, tn) ? 64 : tn; }
+TL2_HD constexpr int ring_c_box_cols(int tm, int tn, int elem) {
+  return ROW_BYTES / elem < ring_c_cols(tm, tn) ? ROW_BYTES / elem : ring_c_cols(tm, tn);
+}
+
 // ---- the wide blocks ----
 
 // The wide blocks (tl2_wgmma_wide.cu; config.py mirrors each): an edge above RING_MAX, bm in

@@ -39,46 +39,6 @@ struct WideTile {
   static_assert(NBUF * BOXES * BOX_BYTES == WIDE_C_BYTES, "staging fills WIDE_C_BYTES");
 };
 
-// One TMA box from shared memory to global memory (the map clips at the tensor's edges).
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's bulk groups have not yet read their shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// The 128 threads of consumer warpgroup wg (named barrier 1 + wg; 0 is __syncthreads).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// The activation as a compile-time choice (act_fn's, one case each): act_fn's switch on the
-// run-time code, inlined at each of a fragment's 64 elements, made this epilogue the wide
-// route's bottleneck at thin K on the H100, several times slower even with no activation.
-template <int ACT>
-__device__ __forceinline__ float act_apply(float x) {
-  if constexpr (ACT == ACT_NONE) {
-    return x;
-  } else {
-    return act_fn(x, ACT);
-  }
-}
-
 // Bias, activation and the cast of one consumer thread's m64 x 128 fragment into the
 // warpgroup's staging buffer `buf`: element 4j + 2h + e at row 16 * warp4 + lane / 4 + 8h,
 // column 8j + 2q + e (q = lane % 4); box (column / BOX_COLS), 128-byte swizzle (the 16-byte
@@ -115,19 +75,6 @@ __device__ __forceinline__ void stage_c_act(uint32_t buf, const float (&v)[64],
                      : "memory");
       }
     }
-  }
-}
-
-// stage_c_act of the launch's activation: the switch is taken once per sub-tile.
-template <bool OUT_F32>
-__device__ __forceinline__ void stage_c(uint32_t buf, const float (&v)[64], const WgParams& p,
-                                        int n0, int warp4, int lane) {
-  switch (p.act) {
-    case ACT_RELU: stage_c_act<OUT_F32, ACT_RELU>(buf, v, p, n0, warp4, lane); break;
-    case ACT_GELU: stage_c_act<OUT_F32, ACT_GELU>(buf, v, p, n0, warp4, lane); break;
-    case ACT_SILU: stage_c_act<OUT_F32, ACT_SILU>(buf, v, p, n0, warp4, lane); break;
-    case ACT_TANH: stage_c_act<OUT_F32, ACT_TANH>(buf, v, p, n0, warp4, lane); break;
-    default: stage_c_act<OUT_F32, ACT_NONE>(buf, v, p, n0, warp4, lane); break;
   }
 }
 
@@ -394,7 +341,9 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
           const uint32_t buf = staging + (tile % T::NBUF) * T::BOXES * BOX_BYTES;
           if (leader) bulk_wait_read<T::NBUF - 1>();
           wg_sync(wg);
-          stage_c<OUT_F32>(buf, sum, p, n0, warp4, lane);
+          with_act(p.act, [&](auto act) {
+            stage_c_act<OUT_F32, decltype(act)::value>(buf, sum, p, n0, warp4, lane);
+          });
           fence_proxy_async();  // the generic proxy's writes, visible to the TMA store
           wg_sync(wg);
           if (leader) {
@@ -404,8 +353,8 @@ __global__ void __launch_bounds__(WideTile<SM, OUT_F32>::THREADS, 1)
             bulk_commit();
           }
         } else if constexpr (LOADS) {
-          // the ring's predicated epilogue (act_fn's run-time switch, pairs where aligned),
-          // stores within the block's edges
+          // the ring's predicated epilogue (pairs where aligned), stores within the block's
+          // edges
           const int row = row0 + warp4 * 16 + (lane >> 2), col0 = n0 + 2 * (lane & 3);
           if (OUT_F32)
             epilogue<float>(p, sum, row, col0, w.m_lim, w.n_lim, z);

@@ -6,7 +6,9 @@
 #: tl2_wgmma_wide.cu, with TMA or with the loads producer and predicated stores); the
 #: width-32, swapped, mid-stage, streamed-A and tall-block launches of either, and those of
 #: the JAX space's narrow and unaligned edges (a ring block narrower than its tile, the
-#: swapped wide walk, narrow columns, a clipped wide block, more than 16384 columns); the
+#: swapped wide walk, narrow columns, a clipped wide block, more than 16384 columns); every
+#: launch's store of C (by TMA from shared memory, or predicated, ``matmul.launch_store``,
+#: the staged kernel's included); the
 #: staged kernel's launches on each route, with a split, on a block with an edge of 32 or
 #: less, and at a wide block.
 COUNTERS = {
@@ -17,7 +19,7 @@ COUNTERS = {
     **{key: ("matmul", f"LAUNCHES_{key.upper()}")
        for key in ("width32", "swapped", "midstage", "wide_streamed", "wide_tall",
                    "ring_narrow", "wide_swapped", "wide_narrow_n", "wide_clipped",
-                   "wide_long")},
+                   "wide_long", "c_tma_store", "c_predicated")},
     **{f"staged_{key}": ("pipelined", f"LAUNCHES_STAGED_{key.upper()}")
        for key in ("ring", "ring_lsu", "split", "narrow", "wide")},
 }

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -63,6 +64,31 @@ def check_launch(err: int, what: str) -> None:
     raise cls(f"{what} launch failed: cudaError {err}")
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel's line of nvcc's ``-Xptxas -v`` report (``lib.build_log``): {mangled
+    name: {"registers", "stack", "spill_stores", "spill_loads"}}, registers as ptxas
+    allocates them at entry (a kernel that rebalances with setmaxnreg runs its warpgroups
+    at other counts) and the rest in bytes."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _FRAME.search(line)) and props is not None:
+            out.setdefault(props, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
+        elif (m := _USED.search(line)) and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def _sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
@@ -109,6 +135,7 @@ def _compile(sources: list, digest: str) -> tuple:
     for obj in objs:
         obj.unlink()
     os.replace(tmp, LIB_PATH)
+    LIB_PATH.with_suffix(".log").write_text(log)
     LIB_PATH.with_suffix(".sha256").write_text(digest)
     return seconds, log
 
@@ -117,16 +144,19 @@ def _compile(sources: list, digest: str) -> tuple:
 def load_library() -> ctypes.CDLL:
     """The kernels' library, built first if it is missing or stale.  Raises on failure.
 
-    ``lib.build_seconds`` and ``lib.build_log`` record this process's build (0.0 and ""
-    when a current library was loaded)."""
+    ``lib.build_seconds`` records this process's build (0.0 when a current library was
+    loaded) and ``lib.build_log`` the output of the nvcc runs that built the library, read
+    back from beside it when it was current (``ptxas_report`` parses it)."""
     sources = _sources()
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     digest = _digest(sources)
     stamp = LIB_PATH.with_suffix(".sha256")
-    seconds, log = 0.0, ""
+    seconds, log_path = 0.0, LIB_PATH.with_suffix(".log")
     if not (LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest):
         seconds, log = _compile(sources, digest)
+    else:
+        log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(LIB_PATH))
     lib.build_seconds, lib.build_log = seconds, log
     for name in ("tl2_matmul_bf16out", "tl2_matmul_f32out", "tl2_wgmma_bf16out",
@@ -161,7 +191,7 @@ def load_library() -> ctypes.CDLL:
     lib.tl2_wgmma_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.tl2_wgmma_route.restype = ctypes.c_int
     # m, n, k, bm, bn, rhs_nk, a, b
-    lib.tl2_staged_route.argtypes = [_I, _I, _I, _I, _I, _I, _P, _P]
+    lib.tl2_staged_route.argtypes = [_I, _I, _I, _I, _I, _I, _P, _P, _P]
     lib.tl2_staged_route.restype = ctypes.c_int
     _P_I, _P_F = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
     # key, ws_bytes, max_algos, *n_algos, *n_skipped

@@ -38,8 +38,9 @@ import torch.nn.functional as F
 # the ring's constants and shared-memory model, read through this module too
 from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa: F401
                                 WIDE_BM_CHOICES, WIDE_SUB_N, WIDE_SWAP_M, KernelConfig,
-                                carry_stages, ring_edge, wgmma_smem_bytes, wide_c_grid,
-                                wide_streamed, wide_streams, wide_sub_m)
+                                carry_stages, kn_tma_cols, ring_c_grid, ring_edge,
+                                wgmma_smem_bytes, wide_c_grid, wide_streamed, wide_streams,
+                                wide_sub_m)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
 from tpul2_torch.utils.padding import cdiv
@@ -91,6 +92,12 @@ LAUNCHES_WIDE_SWAPPED = 0
 LAUNCHES_WIDE_NARROW_N = 0
 LAUNCHES_WIDE_CLIPPED = 0
 LAUNCHES_WIDE_LONG = 0
+#: Launches (2-D, batched and staged, ring and wide) by the store that writes C
+#: (``launch_store``): TMA from shared memory, or predicated stores from registers.
+LAUNCHES_C_TMA_STORE = 0
+LAUNCHES_C_PREDICATED = 0
+#: ``tl2_wgmma_route``'s bit for a launch whose C TMA stores (``launch_store`` 'tma').
+ROUTE_TMA_STORE = 8
 
 #: The counter of each (more than one K interval, route), in this module and in
 #: ``ops.batched``.
@@ -230,23 +237,39 @@ def allowed_error(a: torch.Tensor, rhs: torch.Tensor, bk: int,
 def operand_producers(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                       n: int, k: int) -> tuple:
     """(TMA reads A, TMA reads the RHS): a 16-byte aligned base and rows of a multiple of
-    16 bytes (K % 8 for A and B_t, N % 8 for B); where not, the loads producer reads the
-    operand.  ``launch_args`` passes the same two flags as vec_a and vec_b."""
-    return (a.data_ptr() % 16 == 0 and k % 8 == 0,
-            rhs.data_ptr() % 16 == 0 and (k if cfg.rhs_layout == "nk" else n) % 8 == 0)
+    16 bytes (K % 8 for A and B_t, N % 8 for B), and for 'kn' B a box start on 16 bytes at
+    every block column (``config.kn_tma_cols``: bn % 8 == 0 or one block covers N); where
+    not, the loads producer reads the operand.  ``launch_args`` passes the same two flags
+    as vec_a and vec_b."""
+    if cfg.rhs_layout == "nk":
+        tma_b = rhs.data_ptr() % 16 == 0 and k % 8 == 0
+    else:
+        tma_b = rhs.data_ptr() % 16 == 0 and n % 8 == 0 and kn_tma_cols(n, cfg.bn)
+    return a.data_ptr() % 16 == 0 and k % 8 == 0, tma_b
 
 
 def c_by_tma(n: int, out: Optional[torch.Tensor] = None) -> bool:
-    """TMA can store a wide block's C: N % 8 == 0 and ``out=`` (where given) 16-byte
-    aligned; a fresh output is.  Where not, the wide route stores C by predicated stores,
-    and so it does where a block's edge ends inside a sub-tile (``config.wide_c_grid``)."""
+    """TMA can store C: N % 8 == 0 and ``out=`` (where given) 16-byte aligned; a fresh
+    output is.  The block's edges decide the rest (``launch_store``)."""
     return n % 8 == 0 and (out is None or out.data_ptr() % 16 == 0)
+
+
+def launch_store(cfg: KernelConfig, m: int, n: int, out: Optional[torch.Tensor] = None) -> str:
+    """The store that writes a launch's C (``tl2_wgmma_route``'s ROUTE_TMA_STORE bit mirrors
+    it): 'tma', the consumers stage C in shared memory and TMA stores it, where TMA can
+    write C (``c_by_tma``) and every block edge is one the stores may write whole
+    (``config.ring_c_grid`` for a ring block: the tile's edge or past the problem's;
+    ``config.wide_c_grid`` for a wide one); else 'predicated', stores from registers that
+    stop at the block's edges."""
+    grid = wide_c_grid if cfg.wide else ring_c_grid
+    return "tma" if c_by_tma(n, out) and grid(m, n, cfg.bm, cfg.bn) else "predicated"
 
 
 def launch_route(cfg: KernelConfig, a: torch.Tensor, rhs: torch.Tensor,
                  m: int, n: int, k: int, out: Optional[torch.Tensor] = None) -> str:
     """The producer of a launch's ring, from the shape before the launch
-    (``tl2_wgmma_route`` mirrors it: codes 1 to 4): 'wgmma' where TMA can read both operands
+    (``tl2_wgmma_route`` mirrors it: codes 1 to 4, with ROUTE_TMA_STORE added for the store
+    ``launch_store`` names): 'wgmma' where TMA can read both operands
     (``operand_producers``), else 'wgmma_lsu' (the loads producer reads the operand TMA
     cannot).  Every valid ring tile takes one of them, at any bk: a carry's rounding point
     falls on a stage's start or, where bk % 64 == 32, its middle.  A wide block
@@ -326,12 +349,13 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
     torch's own compiled kernels launch on): ``torch.cuda.current_stream`` builds a Stream
     object per call, 4-7 us of host time on the H100's host (PERF.md)."""
     a_ptr, rhs_ptr = a.data_ptr(), rhs.data_ptr()
-    rhs_row = k if cfg.rhs_layout == "nk" else n
+    nk = cfg.rhs_layout == "nk"
+    vec_b = rhs_ptr % 16 == 0 and (k % 8 == 0 if nk else n % 8 == 0 and kn_tma_cols(n, cfg.bn))
     return (a_ptr, rhs_ptr, bias.data_ptr() if bias is not None else None,
             out.data_ptr(), batch, m, n, k, m * k, k * n, m * n, cfg.bm, cfg.bn, cfg.bk,
-            int(cfg.rhs_layout == "nk"), int(cfg.acc_dtype == "bfloat16"),
+            int(nk), int(cfg.acc_dtype == "bfloat16"),
             _ACT_CODES[activation], int(cfg.grid_order == "nm"),
-            int(a_ptr % 16 == 0 and k % 8 == 0), int(rhs_ptr % 16 == 0 and rhs_row % 8 == 0),
+            int(a_ptr % 16 == 0 and k % 8 == 0), int(vec_b),
             torch._C._cuda_getCurrentRawStream(a.get_device()))
 
 
@@ -371,6 +395,15 @@ def launch_variants(cfg: KernelConfig, k: int, tma_a: bool = False) -> list:
     if cfg.bn > 16384:
         keys.append("LAUNCHES_WIDE_LONG")
     return keys
+#: The counter of each store (``launch_store``).
+STORE_COUNTER = {"tma": "LAUNCHES_C_TMA_STORE", "predicated": "LAUNCHES_C_PREDICATED"}
+
+
+def count_store(cfg: KernelConfig, m: int, n: int, out: torch.Tensor) -> None:
+    """Add one to the counter of the store a launch just made (``launch_store``); the
+    staged wrapper counts its launches here too."""
+    _GLOBALS[STORE_COUNTER[launch_store(cfg, m, n, out)]] += 1
+
 #: The C launcher of each output dtype.
 _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16out"}
 
@@ -379,7 +412,8 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
                   batch: int, m: int, n: int, k: int) -> str:
     """Launch the ring on the current stream, writing ``out``; return the route
     (``launch_route``: 'wgmma', 'wgmma_lsu' or, for a wide block, 'wgmma_wide' or
-    'wgmma_wide_lsu').  Counts the launch's variants (``launch_variants``).
+    'wgmma_wide_lsu').  Counts the launch's variants (``launch_variants``) and its store
+    (``launch_store``).
 
     Raises if the build fails or the launch reports an error (``LaunchRefused`` for a
     launch refused before any work ran).  Does not synchronise."""
@@ -391,6 +425,7 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
         check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
     for key in launch_variants(cfg, k, bool(args[18])):
         _GLOBALS[key] += 1
+    count_store(cfg, m, n, out)
     # launch_route's answer, read off the launch's own vec_a and vec_b
     tma = args[18] and args[19]
     if cfg.wide:

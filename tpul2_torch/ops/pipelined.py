@@ -54,8 +54,9 @@ import torch
 
 from tpul2_torch.config import NUM_SMS, WGMMA_KSTAGE, KernelConfig, wide_c_grid
 from tpul2_torch.ops._build import check_launch, load_library
-from tpul2_torch.ops.matmul import (_vector_ok, check_operands, cuda_matmul, cuda_matmul_tn,
-                                    operand_producers, records_grad, refuse_out_under_grad)
+from tpul2_torch.ops.matmul import (_vector_ok, check_operands, count_store, cuda_matmul,
+                                    cuda_matmul_tn, operand_producers, records_grad,
+                                    refuse_out_under_grad)
 from tpul2_torch.utils.padding import cdiv
 
 #: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the ring
@@ -205,6 +206,7 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     elif not _vector_ok(out, n):
         raise ValueError("the staged kernel needs a 16-byte aligned out")
     launch_staged(a, b_or_bt, cfg, out, depth, m, n, k, splits)
+    count_store(cfg, m, n, out)  # a split's partials go out as C does: a fresh f32 workspace
     if cfg.wide:
         LAUNCHES_STAGED_WIDE += 1
         return out
