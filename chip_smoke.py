@@ -91,8 +91,8 @@ Phases (each prints one line; any failure raises and the exit code is non-zero):
      both producers, single-K and multi-K, 2-D and batched, the wide route with both
      producers, single-K and multi-K, 2-D and batched, a streamed A and a block above
      2048 rows, the width-32, swapped and mid-stage launches, the JAX space's narrow and
-     unaligned edges, both stores of C (TMA and predicated; every counter of
-     ops.COUNTERS), and the staged ring with both
+     unaligned edges, both stores of C (TMA and predicated; every launch counter of
+     trace.LAUNCHES), and the staged ring with both
      producers, a split, a 32-edge tile and a wide block; and no mma.sync launch: the
      bring-up shapes and the gate's batched variants
      take TMA (64x8192x8192 at the heuristic's 64x64 tile included), the K % 8 != 0
@@ -831,7 +831,7 @@ def _narrow_cases(mm) -> list:
 
 def _store_want(mm, cfg, m: int, n: int) -> dict:
     """The store counter a launch into a fresh output moves (ops.matmul.launch_store)."""
-    return {mm.STORE_COUNTER[mm.launch_store(cfg, m, n)].removeprefix("LAUNCHES_").lower(): 1}
+    return {mm.STORE_COUNTER[mm.launch_store(cfg, m, n)]: 1}
 
 
 def _narrow_want(mm, cfg, batch, m, n, k, route) -> dict:
@@ -3210,7 +3210,7 @@ def main(argv=None) -> int:
     from tpul2_torch.ops._build import check_launch, load_library
     from tpul2_torch.utils.platform import device_info, require_hopper
 
-    # every wrapper's counter (tpul2_torch.ops.COUNTERS), and "mma_sync": the calls made
+    # every launch counter (tpul2_torch.trace.LAUNCHES), and "mma_sync": the calls made
     # through the library into the mma.sync bodies' C entries, which phase 1 wraps
     tripwire = {"mma_sync": 0}
 

@@ -15,6 +15,8 @@ host time per call, on the host clock, the median and the least of ``--reps`` ba
 20 calls enqueued with no wait between them (the card's queue absorbs them):
   entry_host_ms   the entry point: dispatch.candidate_fn(acc)(a, b, b_t), the slice's
                   candidate, or dispatch.batched_matmul;
+  entry_traced_host_ms  the same with its spans recorded (inside tpul2_torch.trace's
+                  recording(), where the tree has it): what tracing costs a call;
   launch_host_ms  ops.matmul.launch_kernel with the resolved config: the wrapper below
                   check_operands (the route, the argument tuple, ctypes, the C launcher);
   direct_host_ms  the C launcher alone through ctypes with a prebuilt argument tuple, for
@@ -197,6 +199,10 @@ def main(argv=None) -> int:
     info = device_info()
     lib = load_library()
     route_fn = getattr(mm, "launch_route", None) or mm.multi_k_route
+    try:
+        from tpul2_torch import trace
+    except ImportError:  # a tree from before the program's spans
+        trace = None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
@@ -268,6 +274,10 @@ def main(argv=None) -> int:
                "torch_host_ms": _host_ms(torch, lambda: library(a, b), args.reps),
                "entry_ms": _device_ms(torch, cand),
                "torch_matmul_ms": _device_ms(torch, lambda: library(a, b))}
+        if trace is not None:
+            with trace.recording() as session:
+                row["entry_traced_host_ms"] = _host_ms(torch, cand, args.reps)
+            session.read()  # after _host_ms's synchronize: gives the events back
         call = _launch_args(torch, a, rhs, cfg, out, batch, m, n, k)
         bodies = {"tl2_matmul": lib.tl2_matmul_bf16out}
         # the output's base joined the route's arguments with the wide route's predicated

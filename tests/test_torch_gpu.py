@@ -16,6 +16,7 @@ from tpul2_torch.autotune import db as db_mod
 from tpul2_torch.config import KernelConfig
 from tpul2_torch.harness import correctness as corr
 from tpul2_torch.ops import batched as bmm
+from tpul2_torch.ops import launch_counts
 from tpul2_torch.ops import matmul as mm
 from tpul2_torch.ops import pipelined as pl
 from tpul2_torch.ops._build import LaunchRefused, check_launch, load_library
@@ -25,6 +26,10 @@ torch.set_num_threads(1)  # the tier-1 run shares its cores among its workers
 pytestmark = pytest.mark.gpu
 
 M, N, K = 100, 200, 300
+
+
+def _count(key: str) -> int:
+    return launch_counts()[key]
 
 
 @pytest.fixture(autouse=True)
@@ -58,10 +63,10 @@ def test_kernel_matches_plain(cuda, acc, layout, bk):
     rhs = _01((N, K) if layout == "nk" else (K, N), 2).to(cuda)
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     assert mm.launch_route(cfg, a, rhs, M, N, K) == "wgmma_lsu"  # K % 8 != 0
-    before = mm.LAUNCHES_MULTI_K_WGMMA_LSU + mm.LAUNCHES_SINGLE_K_WGMMA_LSU
+    before = _count("multi_k_wgmma_lsu") + _count("single_k_wgmma_lsu")
     got = fn(a, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_MULTI_K_WGMMA_LSU + mm.LAUNCHES_SINGLE_K_WGMMA_LSU == before + 1
+    assert _count("multi_k_wgmma_lsu") + _count("single_k_wgmma_lsu") == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
     assert torch.equal(got, want)
 
@@ -124,7 +129,7 @@ def test_wgmma_route_matches_plain(cuda, acc, layout, tile, bk):
     (bk 352 >= K, not a multiple of 64): 0/1 inputs exact, normal inputs within
     allowed_error."""
     cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=bk, acc_dtype=acc, rhs_layout=layout)
-    counter = "LAUNCHES_MULTI_K_WGMMA" if bk < WG_K else "LAUNCHES_SINGLE_K_WGMMA"
+    counter = "multi_k_wgmma" if bk < WG_K else "single_k_wgmma"
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     gen = torch.Generator(device=cuda)
     gen.manual_seed(17)
@@ -136,10 +141,10 @@ def test_wgmma_route_matches_plain(cuda, acc, layout, tile, bk):
             a = torch.randn((WG_M, WG_K), generator=gen, device=cuda).bfloat16()
             rhs = torch.randn(shape_b, generator=gen, device=cuda).bfloat16()
         assert mm.launch_route(cfg, a, rhs, WG_M, WG_N, WG_K) == "wgmma"
-        before = getattr(mm, counter)
+        before = _count(counter)
         got = fn(a, rhs, cfg, out_dtype=torch.float32)
         torch.cuda.synchronize()
-        assert getattr(mm, counter) == before + 1
+        assert _count(counter) == before + 1
         want = mm.matmul_reference(a, rhs, cfg.bk, acc, layout, out_dtype=torch.float32)
         if zero_one:
             assert torch.equal(got, want)
@@ -154,10 +159,10 @@ def test_wgmma_batched_m_edge(cuda, tile):
     not with the next batch element's rows, and stores stay inside each element."""
     cfg = KernelConfig(bm=tile[0], bn=tile[1], bk=128, acc_dtype="bfloat16")
     a, b = _01((3, 100, WG_K), 20).to(cuda), _01((3, WG_K, 136), 21).to(cuda)
-    before = bmm.LAUNCHES_MULTI_K_WGMMA
+    before = _count("batched_multi_k_wgmma")
     got = bmm.cuda_batched_matmul(a, b, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert bmm.LAUNCHES_MULTI_K_WGMMA == before + 1
+    assert _count("batched_multi_k_wgmma") == before + 1
     assert torch.equal(got, bmm.batched_matmul_reference(a, b, cfg.bk, "bfloat16",
                                                          torch.float32))
 
@@ -210,10 +215,10 @@ def test_bf16_family_single_interval_is_the_f32_sum(cuda):
     a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
     b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
     assert mm.launch_route(cfg, a, b, m, n, k) == "wgmma"
-    before = mm.LAUNCHES_SINGLE_K_WGMMA
+    before = _count("single_k_wgmma")
     got = mm.cuda_matmul(a, b, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_SINGLE_K_WGMMA == before + 1
+    assert _count("single_k_wgmma") == before + 1
     tol = mm.allowed_error(a, b, k, "float32", "kn", torch.float32)
     f32_sum = a.float() @ b.float()
     assert bool(((got - f32_sum).abs() <= tol).all())
@@ -234,7 +239,7 @@ def test_wgmma_smem_model_matches_the_kernel(cuda):
 
 
 def _staged_counts() -> tuple:
-    return pl.LAUNCHES_STAGED_RING, pl.LAUNCHES_STAGED_RING_LSU, pl.LAUNCHES_STAGED_SPLIT
+    return _count("staged_ring"), _count("staged_ring_lsu"), _count("staged_split")
 
 
 @pytest.mark.parametrize("layout", ["kn", "nk"])
@@ -312,11 +317,11 @@ def test_split_launch_is_bit_identical(cuda, out_dtype):
     b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
     splits = pl.staged_splits(m, n, k, 64, 64, 4)
     assert splits == 48
-    split = pl.LAUNCHES_STAGED_SPLIT
+    split = _count("staged_split")
     first = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=out_dtype)
     second = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert pl.LAUNCHES_STAGED_SPLIT == split + 2
+    assert _count("staged_split") == split + 2
     assert torch.equal(first, second)
     want = pl.pipelined_reference(a, b, "kn", out_dtype, splits)
     tol = mm.allowed_error(a, b, k, "float32", "kn", out_dtype)
@@ -348,10 +353,10 @@ def test_staged_single_k_takes_the_single_k_kernel(cuda):
     aligned operands), not the staged ring."""
     cfg = KernelConfig(bm=64, bn=64, bk=512, pipeline_depth=4)
     a, b = _01((128, 512), 11).to(cuda), _01((512, 128), 12).to(cuda)
-    staged, single = _staged_counts(), mm.LAUNCHES_SINGLE_K_WGMMA
+    staged, single = _staged_counts(), _count("single_k_wgmma")
     got = pl.cuda_matmul_pipelined(a, b, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert _staged_counts() == staged and mm.LAUNCHES_SINGLE_K_WGMMA == single + 1
+    assert _staged_counts() == staged and _count("single_k_wgmma") == single + 1
     assert torch.equal(got, pl.pipelined_reference(a, b, "kn", torch.float32))
 
 
@@ -374,10 +379,10 @@ def test_staged_refused_launch_raises(cuda):
     cfg = KernelConfig(bm=64, bn=64, bk=64, pipeline_depth=2)
     got = pl.cuda_matmul_pipelined(a_off, rhs, cfg, out_dtype=torch.float32)
     assert pl.staged_route(cfg, a_odd, rhs, 64, 64, 256) == "ring_lsu"
-    lsu = pl.LAUNCHES_STAGED_RING_LSU
+    lsu = _count("staged_ring_lsu")
     odd = pl.cuda_matmul_pipelined(a_odd, rhs, cfg, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pl.LAUNCHES_STAGED_RING_LSU == lsu + 1
+    assert _count("staged_ring_lsu") == lsu + 1
     for x, got_x in ((a_off, got), (a_odd, odd)):
         assert torch.equal(got_x, pl.pipelined_reference(x, rhs, "kn", torch.float32,
                                                          pl.staged_splits(64, 64, 256, 64,
@@ -399,7 +404,7 @@ def test_narrow_tiles_match_plain(cuda, layout, tile):
     fn = mm.cuda_matmul_tn if layout == "nk" else mm.cuda_matmul
     gen = torch.Generator(device=cuda)
     gen.manual_seed(24)
-    counter = "LAUNCHES_WIDTH32" if tile[1] == 32 else "LAUNCHES_SWAPPED"
+    counter = "width32" if tile[1] == 32 else "swapped"
     for zero_one in (True, False):
         shape_b = (n, k) if layout == "nk" else (k, n)
         if zero_one:
@@ -407,10 +412,10 @@ def test_narrow_tiles_match_plain(cuda, layout, tile):
         else:
             a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
             rhs = torch.randn(shape_b, generator=gen, device=cuda).bfloat16()
-        before, mid = getattr(mm, counter), mm.LAUNCHES_MIDSTAGE
+        before, mid = _count(counter), _count("midstage")
         got = fn(a, rhs, cfg, out_dtype=torch.float32)
         torch.cuda.synchronize()
-        assert getattr(mm, counter) == before + 1 and mm.LAUNCHES_MIDSTAGE == mid + 1
+        assert _count(counter) == before + 1 and _count("midstage") == mid + 1
         want = mm.matmul_reference(a, rhs, cfg.bk, "bfloat16", layout, out_dtype=torch.float32)
         if zero_one:
             assert torch.equal(got, want)
@@ -597,10 +602,10 @@ def test_wide_route_matches_its_plain_version(cuda, bm, bn, layout, out_dtype, a
     rhs = _01((n, k) if layout == "nk" else (k, n), 4).to(cuda)
     bias = _01((n,), 5).float().to(cuda) if act else None
     assert mm.launch_route(cfg, a, rhs, m, n, k) == "wgmma_wide"
-    before = mm.LAUNCHES_SINGLE_K_WGMMA_WIDE
+    before = _count("single_k_wgmma_wide")
     got = mm._matmul(a, rhs, cfg, out_dtype, None, bias, act)
     torch.cuda.synchronize()
-    assert mm.LAUNCHES_SINGLE_K_WGMMA_WIDE == before + 1
+    assert _count("single_k_wgmma_wide") == before + 1
     want = mm.matmul_reference(a, rhs, cfg.bk, "float32", layout, bias, act, out_dtype)
     assert torch.equal(got, want)
 
@@ -636,7 +641,6 @@ WIDE_VARIANTS = [
 def test_wide_variants_match_their_plain_version(cuda, case, out_dtype):
     """Each wide variant on 0/1 inputs: its route, one launch on its counter, and the plain
     version's bits at the config's bk."""
-    from tpul2_torch.ops import launch_counts
     batch, m, n, k, kw, a_off, out_off, route, key = case
     cfg = KernelConfig(**kw)
     lead = (batch,) if batch > 1 else ()
@@ -678,7 +682,6 @@ def test_next_block_nan_rows_are_never_stored(cuda, block, key):
     read them from shared memory: the first block's rows of C are exact and the second's
     NaN, in one launch on the variant's counter (the CPU twin is in
     tests/test_torch_jax_space.py)."""
-    from tpul2_torch.ops import launch_counts
     bm, bn = block
     m, n, k = 2 * bm, 600, 256
     a = _01((m, k), 8).to(cuda)
@@ -705,7 +708,6 @@ def test_kn_block_columns_off_16_bytes_take_the_loads_producer(cuda, block, key,
     the loads producer, not by TMA (whose box would start off 16 bytes and trap the launch):
     one launch on the loads producer's counter, equal to the plain version, and the card
     still answers afterwards."""
-    from tpul2_torch.ops import launch_counts
     bm, bn = block
     n, k = 600, 256
     cfg = KernelConfig(bm=bm, bn=bn, bk=256)

@@ -210,24 +210,24 @@ def _hold(ours, theirs, a, rhs, bk, acc, layout, zero_one, bias=None, act=None):
 #: counters): each a block of the JAX space at its own shape.
 CLASSES = {
     "bm16-ring": ((16, 128, 128), (48, 200, 256), "kn", "gelu",
-                  ["LAUNCHES_SWAPPED", "LAUNCHES_RING_NARROW"]),
+                  ["swapped", "ring_narrow"]),
     "bm8-ring-cover": ((8, 128, 128), (8, 200, 384), "nk", None,
-                       ["LAUNCHES_SWAPPED", "LAUNCHES_RING_NARROW"]),
+                       ["swapped", "ring_narrow"]),
     "bm16-wide": ((16, 512, 128), (32, 600, 256), "nk", "relu",
-                  ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED"]),
+                  ["wide_streamed", "wide_swapped"]),
     "bm8-wide-cover": ((8, 512, 256), (8, 1024, 512), "kn", None,
-                       ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED"]),
+                       ["wide_streamed", "wide_swapped"]),
     "bm1-cover": ((1, 256, 128), (1, 300, 384), "kn", None,
-                  ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED"]),
+                  ["wide_streamed", "wide_swapped"]),
     "bn1-beside-wide-bm": ((256, 1, 128), (300, 1, 256), "kn", None,
-                           ["LAUNCHES_WIDE_NARROW_N"]),
+                           ["wide_narrow_n"]),
     "bn64-beside-wide-bm": ((256, 64, 64), (512, 64, 64), "nk", "relu",
-                            ["LAUNCHES_WIDE_NARROW_N"]),
+                            ["wide_narrow_n"]),
     "unaligned-covers-200x300": ((200, 300, 128), (200, 300, 256), "kn", "silu",
-                                 ["LAUNCHES_WIDE_CLIPPED"]),
+                                 ["wide_clipped"]),
     "bn-above-16384-thin-k": ((16, 16512, 64), (16, 16512, 64), "kn", None,
-                              ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED",
-                               "LAUNCHES_WIDE_LONG"]),
+                              ["wide_streamed", "wide_swapped",
+                               "wide_long"]),
 }
 
 

@@ -35,6 +35,7 @@ from tpul2.ops.matmul import pallas_matmul, pallas_matmul_fused, pallas_matmul_t
 from tpul2_torch.config import (PIPELINE_DEPTHS, KernelConfig, kn_tma_cols, ring_c_grid,
                                 ring_edge, wide_c_grid)
 from tpul2_torch.ops import batched as bmm
+from tpul2_torch.ops import launch_counts
 from tpul2_torch.ops import matmul as mm
 from tpul2_torch.ops._build import ptxas_report
 
@@ -253,8 +254,9 @@ def test_store_rule(case, change, store):
 
 
 def _counts():
-    return tuple(getattr(mod, f"LAUNCHES_{body}_K_{route}") for mod in (mm, bmm)
-                 for body in ("MULTI", "SINGLE") for route in ("WGMMA", "WGMMA_LSU"))
+    counts = launch_counts()
+    return tuple(counts[f"{prefix}{body}_k_{route}"] for prefix in ("", "batched_")
+                 for body in ("multi", "single") for route in ("wgmma", "wgmma_lsu"))
 
 
 @pytest.mark.parametrize("entry", ["nn", "tn", "fused", "batched"])
@@ -272,7 +274,8 @@ def test_cpu_path_launches_nothing(entry, route):
     rhs = b[0].t().contiguous() if entry == "tn" else b[0]
     assert mm.launch_route(cfg, a[0], rhs, M, N, K) == route
     want = (a @ b).float()
-    before = _counts() + (mm.LAUNCHES_WIDTH32, mm.LAUNCHES_SWAPPED, mm.LAUNCHES_MIDSTAGE)
+    variants = ("width32", "swapped", "midstage")
+    before = _counts() + tuple(launch_counts()[key] for key in variants)
     if entry == "nn":
         got, want = mm.cuda_matmul(a[0], rhs, cfg, out_dtype=torch.float32), want[0]
     elif entry == "tn":
@@ -283,8 +286,7 @@ def test_cpu_path_launches_nothing(entry, route):
         want = want[0] + 1
     else:
         got = bmm.cuda_batched_matmul(a, b, cfg, out_dtype=torch.float32)
-    assert _counts() + (mm.LAUNCHES_WIDTH32, mm.LAUNCHES_SWAPPED,
-                        mm.LAUNCHES_MIDSTAGE) == before
+    assert _counts() + tuple(launch_counts()[key] for key in variants) == before
     assert torch.equal(got, want)
 
 

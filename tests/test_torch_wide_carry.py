@@ -176,7 +176,7 @@ def test_jax_db_wide_entries_launch_at_their_own_shape():
     db_mod.reset_default_db()
     for (m, n, k), acc, cfg in narrow:
         assert cfg.wide and mm.launch_route(cfg, stand_in, stand_in, m, n, k) == "wgmma_wide_lsu"
-        assert mm.launch_variants(cfg, k) == ["LAUNCHES_WIDE_STREAMED", "LAUNCHES_WIDE_SWAPPED"]
+        assert mm.launch_variants(cfg, k) == ["wide_streamed", "wide_swapped"]
         assert dispatch.resolve_config(m, n, k, acc) == cfg
         a_np, b_np = _draw(17, [(m, k), (k, n)], True)
         a, b = torch.from_numpy(a_np).bfloat16(), torch.from_numpy(b_np).bfloat16()

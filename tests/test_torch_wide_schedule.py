@@ -330,7 +330,7 @@ def test_thin_k_streams_a_only_where_tma_reads_it(bm):
         for tma_a in (False, True):
             streams = wide_streams(bm, k, tma_a)
             assert streams == (wide_streamed(bm, k) or (tma_a and k <= WIDE_THIN_K))
-            assert ("LAUNCHES_WIDE_STREAMED" in mm.launch_variants(cfg, k, tma_a)) == streams
+            assert ("wide_streamed" in mm.launch_variants(cfg, k, tma_a)) == streams
         assert not wide_streamed(bm, k) or k > 512  # resident by fit up to 512 at least
     assert wide_streams(bm, 64, True) and not wide_streams(bm, 64, False)
     assert not wide_streams(bm, 256, True)

@@ -12,6 +12,14 @@ A call resolves its config against the DB as it stands, through a memo of the de
 shape that the DB's version keys (``resolve_config``): the resolution took more host time
 than the kernel's launch at the small bring-up shapes (PERF.md).
 
+Counted and traced here (``trace``): every call of an entry point counts by entry and
+route ('ring', 'wide', 'staged', 'sentinel') where the route is decided (``_run_2d``,
+``_run_batched``), and every decision of ``resolve`` by source and by memo hit or miss,
+traced or not.  Each entry point asks ``trace.on()`` once; where tracing is on, the call
+runs the same steps inside its spans (``_traced``): ``tl2.call`` around the call,
+``tl2.dispatch`` around ``resolve``, then ``tl2.wrapper`` around the kernel's wrapper or
+``tl2.sentinel`` around the vendor library's GEMM.
+
 ``matmul`` and ``batched_matmul`` are differentiable on every path the JAX ones are: the
 kernels and the sentinel through ``ops.matmul.GemmVjp``; a staged config with more than one
 K interval raises in the backward, as ``jax.grad`` does there (``ops.pipelined``).
@@ -26,12 +34,14 @@ from typing import Optional
 
 import torch
 
+from tpul2_torch import trace
 from tpul2_torch.autotune.db import default_db
 from tpul2_torch.config import KernelConfig, heuristic_config
 from tpul2_torch.ops import baselines
 from tpul2_torch.ops.matmul import (ACTIVATIONS, GemmVjp, cuda_matmul_fused, records_grad,
                                     refuse_out_under_grad)
 from tpul2_torch.ops.pipelined import cuda_matmul_pipelined
+from tpul2_torch.trace import COUNTS
 
 #: Most shapes the resolve memo holds; past it the memo starts empty again, so a caller
 #: that sends ever new shapes does not grow it without bound.
@@ -63,32 +73,48 @@ def resolve_config(m: int, n: int, k: int, acc: str = "float32",
     The decision is kept in the DB's memo with the DB's version: a put or a load of the
     DB, ``reset_default_db()`` or a change of ``TPUL2_TORCH_TUNEDB`` (a new default DB)
     makes it stale, so it is never served from entries that have changed.  The memo keys
-    on the mode as well."""
+    on the mode as well.
+
+    Counted (``trace.COUNTS``), traced or not: each call as a memo hit or miss, and each
+    decision a miss takes by its source (``resolve``).  The entry points trace it as
+    ``tl2.dispatch`` where tracing is on."""
+    return resolve(m, n, k, acc, in_dtype, mode)[0]
+
+
+def resolve(m: int, n: int, k: int, acc: str = "float32", in_dtype="bfloat16",
+            mode: str = "offline") -> tuple:
+    """(config, memo hit, source): ``resolve_config``'s decision, whether its memo served
+    it, and where the decision came from: 'server_entry', 'entry', 'neighbour',
+    'heuristic', or 'validate' where ``validate`` refused the config found and the call
+    goes to the sentinel.  A memo hit keeps its decision's source."""
     db = default_db()
     key = (m, n, k, acc, in_dtype, mode)
     version = db.version
     hit = db.memo.get(key)
     if hit is not None and hit[0] == version:
-        return hit[1]
+        COUNTS["memo", "hit"] += 1
+        return hit[1], True, hit[2]
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    COUNTS["memo", "miss"] += 1
     cfg = None
     if mode == "server":
         sub = db.get_server_entry(m, n, k, acc, in_dtype)
         if sub is not None:
-            cfg = KernelConfig(**sub["config"])
+            cfg, source = KernelConfig(**sub["config"]), "server_entry"
     if cfg is None:
-        cfg = db.get(m, n, k, acc, in_dtype)
+        cfg, source = db.get(m, n, k, acc, in_dtype), "entry"
     if cfg is None:
-        cfg = _neighbor_config(db, m, n, k, acc, in_dtype)
+        cfg, source = _neighbor_config(db, m, n, k, acc, in_dtype), "neighbour"
     if cfg is None:
-        cfg = heuristic_config(m, n, k, acc)
+        cfg, source = heuristic_config(m, n, k, acc), "heuristic"
     if cfg.validate() is not None:
-        cfg = KernelConfig.vendor()
+        cfg, source = KernelConfig.vendor(), "validate"
+    COUNTS["resolve", source] += 1
     if len(db.memo) >= MEMO_LIMIT:
         db.memo.clear()
-    db.memo[key] = (version, cfg)
-    return cfg
+    db.memo[key] = (version, cfg, source)
+    return cfg, False, source
 
 
 def _nearest_entry(db, m, n, k, acc, in_dtype="bfloat16", max_ratio: float = 2.0):
@@ -189,24 +215,51 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     b_t: optional (N, K) RHS, read with no copy when the config's rhs_layout is 'nk'.
     out: optional caller tensor the result is written into.
     mode: 'offline' or 'server', which regime's tuned winner to dispatch."""
+    return _matmul("matmul", a, b, acc, out_dtype, config, bias, activation, b_t, out, mode)
+
+
+def _matmul(entry: str, a, b, acc, out_dtype, config, bias, activation, b_t, out, mode):
+    """``matmul`` for the entry point ``entry`` (its counter's and its span's name)."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)} "
                          "(expected (M, K) @ (K, N))")
     m, k = a.shape
     n = b.shape[1]
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
+    if trace.on():
+        return _traced(entry, a, (m, n, k, 1, acc), config, mode,
+                       lambda cfg: _route_2d(cfg, bias, activation, m, n, k),
+                       lambda route, cfg: _run_2d(entry, route, a, b, b_t, cfg, bias,
+                                                  activation, out_dtype, out))
     if config is None:
         config = resolve_config(m, n, k, acc, mode=mode)
+    return _run_2d(entry, _route_2d(config, bias, activation, m, n, k), a, b, b_t, config,
+                   bias, activation, out_dtype, out)
+
+
+def _route_2d(config: KernelConfig, bias, activation, m: int, n: int, k: int) -> str:
+    """The route of a 2-D call at ``config``: 'sentinel'; 'staged', the staged K ring (the
+    kStage axis, ops/pipelined.py), which takes no epilogue and blocks that divide the
+    shape; else the ring or, at a wide block, the wide walk."""
     if config.use_vendor:
+        return "sentinel"
+    if (config.pipeline_depth >= 2 and bias is None and activation is None
+            and m % config.bm == 0 and n % config.bn == 0 and k % config.bk == 0):
+        return "staged"
+    return "wide" if config.wide else "ring"
+
+
+def _run_2d(entry: str, route: str, a, b, b_t, config: KernelConfig, bias, activation,
+            out_dtype, out):
+    """Run a 2-D call on its route, counted by entry point and route."""
+    COUNTS["call", entry, route] += 1
+    if route == "sentinel":
         return _vendor(a, b, b_t, config, bias, activation, out_dtype, out)
-    if config.pipeline_depth >= 2:
-        if (bias is None and activation is None and m % config.bm == 0
-                and n % config.bn == 0 and k % config.bk == 0):
-            # the staged K ring (the kStage axis, ops/pipelined.py)
-            rhs = ((b_t if b_t is not None else b.t().contiguous())
-                   if config.rhs_layout == "nk" else b)
-            return cuda_matmul_pipelined(a, rhs, config, out_dtype=out_dtype, out=out)
-        # the other kernels have no stages (as in the JAX package)
+    if route == "staged":
+        rhs = ((b_t if b_t is not None else b.t().contiguous())
+               if config.rhs_layout == "nk" else b)
+        return cuda_matmul_pipelined(a, rhs, config, out_dtype=out_dtype, out=out)
+    if config.pipeline_depth >= 2:  # the other kernels have no stages (as in the JAX package)
         config = dataclasses.replace(config, pipeline_depth=0)
     # the RHS in the config's layout (b_t read with no copy where given), then the kernel,
     # with the epilogue where there is one
@@ -224,17 +277,33 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     The resolved config runs the batched kernel, a wide block included (as JAX's
     ``batched_matmul`` runs its Pallas kernel at any resolved config), with the config's bk
     and so its rounding points; only the sentinel goes to the library's bmm."""
-    from tpul2_torch.ops.batched import cuda_batched_matmul
     if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
             or a.shape[2] != b.shape[1]):
         raise ValueError(f"batched_matmul shape mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} (expected (B, M, K) @ (B, K, N))")
-    _, m, k = a.shape
+    batch, m, k = a.shape
     n = b.shape[2]
     out_dtype = out_dtype or (out.dtype if out is not None else a.dtype)
+    if trace.on():
+        return _traced("batched_matmul", a, (m, n, k, batch, acc), config, "offline",
+                       _route_batched,
+                       lambda route, cfg: _run_batched(route, a, b, cfg, out_dtype, out))
     if config is None:
         config = resolve_config(m, n, k, acc)
+    return _run_batched(_route_batched(config), a, b, config, out_dtype, out)
+
+
+def _route_batched(config: KernelConfig) -> str:
     if config.use_vendor:
+        return "sentinel"
+    return "wide" if config.wide else "ring"
+
+
+def _run_batched(route: str, a, b, config: KernelConfig, out_dtype, out):
+    """Run a batched call on its route, counted as the 2-D ones."""
+    from tpul2_torch.ops.batched import cuda_batched_matmul
+    COUNTS["call", "batched_matmul", route] += 1
+    if route == "sentinel":
         if records_grad(a, b):
             refuse_out_under_grad(out, "batched_matmul")
             return GemmVjp.apply(a, b, None, lambda a_, b_, _: baselines.vendor_bmm(
@@ -245,24 +314,49 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     return cuda_batched_matmul(a, b, config=config, out_dtype=out_dtype, out=out)
 
 
+def _traced(entry: str, a, shape: tuple, config: Optional[KernelConfig], mode: str,
+            route_of, run):
+    """A call with tracing on: the untraced call's steps (``resolve``, ``route_of(config)``,
+    ``run(route, config)``) inside its spans."""
+    m, n, k, _, acc = shape
+    with trace.Call(entry, *shape) as c:
+        if config is None:
+            with trace.span(c, "tl2.dispatch") as s:
+                config, hit, s.info["source"] = resolve(m, n, k, acc, mode=mode)
+                s.info["memo"] = "hit" if hit else "miss"
+        route = route_of(config)
+        if route == "sentinel":
+            layer = trace.span(c, "tl2.sentinel", a.get_device(), route=route,
+                               variant=config.vendor_variant)
+        else:
+            layer = trace.span(c, "tl2.wrapper", a.get_device(), route=route,
+                               tile=(config.bm, config.bn, config.bk))
+        with layer:
+            return run(route, config)
+
+
 def cuda_l2_h100_f32(a, b, b_t, out=None):
     """Candidate entry, f32-accumulator family (reference ``cuda_l2_h100_fp32``)."""
-    return matmul(a, b, acc="float32", b_t=b_t, out=out)
+    return _matmul("cuda_l2_h100_f32", a, b, "float32", None, None, None, None, b_t, out,
+                   "offline")
 
 
 def cuda_l2_h100_bf16(a, b, b_t, out=None):
     """Candidate entry, bf16-accumulator family."""
-    return matmul(a, b, acc="bfloat16", b_t=b_t, out=out)
+    return _matmul("cuda_l2_h100_bf16", a, b, "bfloat16", None, None, None, None, b_t, out,
+                   "offline")
 
 
 def cuda_l2_h100_f32_server(a, b, b_t, out=None):
     """Server twin of ``cuda_l2_h100_f32``: each shape's server-regime winner."""
-    return matmul(a, b, acc="float32", b_t=b_t, out=out, mode="server")
+    return _matmul("cuda_l2_h100_f32_server", a, b, "float32", None, None, None, None, b_t,
+                   out, "server")
 
 
 def cuda_l2_h100_bf16_server(a, b, b_t, out=None):
     """Server twin of ``cuda_l2_h100_bf16``."""
-    return matmul(a, b, acc="bfloat16", b_t=b_t, out=out, mode="server")
+    return _matmul("cuda_l2_h100_bf16_server", a, b, "bfloat16", None, None, None, None, b_t,
+                   out, "server")
 
 
 _CANDIDATES = {("float32", "offline"): cuda_l2_h100_f32,

@@ -21,20 +21,7 @@ from tpul2_torch.config import KernelConfig
 from tpul2_torch.ops.matmul import (COUNTER_OF, GemmVjp, _with_layout, check_operands,
                                     launch_kernel, matmul_reference, records_grad,
                                     refuse_out_under_grad)
-
-#: Launches of the batched kernels with more than one bk interval (``_bmm_kernel``) and
-#: with one (``_bmm_kernel_single_k``), each on the ring with the TMA producer or the
-#: loads producer, or at a wide block with TMA or the loads producer, counted where a
-#: kernel is launched.
-LAUNCHES_MULTI_K_WGMMA = 0
-LAUNCHES_MULTI_K_WGMMA_LSU = 0
-LAUNCHES_SINGLE_K_WGMMA = 0
-LAUNCHES_SINGLE_K_WGMMA_LSU = 0
-LAUNCHES_MULTI_K_WGMMA_WIDE = 0
-LAUNCHES_MULTI_K_WGMMA_WIDE_LSU = 0
-LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
-LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
-_GLOBALS = globals()
+from tpul2_torch.trace import COUNTS
 
 
 def batched_matmul_reference(a: torch.Tensor, b: torch.Tensor, bk: int,
@@ -64,5 +51,5 @@ def cuda_batched_matmul(a: torch.Tensor, b: torch.Tensor,
     if out is None:
         out = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, b, cfg, out, None, None, batch, m, n, k)
-    _GLOBALS[COUNTER_OF[k > cfg.bk, route]] += 1
+    COUNTS[COUNTER_OF[True, k > cfg.bk, route]] += 1
     return out

@@ -43,6 +43,7 @@ from tpul2_torch.config import (WGMMA_KSTAGE, WGMMA_STAGES, WGMMA_TILES,  # noqa
                                 wide_sub_m)
 from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.baselines import f32_product
+from tpul2_torch.trace import COUNTS
 from tpul2_torch.utils.padding import cdiv
 
 #: Fused epilogues, applied in f32 after the bias and before the output cast.
@@ -58,51 +59,17 @@ ACTIVATIONS = {
 _ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
-#: Launches of the 2-D kernels, by K-loop length and route: more than one bk interval
-#: (the port of ``_kernel_multi_k``) or exactly one (``_kernel_single_k``), each on the
-#: ring with the TMA producer or the loads producer, or at a wide block
-#: (tl2_wgmma_wide.cu) with TMA or with the loads producer and predicated stores.  Counted
-#: where a kernel is launched and nowhere else.
-LAUNCHES_MULTI_K_WGMMA = 0
-LAUNCHES_MULTI_K_WGMMA_LSU = 0
-LAUNCHES_SINGLE_K_WGMMA = 0
-LAUNCHES_SINGLE_K_WGMMA_LSU = 0
-LAUNCHES_MULTI_K_WGMMA_WIDE = 0
-LAUNCHES_MULTI_K_WGMMA_WIDE_LSU = 0
-LAUNCHES_SINGLE_K_WGMMA_WIDE = 0
-LAUNCHES_SINGLE_K_WGMMA_WIDE_LSU = 0
-#: Launches (2-D and batched, counted in ``launch_kernel``) of a tile at width 32 (bn <= 32),
-#: of a swapped tile (bm <= 32 over bn 33..128), of a bf16-family carry that rounds in
-#: the middle of a stage (bk % 64 == 32), of a wide block whose A streams through its
-#: ring (``config.wide_streams``), and of a wide block taller than WIDE_BM_CHOICES' largest
-#: (bm above 2048, the JAX DB's tall blocks).
-LAUNCHES_WIDTH32 = 0
-LAUNCHES_SWAPPED = 0
-LAUNCHES_MIDSTAGE = 0
-LAUNCHES_WIDE_STREAMED = 0
-LAUNCHES_WIDE_TALL = 0
-#: Launches (2-D and batched) of the JAX space's narrow and unaligned edges
-#: (``launch_variants``): a ring block narrower than its tile (an edge other than 32, 64
-#: or 128: the sublane 16, a cover of M < 16 or N < 128); the swapped wide walk (bm <= 32
-#: beside bn > 128); a wide block of narrow columns (bn < 128 beside a wide bm); a wide
-#: block whose edge ends inside a sub-tile (bm off its sub-tile's rows, bn above 128 off
-#: 128: the covers of an unaligned M or N); and a wide block above 16384 columns.
-LAUNCHES_RING_NARROW = 0
-LAUNCHES_WIDE_SWAPPED = 0
-LAUNCHES_WIDE_NARROW_N = 0
-LAUNCHES_WIDE_CLIPPED = 0
-LAUNCHES_WIDE_LONG = 0
-#: Launches (2-D, batched and staged, ring and wide) by the store that writes C
-#: (``launch_store``): TMA from shared memory, or predicated stores from registers.
-LAUNCHES_C_TMA_STORE = 0
-LAUNCHES_C_PREDICATED = 0
 #: ``tl2_wgmma_route``'s bit for a launch whose C TMA stores (``launch_store`` 'tma').
 ROUTE_TMA_STORE = 8
 
-#: The counter of each (more than one K interval, route), in this module and in
-#: ``ops.batched``.
-COUNTER_OF = {(gk, route): f"LAUNCHES_{'MULTI' if gk else 'SINGLE'}_K_{route.upper()}"
-              for gk in (True, False)
+#: The launch counter (``trace.COUNTS``) of each (batched, more than one K interval,
+#: route): the 2-D and batched kernels with more than one bk interval (the port of
+#: ``_kernel_multi_k``, ``_bmm_kernel``) or exactly one (``_kernel_single_k``,
+#: ``_bmm_kernel_single_k``), on each route (``launch_route``).  Counted where a kernel is
+#: launched and nowhere else.
+COUNTER_OF = {(batched, gk, route): ("launch", f"{'batched_' if batched else ''}"
+                                               f"{'multi' if gk else 'single'}_k_{route}")
+              for batched in (False, True) for gk in (True, False)
               for route in ("wgmma", "wgmma_lsu", "wgmma_wide", "wgmma_wide_lsu")}
 
 
@@ -359,50 +326,52 @@ def launch_args(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation,
             torch._C._cuda_getCurrentRawStream(a.get_device()))
 
 
-#: This module's counters, written through by ``_matmul`` and ``launch_kernel``.
-_GLOBALS = globals()
-
-
 def launch_variants(cfg: KernelConfig, k: int, tma_a: bool = False) -> list:
-    """The variant counters (this module's names) a launch of ``cfg`` at depth K adds one to:
-    the tile (width 32, swapped, a ring block narrower than its tile), a mid-stage rounding
-    point, and for a wide block its A's mode (``config.wide_streams``; ``tma_a``: TMA reads
-    A), its height above 2048, the swapped walk, narrow columns, an edge inside a sub-tile
-    and more than 16384 columns."""
+    """The variant counters (keys of ``trace.LAUNCHES``) a launch of ``cfg`` at depth K adds
+    one to, 2-D and batched alike: the tile ('width32': bn <= 32; 'swapped': bm <= 32 over
+    bn 33..128; 'ring_narrow': a ring block narrower than its tile, an edge other than 32,
+    64 or 128, such as the sublane 16 or a cover of M < 16 or N < 128), a bf16-family carry
+    that rounds in the middle of a stage ('midstage': bk % 64 == 32), and for a wide block
+    its A's mode ('wide_streamed', ``config.wide_streams``; ``tma_a``: TMA reads A), its
+    height above WIDE_BM_CHOICES' largest ('wide_tall'), the swapped walk ('wide_swapped':
+    bm <= 32), narrow columns ('wide_narrow_n': bn < 128), an edge inside a sub-tile
+    ('wide_clipped': the covers of an unaligned M or N) and more than 16384 columns
+    ('wide_long')."""
     keys = []
     if cfg.bk % WGMMA_KSTAGE and cfg.acc_dtype == "bfloat16" and cdiv(k, cfg.bk) > 1:
-        keys.append("LAUNCHES_MIDSTAGE")
+        keys.append("midstage")
     if not cfg.wide:
         tm, tn = ring_edge(cfg.bm), ring_edge(cfg.bn)
         if tn == 32:
-            keys.append("LAUNCHES_WIDTH32")
+            keys.append("width32")
         elif tm == 32:
-            keys.append("LAUNCHES_SWAPPED")
+            keys.append("swapped")
         if (tm, tn) != (cfg.bm, cfg.bn):
-            keys.append("LAUNCHES_RING_NARROW")
+            keys.append("ring_narrow")
         return keys
     if wide_streams(cfg.bm, k, tma_a):
-        keys.append("LAUNCHES_WIDE_STREAMED")
+        keys.append("wide_streamed")
     if cfg.bm > WIDE_BM_CHOICES[-1]:
-        keys.append("LAUNCHES_WIDE_TALL")
+        keys.append("wide_tall")
     if cfg.bm <= WIDE_SWAP_M:
-        keys.append("LAUNCHES_WIDE_SWAPPED")
+        keys.append("wide_swapped")
     if cfg.bn < WIDE_SUB_N:
-        keys.append("LAUNCHES_WIDE_NARROW_N")
+        keys.append("wide_narrow_n")
     if ((cfg.bm > WIDE_SWAP_M and cfg.bm % wide_sub_m(cfg.bm))
             or (cfg.bn > WIDE_SUB_N and cfg.bn % WIDE_SUB_N)):
-        keys.append("LAUNCHES_WIDE_CLIPPED")
+        keys.append("wide_clipped")
     if cfg.bn > 16384:
-        keys.append("LAUNCHES_WIDE_LONG")
+        keys.append("wide_long")
     return keys
-#: The counter of each store (``launch_store``).
-STORE_COUNTER = {"tma": "LAUNCHES_C_TMA_STORE", "predicated": "LAUNCHES_C_PREDICATED"}
+#: The launch counter of each store of C (``launch_store``), 2-D, batched and staged, ring
+#: and wide: TMA from shared memory, or predicated stores from registers.
+STORE_COUNTER = {"tma": "c_tma_store", "predicated": "c_predicated"}
 
 
 def count_store(cfg: KernelConfig, m: int, n: int, out: torch.Tensor) -> None:
     """Add one to the counter of the store a launch just made (``launch_store``); the
     staged wrapper counts its launches here too."""
-    _GLOBALS[STORE_COUNTER[launch_store(cfg, m, n, out)]] += 1
+    COUNTS["launch", STORE_COUNTER[launch_store(cfg, m, n, out)]] += 1
 
 #: The C launcher of each output dtype.
 _LAUNCHERS = {torch.float32: "tl2_wgmma_f32out", torch.bfloat16: "tl2_wgmma_bf16out"}
@@ -424,7 +393,7 @@ def launch_kernel(a, rhs, cfg: KernelConfig, out: torch.Tensor, bias, activation
     if err:  # the message formats the config, so only on failure
         check_launch(err, f"{name} ({cfg} at batch={batch} m={m} n={n} k={k})")
     for key in launch_variants(cfg, k, bool(args[18])):
-        _GLOBALS[key] += 1
+        COUNTS["launch", key] += 1
     count_store(cfg, m, n, out)
     # launch_route's answer, read off the launch's own vec_a and vec_b
     tma = args[18] and args[19]
@@ -450,7 +419,7 @@ def _matmul(a, rhs, cfg: KernelConfig, out_dtype, out, bias=None, activation=Non
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     route = launch_kernel(a, rhs, cfg, out, bias, activation, batch, m, n, k)
-    _GLOBALS[COUNTER_OF[k > cfg.bk, route]] += 1
+    COUNTS[COUNTER_OF[False, k > cfg.bk, route]] += 1
     return out
 
 

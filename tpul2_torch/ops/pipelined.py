@@ -57,19 +57,8 @@ from tpul2_torch.ops._build import check_launch, load_library
 from tpul2_torch.ops.matmul import (_vector_ok, check_operands, count_store, cuda_matmul,
                                     cuda_matmul_tn, operand_producers, records_grad,
                                     refuse_out_under_grad)
+from tpul2_torch.trace import COUNTS
 from tpul2_torch.utils.padding import cdiv
-
-#: Launches of the staged kernel (the port of ``pipelined._kernel``) by route: the ring
-#: filled by TMA and by the loads producer; of the launches that split K (each also
-#: launches the split-K reduction); of those on a ring block with an edge of 32 or less;
-#: and at a wide block (the wide walk's staged sum).  Counted where a kernel is launched
-#: and nowhere else: not on the gk == 1 path.
-LAUNCHES_STAGED_RING = 0
-LAUNCHES_STAGED_RING_LSU = 0
-LAUNCHES_STAGED_SPLIT = 0
-LAUNCHES_STAGED_NARROW = 0
-LAUNCHES_STAGED_WIDE = 0
-
 
 class StagedNoVjp(torch.autograd.Function):
     """The staged kernel's output under autograd: ``forward(a, rhs)`` runs, and the backward
@@ -175,8 +164,6 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     a: (M, K).  The RHS follows ``config.rhs_layout``: (K, N) for 'kn', (N, K) for 'nk'.
     ``config.pipeline_depth`` (>= 2) is the ring depth.  All three dims must divide the
     blocks.  ``out=`` receives C in place."""
-    global LAUNCHES_STAGED_RING, LAUNCHES_STAGED_RING_LSU, LAUNCHES_STAGED_SPLIT
-    global LAUNCHES_STAGED_NARROW, LAUNCHES_STAGED_WIDE
     cfg = config or KernelConfig(pipeline_depth=2)
     if cfg.pipeline_depth < 2:
         raise ValueError("cuda_matmul_pipelined requires pipeline_depth >= 2 "
@@ -206,16 +193,16 @@ def cuda_matmul_pipelined(a: torch.Tensor, b_or_bt: torch.Tensor,
     elif not _vector_ok(out, n):
         raise ValueError("the staged kernel needs a 16-byte aligned out")
     launch_staged(a, b_or_bt, cfg, out, depth, m, n, k, splits)
+    # the staged kernel's launch counters (``trace.LAUNCHES``), counted here and nowhere
+    # else (not on the gk == 1 path): by route, a wide block's staged sum, a split (which
+    # also launches the reduction), a block with an edge of 32 or less
     count_store(cfg, m, n, out)  # a split's partials go out as C does: a fresh f32 workspace
     if cfg.wide:
-        LAUNCHES_STAGED_WIDE += 1
+        COUNTS["launch", "staged_wide"] += 1
         return out
-    if staged_route(cfg, a, b_or_bt, m, n, k) == "ring":
-        LAUNCHES_STAGED_RING += 1
-    else:
-        LAUNCHES_STAGED_RING_LSU += 1
+    COUNTS["launch", "staged_" + staged_route(cfg, a, b_or_bt, m, n, k)] += 1
     if splits > 1:
-        LAUNCHES_STAGED_SPLIT += 1
+        COUNTS["launch", "staged_split"] += 1
     if cfg.bm <= 32 or cfg.bn <= 32:
-        LAUNCHES_STAGED_NARROW += 1
+        COUNTS["launch", "staged_narrow"] += 1
     return out
